@@ -1,31 +1,46 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
 
-Drives the celeba128 keypoint-serving path of ``keypoints_tpu_torch`` at full
-width through its user entry points, with weights made from a seed:
+Drives the two ported paths of ``keypoints_tpu_torch`` at the full width of
+celeba128 through their user entry points, with weights made from a seed:
+the keypoint-serving path (``make_server``) and the training step
+(``init_state`` + ``make_train_step``, b128, bf16, augmentation inside).
 
-  1. device   torch/CUDA versions, ``nvidia-smi`` name and power limit
-  2. build    the soft-argmax kernel library, built from ``csrc/`` with nvcc
-  3. kernel   the CUDA soft-argmax against its plain PyTorch version on the
-              card: both variants, both align_corners, T in {1.0, 0.7}
-  4. parity   full-width KeyNet in float32 (TF32 off) against the JAX
-              keypoints committed in tests/data/torch_port_celeba128_extract.json
-  5. serve    ``make_server`` (celeba128, bf16, buckets 1 8 64 256) on a free
-              port, then a second one with ``--input-dtype uint8``; HTTP
-              requests, concurrent ones included, checked against the same
-              model with the plain soft-argmax; the kernel's launch count
-              over the whole serving run
-  6. times    CUDA-event medians: soft-argmax kernel vs plain, extract
-              images/s kernel path vs plain path, p50 latency of an n=1 request
-  7. profile  torch.profiler over the extract at b256 and b1024 and over live
-              n=1 and n=8 requests: device time against wall time, and the
-              ops that take the device time
+   1. device    torch/CUDA versions, ``nvidia-smi`` name and power limit
+   2. build     the one kernel library, every ``csrc/*.cu`` built by nvcc
+                (one process per source, in parallel), with ptxas's
+                register counts
+   3. kernel    the CUDA soft-argmax forward against its plain version:
+                both variants, both align_corners, T in {1.0, 0.7}
+   4. kernels   the training slice's kernels against their plain versions:
+                soft-argmax backward (both variants), Gaussian raster
+                forward and backward, bilinear warp (f32 and bf16, zeros and
+                border, both align_corners, b128 3x128^2 and a ragged case)
+   5. parity    full-width KeyNet in float32 (TF32 off) against the JAX
+                keypoints committed in tests/data/torch_port_celeba128_extract.json
+   6. serve     ``make_server`` (celeba128, bf16, buckets 1 8 64 256) on a free
+                port, then a second one with ``--input-dtype uint8``; HTTP
+                requests, concurrent ones included, checked against the same
+                model with the plain soft-argmax; launch counts of the run
+   7. train     full-width celeba128 in float32 (TF32 off), 3 train steps
+     parity     on the warps and jitter factors JAX drew, on the card and on
+                the CPU, against tests/data/torch_port_celeba128_train.json
+   8. train     full-width celeba128 at b128 in bf16, 30 steps with the
+                port's own draws: finite losses, float32 parameters, launch
+                counts of the run
+   9. times     CUDA-event medians: each kernel at the main paths' shapes
+                against its plain version (and F.grid_sample for the warp),
+                with its bound; extract images/s; train ms/step, frames/s
+  10. profile   torch.profiler over the extract (b256, b1024, live n=1 and
+                n=8) and over 5 train steps: device time against wall time,
+                the ops that take the device time, each kernel's share
 
 Run from a checkout:  python3 chip_smoke.py
-The last two lines of stdout are a JSON object of the kernels
-(``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``. Any failed
-check exits non-zero before either is printed; so does a machine without
-CUDA, or a copy of this file without the rest of the repository.
+The card's ``nvidia-smi`` line, then a JSON object of the kernels
+(``{"kernels": [...]}``), then ``{"ok": true, "device": {...}}`` are the
+last three lines of stdout. Any failed check exits non-zero before they are
+printed; so does a machine without CUDA, or a copy of this file without the
+rest of the repository.
 """
 
 from __future__ import annotations
@@ -44,28 +59,67 @@ sys.path.insert(0, str(ROOT))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from keypoints_tpu_torch.checkpoint import (load_model_state,  # noqa: E402
                                             state_dict_from_flax)
 from keypoints_tpu_torch.configs import get_config  # noqa: E402
+from keypoints_tpu_torch.data.augment import (pair_from_draws,  # noqa: E402
+                                              random_warp_field, warp_field)
+from keypoints_tpu_torch.kernels import _build  # noqa: E402
+from keypoints_tpu_torch.kernels import gaussian_cuda as gcu  # noqa: E402
 from keypoints_tpu_torch.kernels import spatial_softmax_cuda as ssc  # noqa: E402
+from keypoints_tpu_torch.kernels import warp_cuda as wcu  # noqa: E402
+from keypoints_tpu_torch.ops.gaussian import \
+    gaussian_maps as plain_gaussian  # noqa: E402
 from keypoints_tpu_torch.ops.spatial_softmax import \
     spatial_softmax as plain_softmax  # noqa: E402
+from keypoints_tpu_torch.ops.warp import grid_sample as plain_warp  # noqa: E402
+from keypoints_tpu_torch.ops.warp import upsample_field_aligned  # noqa: E402
 from keypoints_tpu_torch.serve import (build_parser, http_extract,  # noqa: E402
                                        http_meta, make_live_extract,
                                        make_server)
-from keypoints_tpu_torch.testing import (random_flax_params,  # noqa: E402
-                                         random_images)
-from keypoints_tpu_torch.training import build_model, make_extract_fn  # noqa: E402
+from keypoints_tpu_torch.testing import (bf16_ulp,  # noqa: E402
+                                         decode_f32, grad_norm_tolerance,
+                                         random_flax_params, random_images,
+                                         reference_draws,
+                                         reference_warp_draws)
+from keypoints_tpu_torch.training import (build_model,  # noqa: E402
+                                          freeze_for_inference, init_state,
+                                          make_extract_fn, make_train_step,
+                                          step_generator, warp_config)
 
-KERNEL_TOL = 2e-5      # f32 on both sides; only the order of the sums differs
+KERNEL_TOL = 2e-5      # soft-argmax forward: f32 both sides, sum order only
+GRAD_TOL = 1e-5        # soft-argmax backward, Gaussian maps, f32 warp
+RASTER_GRAD_RTOL = 1e-4  # Gaussian backward: sums over H*W in another order
 JAX_TOL = 1e-3         # docs/PARITY.md keypoint bar
+TRAIN_RTOL = 1e-4      # train parity: loss and grad_norm per step
+TRAIN_KP_TOL = 1e-4    # train parity: step-1 keypoints
+FIELD_TOL = 3e-5       # TPS field from JAX's draws: JAX's own f32 error
 SERVE_TOL = 1e-4       # same bf16 heatmaps, kernel vs plain soft-argmax
 BUCKETS = (1, 8, 64, 256)
 U8_BUCKETS = (1, 8)
+TRAIN_BATCH = 128      # bench.py's celeba128 train step
+TRAIN_STEPS = 30
 REFERENCE = ROOT / "tests" / "data" / "torch_port_celeba128_extract.json"
+TRAIN_REFERENCE = ROOT / "tests" / "data" / "torch_port_celeba128_train.json"
 META_KEYS = {"format", "version", "batches", "image_size", "channels",
              "num_keypoints", "input_dtype", "data_parallel_devices"}
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+F32_FLOPS = 67e12           # H100 SXM data sheet, float32 outside tensor cores
+
+# name -> (module, counter, source, TPU kernel it replaces, launches a step)
+KERNELS = {
+    "spatial_softmax_fwd": (ssc, "launches", "spatial_softmax.cu",
+                            "spatial_softmax_pallas.py:151", 1),
+    "spatial_softmax_bwd": (ssc, "bwd_launches", "spatial_softmax.cu",
+                            "spatial_softmax_pallas.py:157", 1),
+    "gaussian_fwd": (gcu, "launches", "gaussian.cu", "gaussian_pallas.py:32",
+                     1),
+    "gaussian_bwd": (gcu, "bwd_launches", "gaussian.cu",
+                     "gaussian_pallas.py:40", 1),
+    "warp_bilinear": (wcu, "launches", "warp.cu", "warp_pallas.py:93", 2),
+}
 
 
 class SmokeFailure(Exception):
@@ -79,6 +133,30 @@ def check(ok: bool, what: str) -> None:
 
 def phase(title: str) -> None:
     print(f"\n== {title}", flush=True)
+
+
+def reset_counts() -> None:
+    for mod, counter, *_ in KERNELS.values():
+        setattr(mod, counter, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(mod, counter)
+            for name, (mod, counter, *_) in KERNELS.items()}
+
+
+class NoTF32:
+    """TF32 off for cuDNN and matmul inside the block (float32 parity)."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cudnn.allow_tf32,
+                      torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = self.saved
 
 
 def cuda_median_ms(fn, runs: int = 25, reps: int = 1,
@@ -118,23 +196,26 @@ def device_phase() -> str:
                          capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
-    print(f"card: {card}  ({torch.cuda.get_device_name(0)}, "
-          f"{torch.cuda.device_count()} visible)", flush=True)
+    print(card, flush=True)
+    print(f"({torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} "
+          f"visible)", flush=True)
     return card
 
 
 def build_phase() -> None:
     phase("2 build")
     t0 = time.perf_counter()
-    ssc.load()
-    print(f"kernel library ready in {time.perf_counter() - t0:.2f}s",
-          flush=True)
-    if ssc.build_log.strip():
-        print(ssc.build_log.strip(), flush=True)
+    _build.load()
+    print(f"kernel library {_build.library_path().name} from "
+          f"{', '.join(p.name for p in _build.sources())} ready in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    for line in _build.build_log.splitlines():
+        if line.startswith("[") or "registers" in line or "spill" in line:
+            print(line.strip(), flush=True)
 
 
 def kernel_phase() -> float:
-    phase("3 kernel vs plain (CUDA soft-argmax, f32)")
+    phase("3 kernel vs plain (CUDA soft-argmax forward, f32)")
     rs = np.random.RandomState(0)
     worst = 0.0
     shapes = [(10, 32, 32), (2560, 32, 32), (10240, 32, 32), (40, 16, 16),
@@ -150,11 +231,11 @@ def kernel_phase() -> float:
                     want = plain_softmax(x, t, variant, align)
                     err = (got - want).abs().max().item()
                     worst = max(worst, err)
-                    print(f"N={n:5d} {h}x{w} {variant:8s} align={align!s:5s}"
-                          f" T={t}: max|d|={err:.3e}", flush=True)
                     check(err <= KERNEL_TOL, f"kernel vs plain {err} > "
                           f"{KERNEL_TOL} at N={n} {h}x{w} {variant} "
                           f"align={align} T={t}")
+        print(f"N={n:5d} {h}x{w}: 8 cases, max|d| so far {worst:.3e}",
+              flush=True)
     # a flat heatmap centres; a sharp corner peak lands on the corner
     flat = torch.zeros((1, 1, 8, 8), device="cuda")
     peak = torch.full((1, 1, 16, 16), -30.0, device="cuda")
@@ -170,25 +251,116 @@ def kernel_phase() -> float:
     return worst
 
 
+def _plain_grad(fn, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    x = x.detach().clone().requires_grad_(True)
+    (grad,) = torch.autograd.grad(fn(x), x, g)
+    return grad
+
+
+def training_kernels_phase() -> dict:
+    """The kernels of the train step against their plain versions (and
+    their autograd), at the main path's shapes and at ragged ones."""
+    phase("4 training-slice kernels vs plain")
+    rs = np.random.RandomState(1)
+    errs = {}
+
+    def record(name, err, tol, what):
+        errs[name] = max(errs.get(name, 0.0), err)
+        check(err <= tol, f"{name} {what}: {err} > {tol}")
+
+    # soft-argmax backward (K1b)
+    for b, k, h, w in [(128, 10, 32, 32), (1, 7, 13, 29), (2, 3, 64, 64),
+                       (3, 2, 1, 5)]:
+        x = torch.from_numpy((3 * rs.randn(b, k, h, w)).astype(np.float32))
+        x = x.cuda()
+        g = torch.from_numpy(rs.randn(b, k, 2).astype(np.float32)).cuda()
+        for variant in ("marginal", "joint"):
+            for align in (True, False):
+                kp = ssc.spatial_softmax_cuda(x, 0.7, variant, align)
+                got = ssc.spatial_softmax_bwd_cuda(x, kp, g, 0.7, variant,
+                                                   align)
+                torch.cuda.synchronize()
+                want = _plain_grad(lambda t: plain_softmax(
+                    t, 0.7, variant, align), x, g)
+                record("spatial_softmax_bwd", (got - want).abs().max().item(),
+                       GRAD_TOL, f"{b}x{k}x{h}x{w} {variant} align={align}")
+    print(f"soft-argmax backward: 16 cases, max|d| "
+          f"{errs['spatial_softmax_bwd']:.3e} (tolerance {GRAD_TOL})",
+          flush=True)
+
+    # Gaussian raster forward and backward (K2)
+    for n, h, w in [(1280, 32, 32), (6, 13, 29)]:
+        kp = torch.from_numpy((rs.rand(n, 2) * 2.2 - 1.1).astype(np.float32))
+        kp = kp.cuda()
+        g = torch.from_numpy(rs.randn(n, h, w).astype(np.float32)).cuda()
+        for align in (True, False):
+            maps = gcu.gaussian_fwd_cuda(kp, h, w, 0.1, align)
+            dkp = gcu.gaussian_bwd_cuda(kp, g, 0.1, align)
+            torch.cuda.synchronize()
+
+            def plain(t):
+                return plain_gaussian(t[None], h, w, 0.1, align)[0]
+            record("gaussian_fwd", (maps - plain(kp)).abs().max().item(),
+                   GRAD_TOL, f"N={n} {h}x{w} align={align}")
+            want = _plain_grad(plain, kp, g)
+            err = (dkp - want).abs().max().item()
+            errs["gaussian_bwd"] = max(errs.get("gaussian_bwd", 0.0), err)
+            scale = want.abs().max().item()
+            check(err <= RASTER_GRAD_RTOL * scale,
+                  f"gaussian_bwd N={n} {h}x{w} align={align}: {err} > "
+                  f"{RASTER_GRAD_RTOL} x {scale}")
+    print(f"Gaussian raster: forward max|d| {errs['gaussian_fwd']:.3e} "
+          f"(tolerance {GRAD_TOL}), backward max|d| {errs['gaussian_bwd']:.3e}"
+          f" (tolerance {RASTER_GRAD_RTOL} of the gradient's max)", flush=True)
+
+    # bilinear warp (K4)
+    for shape, out_hw in [((TRAIN_BATCH, 3, 128, 128), (128, 128)),
+                          ((2, 3, 13, 29), (11, 17))]:
+        img32 = torch.from_numpy(rs.rand(*shape).astype(np.float32)).cuda()
+        # points outside the image included: the grid spans [-1.2, 1.2]
+        grid = torch.from_numpy((rs.rand(shape[0], *out_hw, 2) * 2.4 - 1.2)
+                                .astype(np.float32)).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            img = img32.to(dtype)
+            for padding in ("zeros", "border"):
+                for align in (True, False):
+                    got = wcu.warp_bilinear_cuda(img, grid, padding, align)
+                    torch.cuda.synchronize()
+                    want = plain_warp(img, grid, padding, align)
+                    check(got.dtype == dtype, f"warp output {got.dtype}")
+                    diff = (got.float() - want.float()).abs()
+                    err = diff.max().item()
+                    errs["warp_bilinear"] = max(errs.get("warp_bilinear", 0.0),
+                                                err)
+                    what = f"{shape}->{out_hw} {dtype} {padding} align={align}"
+                    if dtype == torch.float32:
+                        check(err <= GRAD_TOL, f"warp {what}: {err}")
+                        lib = F.grid_sample(img, grid, "bilinear", padding,
+                                            align)
+                        check((got - lib).abs().max().item() <= GRAD_TOL,
+                              f"warp vs F.grid_sample {what}")
+                    else:
+                        check(bool((diff <= bf16_ulp(want)).all()),
+                              f"warp {what}: more than one bf16 ulp ({err})")
+    print(f"warp: 16 cases, max|d| {errs['warp_bilinear']:.3e} (f32 "
+          f"tolerance {GRAD_TOL}, bf16 within one bf16 ulp of plain)",
+          flush=True)
+    return errs
+
+
 def parity_phase() -> None:
-    phase("4 full-width celeba128 f32 vs committed JAX keypoints")
+    phase("5 full-width celeba128 f32 vs committed JAX keypoints")
     ref = json.loads(REFERENCE.read_text())
     cfg = get_config(ref["preset"]).override(
         **{"train.compute_dtype": "float32"})
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with NoTF32():
         model = build_model(cfg, "cuda")
         load_model_state(model, state_dict_from_flax(
             random_flax_params(cfg, ref["param_seed"])))
         images = random_images(ref["n_images"], cfg, ref["image_seed"])
-        kp = make_extract_fn(model)(torch.from_numpy(images).cuda())
+        kp = make_extract_fn(freeze_for_inference(model))(
+            torch.from_numpy(images).cuda())
         kp = kp.cpu().numpy()
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
     want = np.asarray(ref["keypoints"], np.float32)
     check(kp.shape == want.shape, f"shape {kp.shape} != {want.shape}")
     check(bool(np.isfinite(kp).all()), "non-finite keypoints")
@@ -218,8 +390,8 @@ def stop_server(httpd, batcher, thread) -> None:
 
 
 def serve_phase(tmp: str) -> dict:
-    """The main path: the servers' build, warm-up and every request."""
-    phase(f"5 serve (celeba128, bf16, float32 server on buckets "
+    """The serving path: the servers' build, warm-up and every request."""
+    phase(f"6 serve (celeba128, bf16, float32 server on buckets "
           f"{' '.join(map(str, BUCKETS))}, uint8 server on "
           f"{' '.join(map(str, U8_BUCKETS))})")
     cfg = get_config("celeba128")
@@ -239,6 +411,7 @@ def serve_phase(tmp: str) -> dict:
     # one that covers all concurrent rows, and is held to the closest.
     ref_model = build_model(cfg, "cuda")
     load_model_state(ref_model, state)
+    freeze_for_inference(ref_model)
     m = cfg.model
 
     def reference(images: np.ndarray, bucket: int) -> np.ndarray:
@@ -272,7 +445,7 @@ def serve_phase(tmp: str) -> dict:
               flush=True)
         check(err <= SERVE_TOL, f"{what}: {err} > {SERVE_TOL}")
 
-    ssc.launches = 0
+    reset_counts()
     server = start_server(ckpt, BUCKETS)
     url = f"http://localhost:{server[0].server_address[1]}"
     min_batches = len(BUCKETS)            # warm-up runs every bucket once
@@ -338,18 +511,212 @@ def serve_phase(tmp: str) -> dict:
     finally:
         stop_server(*server)
 
-    launches = ssc.launches
-    print(f"soft-argmax kernel launches during serving: {launches} "
-          f"(device batches >= {min_batches})", flush=True)
+    counts = read_counts()
+    launches = counts["spatial_softmax_fwd"]
+    print(f"kernel launches during serving: {counts} (device batches >= "
+          f"{min_batches})", flush=True)
     check(launches >= min_batches, f"kernel launched {launches} times for "
           f">= {min_batches} device batches")
     return {"launches": launches, "serve_max_abs_err": worst,
             "http_p50_ms": float(np.median(latencies)) * 1e3}
 
 
-def times_phase(card: str) -> dict:
-    phase(f"6 times on {card}")
+def train_parity_phase() -> None:
+    """3 full-width f32 steps on JAX's warps and factors, on the card (the
+    kernels) and on this machine's CPU (the plain versions), against the
+    committed JAX reference; and the port's TPS fields from JAX's draws."""
+    phase("7 train parity: full-width celeba128 f32 (TF32 off), 3 steps on "
+          "JAX's draws, card and CPU vs committed JAX reference")
+    ref = json.loads(TRAIN_REFERENCE.read_text())
+    cfg = get_config(ref["preset"]).override(**ref["overrides"])
+    fields = torch.from_numpy(decode_f32(ref["fields"], ref["fields_shape"]))
+    runs = {}
+    with NoTF32():
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            field_err = max(
+                (warp_field(d, warp_config(cfg)).cpu() - fields[i, j]).abs()
+                .max().item()
+                for i, step_draws in enumerate(reference_warp_draws(ref,
+                                                                    device))
+                for j, d in enumerate(step_draws))
+            print(f"{device}: TPS fields from JAX's draws, max|d| vs JAX's "
+                  f"fields {field_err:.3e} (tolerance {FIELD_TOL})",
+                  flush=True)
+            check(field_err <= FIELD_TOL, f"{device} TPS fields {field_err}")
+            state = init_state(cfg, device)
+            load_model_state(state.model, state_dict_from_flax(
+                random_flax_params(cfg, ref["param_seed"])))
+            images = torch.from_numpy(random_images(
+                ref["batch"], cfg, ref["image_seed"])).to(device)
+            draws = reference_draws(ref, device)
+            src, tgt = pair_from_draws(images, draws[0], warp_config(cfg))
+            with torch.no_grad():
+                kp = state.model(src, tgt)[1].cpu().numpy()
+            step = make_train_step(cfg)
+            losses, norms, grads = [], [], {}
+            for i, d in enumerate(draws):
+                state, metrics = step(state, images, d)
+                losses.append(metrics["loss"].item())
+                norms.append(metrics["grad_norm"].item())
+                if i == 0:
+                    grads = {k: p.grad.norm().item()
+                             for k, p in state.model.named_parameters()}
+            check(all(p.dtype == torch.float32
+                      for p in state.model.parameters()), "non-f32 params")
+            runs[device] = (kp, losses, norms, grads)
+            kp_err = float(np.abs(kp - np.asarray(ref["keypoints"])).max())
+            loss_rel = max(abs(a / b - 1) for a, b in zip(losses,
+                                                         ref["loss"]))
+            norm_rel = max(abs(a / b - 1) for a, b in zip(norms,
+                                                         ref["grad_norm"]))
+            worst_param = max(abs(grads[k] - v) / grad_norm_tolerance(
+                v, ref["grad_norm"][0]) for k, v in ref["grad_norms"].items())
+            print(f"{device}: losses {losses} grad_norms {norms} "
+                  f"({time.perf_counter() - t0:.1f}s)", flush=True)
+            print(f"{device} vs JAX: step-1 keypoints max|d| {kp_err:.3e} "
+                  f"(tolerance {TRAIN_KP_TOL}); loss rel {loss_rel:.3e}, "
+                  f"grad_norm rel {norm_rel:.3e} (tolerance {TRAIN_RTOL}); "
+                  f"per-parameter gradient norms at {worst_param:.3f} of "
+                  f"their tolerance", flush=True)
+            check(kp_err <= TRAIN_KP_TOL, f"{device} keypoints {kp_err}")
+            check(loss_rel <= TRAIN_RTOL, f"{device} loss rel {loss_rel}")
+            check(norm_rel <= TRAIN_RTOL, f"{device} grad_norm rel {norm_rel}")
+            check(grads.keys() == ref["grad_norms"].keys(), "parameter names")
+            check(worst_param <= 1.0, f"{device} per-parameter grad norms")
+    card, cpu = runs["cuda"], runs["cpu"]
+    print(f"card vs CPU: keypoints max|d| "
+          f"{float(np.abs(card[0] - cpu[0]).max()):.3e}, loss rel "
+          f"{max(abs(a / b - 1) for a, b in zip(card[1], cpu[1])):.3e}, "
+          f"grad_norm rel "
+          f"{max(abs(a / b - 1) for a, b in zip(card[2], cpu[2])):.3e}",
+          flush=True)
+
+
+def _train_setup(batch: int = TRAIN_BATCH):
+    cfg = get_config("celeba128").override(**{"train.batch_size": batch})
+    state = init_state(cfg, "cuda")
+    images = torch.from_numpy(random_images(batch, cfg, 4)).cuda()
+    return cfg, state, make_train_step(cfg), images
+
+
+def train_phase():
+    """The training path: ``TRAIN_STEPS`` steps, counts reset just before."""
+    phase(f"8 train (celeba128 full width, b{TRAIN_BATCH}, bf16, "
+          f"{TRAIN_STEPS} steps, the port's own draws)")
+    cfg, state, step, images = _train_setup()
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state, metrics = step(state, images)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    losses = torch.stack(losses).cpu().numpy()
+    print(f"{TRAIN_STEPS} steps in {wall:.2f}s (first steps include cuDNN's "
+          f"set-up); losses {losses[0]:.5f} -> {losses[-1]:.5f}, min "
+          f"{losses.min():.5f}", flush=True)
+    print(f"kernel launches during training: {counts}", flush=True)
+    check(bool(np.isfinite(losses).all()), f"non-finite losses {losses}")
+    check(all(p.dtype == torch.float32 for p in state.model.parameters()),
+          "parameters are not float32 after bf16 steps")
+    for name, (*_, per_step) in KERNELS.items():
+        check(counts[name] >= per_step * TRAIN_STEPS,
+              f"{name} launched {counts[name]} times in {TRAIN_STEPS} steps")
+    return counts, (cfg, state, step, images)
+
+
+def _bound(nbytes: int, flops: int) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_times_phase(card: str, trainer) -> dict:
+    """Each kernel at the train step's shapes (b128, K=10, 32^2 heatmaps,
+    3x128^2 bf16 images): device time by CUDA events with the calls queued
+    behind a sleep (inputs L2-warm), the plain version's time, the library
+    call's where there is one, and the bound."""
+    phase(f"9 times on {card}")
+    cfg, *_ = trainer
+    b, k, n = TRAIN_BATCH, cfg.model.num_keypoints, TRAIN_BATCH * 10
+    rs = np.random.RandomState(3)
+    x = torch.from_numpy((3 * rs.randn(b, k, 32, 32)).astype(np.float32))
+    x = x.cuda()
+    kp = ssc.spatial_softmax_cuda(x)
+    g_kp = torch.from_numpy(rs.randn(b, k, 2).astype(np.float32)).cuda()
+    g_maps = torch.from_numpy(rs.randn(n, 32, 32).astype(np.float32)).cuda()
+    kp_flat = kp.reshape(n, 2)
+    x_req = x.clone().requires_grad_(True)
+    kp_plain = plain_softmax(x_req)
+    kp_req = kp.clone().requires_grad_(True)
+    maps_plain = plain_gaussian(kp_req, 32, 32, 0.1, True)
+    img = torch.from_numpy(rs.rand(b, 3, 128, 128).astype(np.float32)).cuda()
+    img = img.to(torch.bfloat16)
+    field = random_warp_field(step_generator(0, 0, "cuda"), b,
+                              warp_config(cfg))
+    grid = upsample_field_aligned(field, 128, 128).contiguous()
+    grid_bf16 = grid.to(torch.bfloat16)
+    hw = 32 * 32
+    heat_bytes = n * hw * 4
+    cases = {
+        "spatial_softmax_fwd": (
+            lambda: ssc.spatial_softmax_cuda(x),
+            lambda: plain_softmax(x), None,
+            _bound(heat_bytes + n * 8, 3 * n * hw)),
+        "spatial_softmax_bwd": (
+            lambda: ssc.spatial_softmax_bwd_cuda(x, kp, g_kp),
+            lambda: torch.autograd.grad(kp_plain, x_req, g_kp,
+                                        retain_graph=True), None,
+            _bound(2 * heat_bytes + 2 * n * 8, 4 * n * hw)),
+        "gaussian_fwd": (
+            lambda: gcu.gaussian_fwd_cuda(kp_flat, 32, 32),
+            lambda: plain_gaussian(kp, 32, 32, 0.1, True), None,
+            _bound(heat_bytes + n * 8, 10 * n * hw)),
+        "gaussian_bwd": (
+            lambda: gcu.gaussian_bwd_cuda(kp_flat, g_maps),
+            lambda: torch.autograd.grad(maps_plain, kp_req,
+                                        g_maps.reshape(b, k, 32, 32),
+                                        retain_graph=True), None,
+            _bound(heat_bytes + 2 * n * 8, 14 * n * hw)),
+        "warp_bilinear": (
+            lambda: wcu.warp_bilinear_cuda(img, grid, "border", True),
+            lambda: plain_warp(img, grid, "border", True),
+            lambda: F.grid_sample(img, grid_bf16, "bilinear", "border", True),
+            _bound(2 * img.nelement() * img.element_size()
+                   + grid.nelement() * 4, 30 * b * 128 * 128
+                   + 8 * img.nelement())),
+    }
     out = {}
+    for name, (kernel, plain, library, (bound_ms, bound_by)) in cases.items():
+        k_ms = cuda_median_ms(kernel, reps=20)
+        p_ms = cuda_median_ms(plain, reps=5)
+        l_ms = cuda_median_ms(library, reps=20) if library else None
+        k_again = cuda_median_ms(kernel, reps=20)
+        out[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+        lib = f", library {l_ms * 1e3:.2f} us" if l_ms is not None else ""
+        print(f"{name}: kernel {k_ms * 1e3:.2f} us (again "
+              f"{k_again * 1e3:.2f}), plain {p_ms * 1e3:.2f} us{lib}; bound "
+              f"{bound_ms * 1e3:.2f} us by {bound_by} = "
+              f"{bound_ms / k_ms:.1%} of the kernel's time  [{card}]",
+              flush=True)
+    print("warp library call: F.grid_sample on the bf16 image takes only a "
+          "bf16 grid, so it reads the grid cast to bf16", flush=True)
+    img32 = img.float()
+    f32_k = cuda_median_ms(lambda: wcu.warp_bilinear_cuda(img32, grid,
+                                                          "border", True),
+                           reps=20)
+    f32_l = cuda_median_ms(lambda: F.grid_sample(img32, grid, "bilinear",
+                                                 "border", True), reps=20)
+    print(f"warp f32 image, same inputs: kernel {f32_k * 1e3:.2f} us, "
+          f"F.grid_sample {f32_l * 1e3:.2f} us  [{card}]", flush=True)
+    return out
+
+
+def softmax_and_extract_times(card: str) -> None:
     rs = np.random.RandomState(3)
     for n in (10, 2560, 10240):
         x = torch.from_numpy(rs.randn(n // 10, 10, 32, 32).astype(np.float32))
@@ -363,20 +730,17 @@ def times_phase(card: str) -> dict:
 
         kernel_ms = cuda_median_ms(kernel, reps=20)
         plain_ms = cuda_median_ms(plain, reps=20)
-        kernel_again = cuda_median_ms(kernel, reps=20)
         kernel_call = cuda_median_ms(kernel, queue_behind_sleep=False)
-        plain_call = cuda_median_ms(plain, queue_behind_sleep=False)
-        out[n] = (kernel_ms, plain_ms)
         print(f"soft-argmax marginal N={n} 32x32: device time kernel "
-              f"{kernel_ms * 1e3:.2f} us (again {kernel_again * 1e3:.2f}, "
-              f"{n * 32 * 32 * 4 / kernel_ms / 1e6:.0f} GB/s read), plain "
+              f"{kernel_ms * 1e3:.2f} us "
+              f"({n * 32 * 32 * 4 / kernel_ms / 1e6:.0f} GB/s read), plain "
               f"{plain_ms * 1e3:.2f} us; one call with launch: kernel "
-              f"{kernel_call * 1e3:.1f} us, plain {plain_call * 1e3:.1f} us"
-              f"  [{card}]", flush=True)
+              f"{kernel_call * 1e3:.1f} us  [{card}]", flush=True)
 
     cfg = get_config("celeba128")
     model = build_model(cfg, "cuda")
     load_model_state(model, state_dict_from_flax(random_flax_params(cfg, 0)))
+    freeze_for_inference(model)
     m = cfg.model
 
     def plain_path(images):
@@ -396,27 +760,84 @@ def times_phase(card: str) -> dict:
               f"images/s ({kernel_ms:.3f} ms, again {kernel_again:.3f} ms), "
               f"plain path {b / plain_ms * 1e3:.0f} images/s "
               f"({plain_ms:.3f} ms)  [{card}]", flush=True)
-    return out
 
 
-def profile_phase(card: str) -> None:
-    """Where the device time of an extract goes, by torch.profiler.
+def train_step_times(card: str, trainer) -> float:
+    """ms per train step by CUDA events around 20 steps, and by the host
+    clock to a synchronise; steps already warm."""
+    _, state, step, images = trainer
+    for _ in range(3):
+        state, _ = step(state, images)
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(20):
+            state, _ = step(state, images)
+        end.record()
+        end.synchronize()
+        runs.append((start.elapsed_time(end) / 20,
+                     (time.perf_counter() - t0) / 20 * 1e3))
+    ms = float(np.median([r[0] for r in runs]))
+    print(f"train step b{TRAIN_BATCH} bf16: {ms:.3f} ms/step by CUDA events "
+          f"(runs {', '.join(f'{r[0]:.3f}' for r in runs)}; host clock "
+          f"{', '.join(f'{r[1]:.3f}' for r in runs)}), "
+          f"{TRAIN_BATCH / ms * 1e3:.0f} frames/s  [{card}]", flush=True)
+    return ms
 
-    Wall time is taken by the host clock over the same calls without the
-    profiler; device time is the sum of the kernels and copies the profiler
-    saw on the card (one stream, so they do not overlap).
-    """
+
+def _profile(label: str, fn, calls: int, card: str, wall_ms: float,
+             kernels: dict) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not on_card:
+        print(f"{label}: wall {wall_ms:.3f} ms/call; device time not "
+              f"measured (the profiler saw no device events)  [{card}]",
+              flush=True)
+        return
+    device = sum(e.time_range.elapsed_us() for e in on_card) / calls / 1e3
+    shares = []
+    for name, keys in kernels.items():
+        t = sum(e.time_range.elapsed_us() for e in on_card
+                if any(key in e.name for key in keys)) / calls / 1e3
+        shares.append(f"{name} {t:.4f} ms ({t / device:.2%})")
+    print(f"{label}: wall {wall_ms:.3f} ms/call, device {device:.3f} "
+          f"ms/call, device idle {1 - device / wall_ms:.1%} of wall ({calls} "
+          f"calls)  [{card}]", flush=True)
+    if shares:
+        print("  kernels: " + "; ".join(shares), flush=True)
+    print(prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=15, max_name_column_width=50),
+          flush=True)
 
-    phase(f"7 profile on {card}")
+
+def profile_phase(card: str, trainer, step_ms: float) -> None:
+    """Where the device time goes, by torch.profiler. Wall time is taken
+    without the profiler over the same calls: by the host clock over calls
+    queued back to back (extract on the card), as the median of single
+    calls (live extract: each call ends in its D2H copy; the host's clock
+    is noisy on a shared machine, so the median of many), or by CUDA events
+    (train). Device time is the sum of the kernels and copies the profiler
+    saw on the card (one stream, so they do not overlap)."""
+    phase(f"10 profile on {card}")
     cfg = get_config("celeba128")
-    state = state_dict_from_flax(random_flax_params(cfg, 0))
+    state_dict = state_dict_from_flax(random_flax_params(cfg, 0))
     model = build_model(cfg, "cuda")
-    load_model_state(model, state)
-    live = make_live_extract(cfg, state, (1, 8), "cuda")
+    load_model_state(model, state_dict)
+    freeze_for_inference(model)
+    live = make_live_extract(cfg, state_dict, (1, 8), "cuda")
+    softargmax = {"soft-argmax": ("marginal_fwd", "joint_fwd")}
 
-    def run(label: str, fn, calls: int) -> None:
+    def wall(fn, calls):
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
@@ -424,62 +845,77 @@ def profile_phase(card: str) -> None:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / calls * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        on_card = [e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA]
-        if not on_card:
-            print(f"{label}: wall {wall:.3f} ms/call; device time not "
-                  f"measured (the profiler saw no device events)  [{card}]",
-                  flush=True)
-            return
-        device = sum(e.time_range.elapsed_us() for e in on_card) / calls / 1e3
-        softargmax = sum(e.time_range.elapsed_us() for e in on_card
-                         if "marginal_fwd" in e.name or "joint_fwd" in e.name)
-        softargmax /= calls * 1e3
-        print(f"{label}: wall {wall:.3f} ms/call, device {device:.3f} ms/call,"
-              f" device idle {1 - device / wall:.1%} of wall, soft-argmax "
-              f"kernel {softargmax:.4f} ms/call ({calls} calls)  [{card}]",
-              flush=True)
-        print(prof.key_averages().table(sort_by="self_device_time_total",
-                                        row_limit=12,
-                                        max_name_column_width=50), flush=True)
+        return (time.perf_counter() - t0) / calls * 1e3
+
+    def median_call(fn, calls=200):
+        for _ in range(20):
+            fn()
+        times = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times)) * 1e3
 
     rs = np.random.RandomState(5)
     with torch.inference_mode():
         for b in (256, 1024):
             images = torch.from_numpy(random_images(b, cfg, 4)).cuda()
-            run(f"extract b{b} bf16, images on the card",
-                lambda: model.extract_keypoints(images), 5)
+            fn = (lambda: model.extract_keypoints(images))
+            _profile(f"extract b{b} bf16, images on the card", fn, 5, card,
+                     wall(fn, 5), softargmax)
     for n in (1, 8):
         images = rs.rand(n, 3, 128, 128).astype(np.float32)
-        run(f"live extract n={n} (H2D, Psi, soft-argmax, D2H)",
-            lambda: live(images), 20)
+        fn = (lambda: live(images))
+        _profile(f"live extract n={n} (H2D, Psi, soft-argmax, D2H; wall = "
+                 f"median of 200 calls)", fn, 20, card, median_call(fn),
+                 softargmax)
+
+    _, state, step, images = trainer
+
+    def train_step():
+        step(state, images)
+
+    _profile(f"train step b{TRAIN_BATCH} bf16 (wall = CUDA-event ms/step)",
+             train_step, 5, card, step_ms,
+             {"soft-argmax fwd": ("marginal_fwd",),
+              "soft-argmax bwd": ("marginal_bwd",),
+              "raster fwd": ("gaussian_fwd",),
+              "raster bwd": ("gaussian_bwd",),
+              "warp": ("warp_bilinear",)})
 
 
 def main() -> int:
     card = device_phase()
     build_phase()
-    worst = kernel_phase()
+    softmax_err = kernel_phase()
+    errs = training_kernels_phase()
+    errs["spatial_softmax_fwd"] = softmax_err
     parity_phase()
     with tempfile.TemporaryDirectory() as tmp:
         served = serve_phase(tmp)
-    softmax_times = times_phase(card)
+    train_parity_phase()
+    train_counts, trainer = train_phase()
+    times = kernel_times_phase(card, trainer)
+    softmax_and_extract_times(card)
+    step_ms = train_step_times(card, trainer)
     print(f"http n=1 latency p50 {served['http_p50_ms']:.3f} ms "
           f"(30 requests, host clock)  [{card}]", flush=True)
-    profile_phase(card)
-    kernel_ms, plain_ms = softmax_times[2560]
-    print(json.dumps({"kernels": [{
-        "name": "spatial_softmax_fwd", "route": "cuda",
-        "source": "keypoints_tpu_torch/csrc/spatial_softmax.cu",
-        "replaces": "keypoints_tpu/kernels/spatial_softmax_pallas.py:267",
-        "launches": served["launches"],
-        "max_abs_err": max(worst, served["serve_max_abs_err"]),
-        "ms": kernel_ms, "plain_ms": plain_ms}]}), flush=True)
+    profile_phase(card, trainer, step_ms)
+
+    errs["spatial_softmax_fwd"] = max(errs["spatial_softmax_fwd"],
+                                      served["serve_max_abs_err"])
+    launches = dict(train_counts)
+    launches["spatial_softmax_fwd"] += served["launches"]
+    kernels = [{
+        "name": name, "route": "cuda",
+        "source": f"keypoints_tpu_torch/csrc/{source}",
+        "replaces": f"keypoints_tpu/kernels/{replaces}",
+        "launches": launches[name], "max_abs_err": errs[name],
+        **times[name]} for name, (_, _, source, replaces, _)
+        in KERNELS.items()]
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,17 +1,16 @@
 """Weights from the JAX package — port of ``keypoints_tpu/checkpoint.py:103-153``.
 
 The port's modules carry the flax parameter paths as names
-(``keynet.trunk.Conv_0.weight``, ``keynet.trunk.GroupNorm_0.weight``,
-``keynet.head.bias``, ...), so a state dict written by ``keypoints-convert
+(``encoder.Conv_0.weight``, ``keynet.trunk.GroupNorm_0.weight``,
+``decoder.head.bias``, ...), so a state dict written by ``keypoints-convert
 export-torch`` with no ``--rename`` loads as it is:
 
 * ``state_dict_from_flax(params)`` turns nested flax params (numpy arrays,
   or anything ``np.asarray`` takes) into that state dict — conv kernels
   HWIO → OIHW, ``kernel``/``scale`` → ``weight`` — with numpy alone;
 * ``load_checkpoint(path)`` reads a ``.pt`` state dict;
-* ``load_model_state(model, state_dict)`` loads the ``keynet.*`` keys with
-  ``strict=True``, sets the ``encoder.*``/``decoder.*`` keys aside (the
-  extract model has no Φ or decoder yet) and raises on any other key.
+* ``load_model_state(model, state_dict)`` loads ``encoder.*``, ``keynet.*``
+  and ``decoder.*`` into the full autoencoder with ``strict=True``.
 """
 
 from __future__ import annotations
@@ -21,9 +20,6 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 from torch import nn
-
-#: state-dict prefixes of the autoencoder parts the extract model lacks
-SET_ASIDE = ("encoder.", "decoder.")
 
 
 def _invert_leaf(leaf: str, value: np.ndarray) -> tuple[str, np.ndarray]:
@@ -68,17 +64,20 @@ def load_checkpoint(path: str) -> dict[str, torch.Tensor]:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def load_model_state(model: nn.Module, state_dict: Mapping) -> dict:
-    """Load ``keynet.*`` into ``model`` (strict); → the set-aside entries."""
-    own, aside = {}, {}
+def load_model_state(model: nn.Module, state_dict: Mapping) -> None:
+    """Load a full state dict into ``model`` with ``strict=True``.
+
+    A key the model does not have raises ``KeyError``; a key it has and the
+    dict lacks raises torch's ``RuntimeError``. Values may be tensors or
+    numpy arrays; each is copied into the parameter in place, in the
+    parameter's dtype and on its device.
+    """
+    own = model.state_dict()
+    tensors = {}
     for key, value in state_dict.items():
-        if key.startswith("keynet."):
-            own[key] = (value if isinstance(value, torch.Tensor)
+        if key not in own:
+            raise KeyError(f"unexpected state-dict key {key!r}: the model "
+                           f"has encoder.*, keynet.* and decoder.*")
+        tensors[key] = (value if isinstance(value, torch.Tensor)
                         else torch.from_numpy(np.array(value)))
-        elif key.startswith(SET_ASIDE):
-            aside[key] = value
-        else:
-            raise KeyError(f"unexpected state-dict key {key!r}: the port "
-                           f"knows keynet.*, and sets {SET_ASIDE} aside")
-    model.load_state_dict(own, strict=True)
-    return aside
+    model.load_state_dict(tensors, strict=True)

@@ -3,8 +3,14 @@
 A CUDA tensor goes to the kernel, a CPU tensor to the kernel's plain PyTorch
 version (``keypoints_tpu_torch.ops``), and any other device raises. There is
 no switch that forces the plain path on CUDA and no fallback when a launch
-fails. The kernel modules (``spatial_softmax_cuda``: its wrapper, build and
-launch count) are submodules of this package.
+fails. The kernel modules (``spatial_softmax_cuda``, ``gaussian_cuda``,
+``warp_cuda``: wrappers, autograd Functions and launch counts) are
+submodules of this package; ``_build`` builds the one library they share.
+
+The TPU dispatch rules of ``keypoints_tpu/kernels/__init__.py`` (the B=1
+marginal routing, ``xla_only``, the lane-tile width limits, the joint-only
+fused bottleneck) work around XLA:TPU and Mosaic and have no counterpart
+here.
 """
 
 from __future__ import annotations
@@ -12,8 +18,19 @@ from __future__ import annotations
 import torch
 
 from keypoints_tpu_torch.coords import DEFAULT_ALIGN_CORNERS
-from keypoints_tpu_torch.kernels import spatial_softmax_cuda
+from keypoints_tpu_torch.kernels import (gaussian_cuda, spatial_softmax_cuda,
+                                         warp_cuda)
+from keypoints_tpu_torch.ops.gaussian import gaussian_maps as _plain_gaussian
 from keypoints_tpu_torch.ops.spatial_softmax import spatial_softmax as _plain
+from keypoints_tpu_torch.ops.warp import grid_sample as _plain_grid_sample
+
+
+def _on_cuda(t: torch.Tensor, what: str) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no {what} for device {t.device}")
 
 
 def spatial_softmax(heatmaps: torch.Tensor, temperature: float = 1.0,
@@ -22,16 +39,56 @@ def spatial_softmax(heatmaps: torch.Tensor, temperature: float = 1.0,
                     ) -> torch.Tensor:
     """Soft-argmax ``(B, K, H, W) -> (B, K, 2)``, kernel on CUDA, plain on CPU.
 
-    Both variants and every batch size take the kernel on CUDA; the JAX
-    dispatcher's B=1 marginal routing works around an XLA:TPU miscompile
-    that has no counterpart here.
+    Differentiable on both: on CUDA through ``SpatialSoftmax``, whose
+    backward is the CUDA backward kernel. Both variants and every batch size
+    take the kernel on CUDA.
     """
-    if heatmaps.device.type == "cuda":
-        return spatial_softmax_cuda.spatial_softmax_cuda(
+    if _on_cuda(heatmaps, "soft-argmax"):
+        return spatial_softmax_cuda.spatial_softmax_autograd(
             heatmaps, temperature, variant, align_corners)
-    if heatmaps.device.type == "cpu":
-        return _plain(heatmaps, temperature, variant, align_corners)
-    raise ValueError(f"no soft-argmax for device {heatmaps.device}")
+    return _plain(heatmaps, temperature, variant, align_corners)
 
 
-__all__ = ["spatial_softmax", "spatial_softmax_cuda"]
+def gaussian_maps(keypoints: torch.Tensor, height: int, width: int,
+                  sigma: float = 0.1,
+                  align_corners: bool = DEFAULT_ALIGN_CORNERS) -> torch.Tensor:
+    """Gaussian raster ``(B, K, 2) -> (B, K, H, W)``, kernel on CUDA (forward
+    and backward), plain on CPU."""
+    if _on_cuda(keypoints, "Gaussian raster"):
+        return gaussian_cuda.gaussian_maps_cuda(keypoints, height, width,
+                                                sigma, align_corners)
+    return _plain_gaussian(keypoints, height, width, sigma, align_corners)
+
+
+def warp_sample(image: torch.Tensor, grid: torch.Tensor,
+                padding_mode: str = "zeros",
+                align_corners: bool = DEFAULT_ALIGN_CORNERS) -> torch.Tensor:
+    """Bilinear warp for the data path (augmentation, no gradient): the CUDA
+    warp on CUDA, ``ops.warp.grid_sample`` on CPU. Output in the image's
+    dtype. The TPU path's ``y_window`` band has no counterpart (see
+    ``warp_cuda``)."""
+    if _on_cuda(image, "warp"):
+        return warp_cuda.warp_bilinear_cuda(image.contiguous(),
+                                            grid.float().contiguous(),
+                                            padding_mode, align_corners)
+    return _plain_grid_sample(image, grid, padding_mode, align_corners)
+
+
+def extract_and_render(heatmaps: torch.Tensor, out_height: int,
+                       out_width: int, temperature: float = 1.0,
+                       sigma: float = 0.1, variant: str = "marginal",
+                       align_corners: bool = DEFAULT_ALIGN_CORNERS
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The keypoint bottleneck: heatmaps → (keypoints, Gaussian maps).
+
+    The soft-argmax, then the raster, for both variants; on CUDA each is its
+    own kernel pair. The fused kernel of the TPU's joint path
+    (``softargmax_raster_fused``) is not ported yet.
+    """
+    kp = spatial_softmax(heatmaps, temperature, variant, align_corners)
+    return kp, gaussian_maps(kp, out_height, out_width, sigma, align_corners)
+
+
+__all__ = ["spatial_softmax", "gaussian_maps", "warp_sample",
+           "extract_and_render", "spatial_softmax_cuda", "gaussian_cuda",
+           "warp_cuda"]

@@ -34,7 +34,8 @@ import torch
 from keypoints_tpu_torch.checkpoint import load_checkpoint, load_model_state
 from keypoints_tpu_torch.configs import Config, apply_overrides, get_config
 from keypoints_tpu_torch.export import BucketedExtract
-from keypoints_tpu_torch.training import build_model, make_extract_fn
+from keypoints_tpu_torch.training import (build_model, freeze_for_inference,
+                                          make_extract_fn)
 
 
 class BatchingExtractor:
@@ -263,9 +264,11 @@ def make_live_extract(cfg: Config, state_dict: dict | None,
 
     The model is built on ``device`` and its parameters uploaded once
     (``state_dict`` as ``checkpoint.load_model_state`` takes it; None keeps
-    the seeded random init). Each bucket's function uploads the padded
-    request host→device, rescales uint8 /255 on the device, runs Ψ and the
-    soft-argmax, and returns the (n, K, 2) keypoints as a numpy array.
+    the seeded random init), and the conv weights are cast to the compute
+    dtype once (``training.freeze_for_inference``). Each bucket's function
+    uploads the padded request host→device, rescales uint8 /255 on the
+    device, runs Ψ and the soft-argmax, and returns the (n, K, 2) keypoints
+    as a numpy array.
     """
     sizes = sorted({int(b) for b in batches})
     if not sizes or sizes[0] < 1:
@@ -277,7 +280,7 @@ def make_live_extract(cfg: Config, state_dict: dict | None,
     model = build_model(cfg, device)
     if state_dict is not None:
         load_model_state(model, state_dict)
-    extract = make_extract_fn(model)
+    extract = make_extract_fn(freeze_for_inference(model))
 
     def fn(images: np.ndarray) -> np.ndarray:
         x = torch.from_numpy(images).to(device)

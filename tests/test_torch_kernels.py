@@ -1,4 +1,8 @@
-"""The CUDA soft-argmax kernel against its plain PyTorch version, on the GPU.
+"""The CUDA kernels against their plain PyTorch versions, on the GPU.
+
+The soft-argmax forward and backward, the Gaussian raster forward and
+backward, and the bilinear warp; their dispatchers and autograd Functions;
+launch counts; rejections; and a backward through the full model.
 
 Marked ``cuda``: every test skips where ``torch.cuda.is_available()`` is
 false (a CUDA kernel has no CPU mode). The kernel is built with nvcc at
@@ -12,9 +16,18 @@ import numpy as np
 import pytest
 import torch
 
-from keypoints_tpu_torch.kernels import spatial_softmax
+import torch.nn.functional as F
+
+from keypoints_tpu_torch.configs import get_config
+from keypoints_tpu_torch.kernels import gaussian_cuda as gc
 from keypoints_tpu_torch.kernels import spatial_softmax_cuda as ssc
+from keypoints_tpu_torch.kernels import (gaussian_maps, spatial_softmax,
+                                         warp_cuda, warp_sample)
+from keypoints_tpu_torch.ops.gaussian import gaussian_maps as plain_gaussian
 from keypoints_tpu_torch.ops.spatial_softmax import spatial_softmax as plain
+from keypoints_tpu_torch.ops.warp import grid_sample as plain_warp
+from keypoints_tpu_torch.testing import bf16_ulp
+from keypoints_tpu_torch.training import build_model
 
 pytestmark = pytest.mark.cuda
 
@@ -95,3 +108,162 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         ssc.spatial_softmax_cuda(_heatmaps(1, 1, 65, 8, cuda))
     with pytest.raises(ValueError, match="variant"):
         ssc.spatial_softmax_cuda(x, variant="mean")
+
+
+# --- soft-argmax backward (K1b) ----------------------------------------------
+
+def _plain_grad(x, g, temperature, variant, align):
+    x = x.clone().requires_grad_(True)
+    (plain(x, temperature, variant, align) * g).sum().backward()
+    return x.grad
+
+
+@pytest.mark.parametrize("align", [True, False])
+@pytest.mark.parametrize("variant", ["marginal", "joint"])
+@pytest.mark.parametrize("shape", [(128, 10, 32, 32), (1, 7, 13, 29),
+                                   (2, 3, 64, 64), (3, 2, 1, 5)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_softmax_backward_matches_plain_autograd(cuda, shape, variant, align):
+    x = _heatmaps(*shape, cuda, seed=3)
+    g = torch.from_numpy(np.random.RandomState(4).randn(
+        *shape[:2], 2).astype(np.float32)).to(cuda)
+    kp = ssc.spatial_softmax_cuda(x, 0.7, variant, align)
+    before = ssc.bwd_launches
+    got = ssc.spatial_softmax_bwd_cuda(x, kp, g, 0.7, variant, align)
+    torch.cuda.synchronize()
+    assert ssc.bwd_launches == before + 1
+    want = _plain_grad(x, g, 0.7, variant, align)
+    assert got.shape == x.shape
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("variant", ["marginal", "joint"])
+def test_dispatcher_keypoints_carry_the_kernel_gradient(cuda, variant):
+    x = _heatmaps(4, 10, 32, 32, cuda, seed=5).requires_grad_(True)
+    fwd, bwd = ssc.launches, ssc.bwd_launches
+    kp = spatial_softmax(x, 1.0, variant, True)
+    assert kp.grad_fn is not None
+    g = torch.randn_like(kp)
+    (kp * g).sum().backward()
+    torch.cuda.synchronize()
+    assert (ssc.launches, ssc.bwd_launches) == (fwd + 1, bwd + 1)
+    want = _plain_grad(x.detach(), g, 1.0, variant, True)
+    assert (x.grad - want).abs().max().item() <= 1e-5
+
+
+# --- Gaussian raster (K2) -------------------------------------------------------
+
+@pytest.mark.parametrize("align", [True, False])
+@pytest.mark.parametrize("shape", [(128, 10, 32, 32), (2, 3, 13, 29)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_gaussian_forward_and_backward_match_plain(cuda, shape, align):
+    b, k, h, w = shape
+    rs = np.random.RandomState(6)
+    kp = torch.from_numpy((rs.rand(b, k, 2) * 2.2 - 1.1).astype(
+        np.float32)).to(cuda)
+    g = torch.from_numpy(rs.randn(b, k, h, w).astype(np.float32)).to(cuda)
+    fwd, bwd = gc.launches, gc.bwd_launches
+    x = kp.clone().requires_grad_(True)
+    maps = gaussian_maps(x, h, w, 0.1, align)
+    assert maps.grad_fn is not None
+    (maps * g).sum().backward()
+    torch.cuda.synchronize()
+    assert (gc.launches, gc.bwd_launches) == (fwd + 1, bwd + 1)
+    ref = kp.clone().requires_grad_(True)
+    want = plain_gaussian(ref, h, w, 0.1, align)
+    (want * g).sum().backward()
+    assert (maps - want).abs().max().item() <= 1e-5
+    # the sums over H*W run in another order: 1e-4 of the gradient's scale
+    scale = ref.grad.abs().max().item()
+    assert (x.grad - ref.grad).abs().max().item() <= 1e-4 * scale
+
+
+# --- bilinear warp (K4) ----------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("align", [True, False])
+@pytest.mark.parametrize("padding", ["zeros", "border"])
+@pytest.mark.parametrize("case", [((128, 3, 128, 128), (128, 128)),
+                                  ((2, 3, 13, 29), (11, 17))],
+                         ids=["b128-128", "ragged"])
+def test_warp_matches_plain_and_grid_sample(cuda, case, padding, align,
+                                            dtype):
+    shape, out_hw = case
+    rs = np.random.RandomState(7)
+    img = torch.from_numpy(rs.rand(*shape).astype(np.float32)).to(cuda)
+    img = img.to(dtype)
+    # points outside the image included: the grid spans [-1.2, 1.2]
+    grid = torch.from_numpy((rs.rand(shape[0], *out_hw, 2) * 2.4 - 1.2)
+                            .astype(np.float32)).to(cuda)
+    before = warp_cuda.launches
+    got = warp_sample(img, grid, padding, align)
+    torch.cuda.synchronize()
+    assert warp_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (shape[0], 3, *out_hw)
+    want = plain_warp(img, grid, padding, align)
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-5
+        lib = F.grid_sample(img, grid, "bilinear", padding, align)
+        assert (got - lib).abs().max().item() <= 1e-5
+    else:
+        assert bool((err <= bf16_ulp(want)).all())
+
+
+def test_warp_identity_grid_returns_the_image(cuda):
+    from keypoints_tpu_torch.coords import coord_grid
+    img = torch.rand((2, 3, 16, 16), device=cuda)
+    ident = coord_grid(16, 16, device=cuda).expand(2, 16, 16, 2).contiguous()
+    out = warp_cuda.warp_bilinear_cuda(img, ident, "border", True)
+    assert (out - img).abs().max().item() <= 1e-5
+
+
+# --- what the wrappers refuse ------------------------------------------------------
+
+def test_new_wrappers_reject_what_they_do_not_take(cuda):
+    img = torch.rand((2, 3, 8, 8), device=cuda)
+    grid = torch.zeros((2, 4, 4, 2), device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        warp_cuda.warp_bilinear_cuda(img.half(), grid)
+    with pytest.raises(ValueError, match="contiguous"):
+        warp_cuda.warp_bilinear_cuda(img.transpose(2, 3), grid)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        warp_cuda.warp_bilinear_cuda(img.cpu(), grid)
+    with pytest.raises(ValueError, match="padding_mode"):
+        warp_cuda.warp_bilinear_cuda(img, grid, "reflection")
+    with pytest.raises(ValueError, match="grid"):
+        warp_cuda.warp_bilinear_cuda(img, grid[:1].contiguous())
+    kp = torch.zeros((6, 2), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        gc.gaussian_fwd_cuda(kp.double(), 8, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        gc.gaussian_fwd_cuda(kp.cpu(), 8, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        gc.gaussian_bwd_cuda(kp, torch.zeros((6, 8, 8), device=cuda)
+                             .transpose(1, 2))
+    x = _heatmaps(2, 3, 8, 8, cuda)
+    with pytest.raises(ValueError, match="keypoints"):
+        ssc.spatial_softmax_bwd_cuda(x, torch.zeros((2, 3, 3), device=cuda),
+                                     torch.zeros((2, 3, 2), device=cuda))
+
+
+# --- the model on the card --------------------------------------------------------
+
+def test_backward_through_forward_reaches_every_parameter(cuda):
+    """Full-width celeba128 in bf16 compute: the loss's gradient reaches
+    every (float32) parameter through the kernels and is finite."""
+    cfg = get_config("celeba128")
+    model = build_model(cfg, cuda)
+    x = torch.rand((2, 3, 128, 128), device=cuda)
+    y = torch.rand((2, 3, 128, 128), device=cuda)
+    counts = (ssc.launches, ssc.bwd_launches, gc.launches, gc.bwd_launches)
+    recon, kp = model(x, y)
+    ((recon - y) ** 2).mean().backward()
+    torch.cuda.synchronize()
+    assert (ssc.launches, ssc.bwd_launches, gc.launches, gc.bwd_launches) \
+        == tuple(c + 1 for c in counts)
+    for name, p in model.named_parameters():
+        assert p.dtype == torch.float32, name
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
+    assert model.keynet.trunk.Conv_0.weight.grad.abs().sum().item() > 0

@@ -52,7 +52,7 @@ def _jax(overrides: dict, params: dict, images: np.ndarray):
 
 def _port(overrides: dict, params: dict, images: np.ndarray):
     """The port's keypoints and heatmaps on the CPU, same config and params."""
-    model = build_model(get_config("celeba128").override(**overrides))
+    model = build_model(get_config("celeba128").override(**overrides), "cpu")
     load_model_state(model, state_dict_from_flax(params))
     x = torch.from_numpy(images)
     with torch.inference_mode():

@@ -93,3 +93,118 @@ def test_coords_match_jax(n, align):
         np.testing.assert_allclose(
             coords.normalized_to_pixel(coords.axis_coords(n, align), n,
                                        align), idx, atol=1e-5)
+
+
+# --- the training slice's kernels: the plain versions against JAX ----------
+
+import jax  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from keypoints_tpu.kernels.gaussian_pallas import gaussian_maps_pallas  # noqa: E402
+from keypoints_tpu.kernels.warp_pallas import warp_bilinear_pallas  # noqa: E402
+from keypoints_tpu.ops.gaussian import gaussian_maps as jax_gaussian  # noqa: E402
+from keypoints_tpu.ops.warp import grid_sample as jax_grid_sample  # noqa: E402
+from keypoints_tpu_torch.kernels import extract_and_render  # noqa: E402
+from keypoints_tpu_torch.kernels import gaussian_maps as gaussian_dispatch  # noqa: E402
+from keypoints_tpu_torch.kernels import warp_sample  # noqa: E402
+from keypoints_tpu_torch.ops.gaussian import gaussian_maps  # noqa: E402
+from keypoints_tpu_torch.ops.warp import grid_sample  # noqa: E402
+
+
+def _warp_inputs(shape, out_hw, seed):
+    rs = np.random.RandomState(seed)
+    img = rs.rand(*shape).astype(np.float32)
+    # out-of-image points included: the grid spans [-1.2, 1.2]
+    grid = (rs.rand(shape[0], *out_hw, 2) * 2.4 - 1.2).astype(np.float32)
+    return img, grid
+
+
+@pytest.mark.parametrize("padding", ["zeros", "border"])
+@pytest.mark.parametrize("align", [True, False])
+def test_plain_warp_matches_pallas_and_grid_sample(padding, align):
+    img, grid = _warp_inputs((2, 3, 32, 48), (24, 40), seed=11)
+    got = grid_sample(torch.from_numpy(img), torch.from_numpy(grid), padding,
+                      align)
+    pallas = warp_bilinear_pallas(jnp.asarray(img), jnp.asarray(grid),
+                                  padding, align, interpret=True)
+    torch_ref = F.grid_sample(torch.from_numpy(img), torch.from_numpy(grid),
+                              "bilinear", padding, align)
+    assert got.dtype == torch.float32 and got.shape == (2, 3, 24, 40)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), torch_ref.numpy(), atol=ATOL)
+
+
+@pytest.mark.parametrize("padding", ["zeros", "border", "reflection"])
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+def test_plain_warp_ragged_matches_jax(mode, padding):
+    """The ragged case of the CUDA tests (2x3x13x29 -> 11x17), every mode."""
+    img, grid = _warp_inputs((2, 3, 13, 29), (11, 17), seed=12)
+    for align in (True, False):
+        got = grid_sample(torch.from_numpy(img), torch.from_numpy(grid),
+                          padding, align, mode).numpy()
+        want = jax_grid_sample(jnp.asarray(img), jnp.asarray(grid), padding,
+                               align, mode)
+        np.testing.assert_allclose(got, np.asarray(want), atol=ATOL)
+
+
+def test_plain_warp_keeps_bf16_and_rounds_once():
+    img, grid = _warp_inputs((2, 3, 16, 16), (8, 8), seed=13)
+    x = torch.from_numpy(img).to(torch.bfloat16)
+    got = grid_sample(x, torch.from_numpy(grid), "border", True)
+    want = grid_sample(x.float(), torch.from_numpy(grid), "border", True)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, want.to(torch.bfloat16), rtol=0, atol=0)
+    torch.testing.assert_close(warp_sample(x, torch.from_numpy(grid),
+                                           "border", True), got,
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("align", [True, False])
+def test_plain_gaussian_and_grad_match_pallas(align):
+    rs = np.random.RandomState(14)
+    kp = (rs.rand(2, 5, 2) * 2.2 - 1.1).astype(np.float32)
+    g = rs.randn(2, 5, 16, 12).astype(np.float32)
+    x = torch.from_numpy(kp).requires_grad_(True)
+    maps = gaussian_maps(x, 16, 12, 0.15, align)
+    (maps * torch.from_numpy(g)).sum().backward()
+    pallas, vjp = jax.vjp(lambda k: gaussian_maps_pallas(
+        k, 16, 12, 0.15, align, interpret=True), jnp.asarray(kp))
+    np.testing.assert_allclose(maps.detach().numpy(), np.asarray(pallas),
+                               atol=ATOL)
+    np.testing.assert_allclose(
+        maps.detach().numpy(),
+        np.asarray(jax_gaussian(jnp.asarray(kp), 16, 12, 0.15, align)),
+        atol=ATOL)
+    np.testing.assert_allclose(x.grad.numpy(),
+                               np.asarray(vjp(jnp.asarray(g))[0]), atol=ATOL)
+
+
+@pytest.mark.parametrize("align", [True, False])
+@pytest.mark.parametrize("variant", ["joint", "marginal"])
+def test_plain_softmax_grad_matches_pallas(variant, align):
+    hm = _heatmaps((2, 3, 16, 12), seed=15)
+    g = np.random.RandomState(16).randn(2, 3, 2).astype(np.float32)
+    x = torch.from_numpy(hm).requires_grad_(True)
+    (spatial_softmax(x, 0.7, variant, align) * torch.from_numpy(g)).sum() \
+        .backward()
+    _, vjp = jax.vjp(lambda h: spatial_softmax_pallas(
+        h, 0.7, variant, align, interpret=True), jnp.asarray(hm))
+    np.testing.assert_allclose(x.grad.numpy(),
+                               np.asarray(vjp(jnp.asarray(g))[0]), atol=ATOL)
+
+
+def test_cpu_dispatchers_keep_the_gradient():
+    """On the CPU the dispatchers are the plain versions, so autograd runs
+    through them: keypoints and maps carry a grad_fn, and the bottleneck's
+    gradient reaches the heatmaps."""
+    hm = torch.from_numpy(_heatmaps((2, 3, 8, 8), seed=17)).requires_grad_()
+    kp = dispatch(hm, 1.0, "marginal", True)
+    assert kp.grad_fn is not None
+    maps = gaussian_dispatch(kp, 8, 8, 0.1, True)
+    assert maps.grad_fn is not None
+    kp2, maps2 = extract_and_render(hm, 8, 8, 1.0, 0.1, "marginal", True)
+    torch.testing.assert_close(kp2, kp, rtol=0, atol=0)
+    torch.testing.assert_close(maps2, maps, rtol=0, atol=0)
+    maps2.sum().backward()
+    assert hm.grad is not None and torch.isfinite(hm.grad).all()
+    assert hm.grad.abs().sum() > 0
