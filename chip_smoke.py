@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
 
-Drives the two ported paths of ``keypoints_tpu_torch`` at the full width of
-celeba128 through their user entry points, with weights made from a seed:
-the keypoint-serving path (``make_server``) and the training step
-(``init_state`` + ``make_train_step``, b128, bf16, augmentation inside).
+Drives the three ported paths of ``keypoints_tpu_torch`` at full width
+through their user entry points, with weights made from a seed: celeba128's
+keypoint-serving path (``make_server``) and training step (``init_state`` +
+``make_train_step``, b128, bf16, augmentation inside), and pose256's
+training step (``init_state`` + ``make_train_step(cfg,
+loss=make_loss(cfg))``, b128, bf16: 256² augmentation through the field
+warp, the VGG-16 perceptual loss with its max pools).
 
    1. device    torch/CUDA versions, ``nvidia-smi`` name and power limit
    2. build     the one kernel library, every ``csrc/*.cu`` built by nvcc
@@ -34,6 +37,24 @@ the keypoint-serving path (``make_server``) and the training step
   10. profile   torch.profiler over the extract (b256, b1024, live n=1 and
                 n=8) and over 5 train steps: device time against wall time,
                 the ops that take the device time, each kernel's share
+  11. kernels   the pose256 slice's kernels against their plain versions:
+                the field warp (f32 and bf16, zeros and border, b128
+                3x256^2 and ragged cases), the 2x2 max pool forward and
+                backward, bit-exact (f32 and bf16, smooth and tied inputs,
+                at the VGG pools' shapes); the soft-argmax and raster
+                kernels, forward and backward, at N = 2,048, sigma 0.05
+  12. train     full-width pose256 in float32 (TF32 off), 3 train steps on
+     parity     JAX's draws and one seeded VGG file, on the card and on the
+                CPU, against tests/data/torch_port_pose256_train.json
+  13. train     full-width pose256 at b128 in bf16, 20 steps with the port's
+                own draws: finite losses, float32 parameters, launch counts
+                of the run, peak device memory
+  14. times     the field warp and the pool against bound, plain and
+                library; the field warp against upsample + dense warp at
+                256^2 and 128^2; the bottleneck kernels at N = 2,048; the
+                perceptual loss alone; train ms/step and frames/s
+  15. profile   torch.profiler over 2 pose256 train steps: idle share, ops,
+                each kernel's share
 
 Run from a checkout:  python3 chip_smoke.py
 The card's ``nvidia-smi`` line, then a JSON object of the kernels
@@ -68,10 +89,12 @@ from keypoints_tpu_torch.data.augment import (pair_from_draws,  # noqa: E402
                                               random_warp_field, warp_field)
 from keypoints_tpu_torch.kernels import _build  # noqa: E402
 from keypoints_tpu_torch.kernels import gaussian_cuda as gcu  # noqa: E402
+from keypoints_tpu_torch.kernels import pool_cuda as pcu  # noqa: E402
 from keypoints_tpu_torch.kernels import spatial_softmax_cuda as ssc  # noqa: E402
 from keypoints_tpu_torch.kernels import warp_cuda as wcu  # noqa: E402
 from keypoints_tpu_torch.ops.gaussian import \
     gaussian_maps as plain_gaussian  # noqa: E402
+from keypoints_tpu_torch.ops.pool import max_pool_2x2 as plain_pool  # noqa: E402
 from keypoints_tpu_torch.ops.spatial_softmax import \
     spatial_softmax as plain_softmax  # noqa: E402
 from keypoints_tpu_torch.ops.warp import grid_sample as plain_warp  # noqa: E402
@@ -82,8 +105,10 @@ from keypoints_tpu_torch.serve import (build_parser, http_extract,  # noqa: E402
 from keypoints_tpu_torch.testing import (bf16_ulp,  # noqa: E402
                                          decode_f32, grad_norm_tolerance,
                                          random_flax_params, random_images,
-                                         reference_draws,
-                                         reference_warp_draws)
+                                         random_vgg_params, reference_draws,
+                                         reference_warp_draws,
+                                         write_torchvision_vgg)
+from keypoints_tpu_torch.train import make_loss  # noqa: E402
 from keypoints_tpu_torch.training import (build_model,  # noqa: E402
                                           freeze_for_inference, init_state,
                                           make_extract_fn, make_train_step,
@@ -99,27 +124,39 @@ FIELD_TOL = 3e-5       # TPS field from JAX's draws: JAX's own f32 error
 SERVE_TOL = 1e-4       # same bf16 heatmaps, kernel vs plain soft-argmax
 BUCKETS = (1, 8, 64, 256)
 U8_BUCKETS = (1, 8)
-TRAIN_BATCH = 128      # bench.py's celeba128 train step
+FIELD_WARP_TOL = 1e-4  # f32 field warp: JAX's bar for its field kernel
+TRAIN_BATCH = 128      # bench.py's celeba128 train step; pose256's preset
 TRAIN_STEPS = 30
+POSE_STEPS = 20
 REFERENCE = ROOT / "tests" / "data" / "torch_port_celeba128_extract.json"
 TRAIN_REFERENCE = ROOT / "tests" / "data" / "torch_port_celeba128_train.json"
+POSE_REFERENCE = ROOT / "tests" / "data" / "torch_port_pose256_train.json"
 META_KEYS = {"format", "version", "batches", "image_size", "channels",
              "num_keypoints", "input_dtype", "data_parallel_devices"}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS = 67e12           # H100 SXM data sheet, float32 outside tensor cores
 
-# name -> (module, counter, source, TPU kernel it replaces, launches a step)
+# name -> (module, counter, source, TPU kernel it replaces, launches a step
+# on the (celeba128, pose256) train paths)
 KERNELS = {
     "spatial_softmax_fwd": (ssc, "launches", "spatial_softmax.cu",
-                            "spatial_softmax_pallas.py:151", 1),
+                            "spatial_softmax_pallas.py:151", (1, 1)),
     "spatial_softmax_bwd": (ssc, "bwd_launches", "spatial_softmax.cu",
-                            "spatial_softmax_pallas.py:157", 1),
+                            "spatial_softmax_pallas.py:157", (1, 1)),
     "gaussian_fwd": (gcu, "launches", "gaussian.cu", "gaussian_pallas.py:32",
-                     1),
+                     (1, 1)),
     "gaussian_bwd": (gcu, "bwd_launches", "gaussian.cu",
-                     "gaussian_pallas.py:40", 1),
-    "warp_bilinear": (wcu, "launches", "warp.cu", "warp_pallas.py:93", 2),
+                     "gaussian_pallas.py:40", (1, 1)),
+    "warp_bilinear": (wcu, "launches", "warp.cu", "warp_pallas.py:93",
+                      (2, 0)),
+    "warp_field": (wcu, "field_launches", "warp.cu", "warp_pallas.py:237",
+                   (0, 2)),
+    "max_pool_fwd": (pcu, "launches", "pool.cu", "pool_pallas.py:92",
+                     (0, 4)),
+    "max_pool_bwd": (pcu, "bwd_launches", "pool.cu", "pool_pallas.py:102",
+                     (0, 2)),
 }
+PATHS = ("celeba128", "pose256")
 
 
 class SmokeFailure(Exception):
@@ -521,14 +558,23 @@ def serve_phase(tmp: str) -> dict:
             "http_p50_ms": float(np.median(latencies)) * 1e3}
 
 
-def train_parity_phase() -> None:
+def train_parity_phase(number: int, reference: Path, tmp: str) -> None:
     """3 full-width f32 steps on JAX's warps and factors, on the card (the
     kernels) and on this machine's CPU (the plain versions), against the
-    committed JAX reference; and the port's TPS fields from JAX's draws."""
-    phase("7 train parity: full-width celeba128 f32 (TF32 off), 3 steps on "
-          "JAX's draws, card and CPU vs committed JAX reference")
-    ref = json.loads(TRAIN_REFERENCE.read_text())
-    cfg = get_config(ref["preset"]).override(**ref["overrides"])
+    committed JAX reference; and the port's TPS fields from JAX's draws.
+    A perceptual preset's VGG weights are ``random_vgg_params`` of the
+    reference's seed, in a torchvision-layout file as JAX read them."""
+    ref = json.loads(reference.read_text())
+    phase(f"{number} train parity: full-width {ref['preset']} f32 (TF32 "
+          f"off), 3 steps on JAX's draws, card and CPU vs committed JAX "
+          f"reference")
+    overrides = dict(ref["overrides"])
+    if "vgg_seed" in ref:
+        overrides["train.vgg_ckpt"] = os.path.join(
+            tmp, f"vgg16_seed{ref['vgg_seed']}.pth")
+        write_torchvision_vgg(random_vgg_params(ref["vgg_seed"]),
+                              overrides["train.vgg_ckpt"])
+    cfg = get_config(ref["preset"]).override(**overrides)
     fields = torch.from_numpy(decode_f32(ref["fields"], ref["fields_shape"]))
     runs = {}
     with NoTF32():
@@ -553,7 +599,7 @@ def train_parity_phase() -> None:
             src, tgt = pair_from_draws(images, draws[0], warp_config(cfg))
             with torch.no_grad():
                 kp = state.model(src, tgt)[1].cpu().numpy()
-            step = make_train_step(cfg)
+            step = make_train_step(cfg, loss=make_loss(cfg, device))
             losses, norms, grads = [], [], {}
             for i, d in enumerate(draws):
                 state, metrics = step(state, images, d)
@@ -593,38 +639,47 @@ def train_parity_phase() -> None:
           flush=True)
 
 
-def _train_setup(batch: int = TRAIN_BATCH):
-    cfg = get_config("celeba128").override(**{"train.batch_size": batch})
+def _train_setup(preset: str, batch: int = TRAIN_BATCH):
+    """A user's train step: ``init_state`` and ``make_train_step`` with the
+    preset's loss (``make_loss``: the VGG perceptual loss for pose256, with
+    the seeded trunk), on a batch of seeded images."""
+    cfg = get_config(preset).override(**{"train.batch_size": batch})
     state = init_state(cfg, "cuda")
     images = torch.from_numpy(random_images(batch, cfg, 4)).cuda()
-    return cfg, state, make_train_step(cfg), images
+    return cfg, state, make_train_step(cfg, loss=make_loss(cfg)), images
 
 
-def train_phase():
-    """The training path: ``TRAIN_STEPS`` steps, counts reset just before."""
-    phase(f"8 train (celeba128 full width, b{TRAIN_BATCH}, bf16, "
-          f"{TRAIN_STEPS} steps, the port's own draws)")
-    cfg, state, step, images = _train_setup()
+def train_phase(number: int, preset: str, steps: int):
+    """The training path: ``steps`` steps, counts reset just before; every
+    kernel of the path launched as often as a step launches it."""
+    phase(f"{number} train ({preset} full width, b{TRAIN_BATCH}, bf16, "
+          f"{steps} steps, the port's own draws)")
+    cfg, state, step, images = _train_setup(preset)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     losses = []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         state, metrics = step(state, images)
         losses.append(metrics["loss"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
     losses = torch.stack(losses).cpu().numpy()
-    print(f"{TRAIN_STEPS} steps in {wall:.2f}s (first steps include cuDNN's "
+    print(f"{steps} steps in {wall:.2f}s (first steps include cuDNN's "
           f"set-up); losses {losses[0]:.5f} -> {losses[-1]:.5f}, min "
-          f"{losses.min():.5f}", flush=True)
+          f"{losses.min():.5f}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
     print(f"kernel launches during training: {counts}", flush=True)
     check(bool(np.isfinite(losses).all()), f"non-finite losses {losses}")
     check(all(p.dtype == torch.float32 for p in state.model.parameters()),
           "parameters are not float32 after bf16 steps")
     for name, (*_, per_step) in KERNELS.items():
-        check(counts[name] >= per_step * TRAIN_STEPS,
-              f"{name} launched {counts[name]} times in {TRAIN_STEPS} steps")
+        want = per_step[PATHS.index(preset)] * steps
+        check(counts[name] >= want,
+              f"{name} launched {counts[name]} times in {steps} steps "
+              f"(>= {want} expected)")
     return counts, (cfg, state, step, images)
 
 
@@ -634,15 +689,11 @@ def _bound(nbytes: int, flops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_times_phase(card: str, trainer) -> dict:
-    """Each kernel at the train step's shapes (b128, K=10, 32^2 heatmaps,
-    3x128^2 bf16 images): device time by CUDA events with the calls queued
-    behind a sleep (inputs L2-warm), the plain version's time, the library
-    call's where there is one, and the bound."""
-    phase(f"9 times on {card}")
-    cfg, *_ = trainer
-    b, k, n = TRAIN_BATCH, cfg.model.num_keypoints, TRAIN_BATCH * 10
-    rs = np.random.RandomState(3)
+def _bottleneck_cases(b: int, k: int, sigma: float, seed: int) -> dict:
+    """The soft-argmax and raster kernels at b x k heatmaps of 32^2: name ->
+    (kernel call, plain call, library call or None, bound)."""
+    n, hw = b * k, 32 * 32
+    rs = np.random.RandomState(seed)
     x = torch.from_numpy((3 * rs.randn(b, k, 32, 32)).astype(np.float32))
     x = x.cuda()
     kp = ssc.spatial_softmax_cuda(x)
@@ -652,16 +703,9 @@ def kernel_times_phase(card: str, trainer) -> dict:
     x_req = x.clone().requires_grad_(True)
     kp_plain = plain_softmax(x_req)
     kp_req = kp.clone().requires_grad_(True)
-    maps_plain = plain_gaussian(kp_req, 32, 32, 0.1, True)
-    img = torch.from_numpy(rs.rand(b, 3, 128, 128).astype(np.float32)).cuda()
-    img = img.to(torch.bfloat16)
-    field = random_warp_field(step_generator(0, 0, "cuda"), b,
-                              warp_config(cfg))
-    grid = upsample_field_aligned(field, 128, 128).contiguous()
-    grid_bf16 = grid.to(torch.bfloat16)
-    hw = 32 * 32
+    maps_plain = plain_gaussian(kp_req, 32, 32, sigma, True)
     heat_bytes = n * hw * 4
-    cases = {
+    return {
         "spatial_softmax_fwd": (
             lambda: ssc.spatial_softmax_cuda(x),
             lambda: plain_softmax(x), None,
@@ -672,37 +716,63 @@ def kernel_times_phase(card: str, trainer) -> dict:
                                         retain_graph=True), None,
             _bound(2 * heat_bytes + 2 * n * 8, 4 * n * hw)),
         "gaussian_fwd": (
-            lambda: gcu.gaussian_fwd_cuda(kp_flat, 32, 32),
-            lambda: plain_gaussian(kp, 32, 32, 0.1, True), None,
+            lambda: gcu.gaussian_fwd_cuda(kp_flat, 32, 32, sigma),
+            lambda: plain_gaussian(kp, 32, 32, sigma, True), None,
             _bound(heat_bytes + n * 8, 10 * n * hw)),
         "gaussian_bwd": (
-            lambda: gcu.gaussian_bwd_cuda(kp_flat, g_maps),
+            lambda: gcu.gaussian_bwd_cuda(kp_flat, g_maps, sigma),
             lambda: torch.autograd.grad(maps_plain, kp_req,
                                         g_maps.reshape(b, k, 32, 32),
                                         retain_graph=True), None,
             _bound(heat_bytes + 2 * n * 8, 14 * n * hw)),
-        "warp_bilinear": (
-            lambda: wcu.warp_bilinear_cuda(img, grid, "border", True),
-            lambda: plain_warp(img, grid, "border", True),
-            lambda: F.grid_sample(img, grid_bf16, "bilinear", "border", True),
-            _bound(2 * img.nelement() * img.element_size()
-                   + grid.nelement() * 4, 30 * b * 128 * 128
-                   + 8 * img.nelement())),
     }
+
+
+def _time_cases(cases: dict, card: str, reps: int = 20,
+                plain_reps: int = 5, label: str = "") -> dict:
+    """Kernel, plain and library device times (kernel again last) of each
+    case, printed beside its bound."""
     out = {}
     for name, (kernel, plain, library, (bound_ms, bound_by)) in cases.items():
-        k_ms = cuda_median_ms(kernel, reps=20)
-        p_ms = cuda_median_ms(plain, reps=5)
-        l_ms = cuda_median_ms(library, reps=20) if library else None
-        k_again = cuda_median_ms(kernel, reps=20)
+        k_ms = cuda_median_ms(kernel, reps=reps)
+        p_ms = cuda_median_ms(plain, reps=plain_reps)
+        l_ms = cuda_median_ms(library, reps=reps) if library else None
+        k_again = cuda_median_ms(kernel, reps=reps)
         out[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by}
         lib = f", library {l_ms * 1e3:.2f} us" if l_ms is not None else ""
-        print(f"{name}: kernel {k_ms * 1e3:.2f} us (again "
+        print(f"{name}{label}: kernel {k_ms * 1e3:.2f} us (again "
               f"{k_again * 1e3:.2f}), plain {p_ms * 1e3:.2f} us{lib}; bound "
               f"{bound_ms * 1e3:.2f} us by {bound_by} = "
               f"{bound_ms / k_ms:.1%} of the kernel's time  [{card}]",
               flush=True)
+    return out
+
+
+def kernel_times_phase(card: str, trainer) -> dict:
+    """Each kernel at the train step's shapes (b128, K=10, 32^2 heatmaps,
+    3x128^2 bf16 images): device time by CUDA events with the calls queued
+    behind a sleep (inputs L2-warm), the plain version's time, the library
+    call's where there is one, and the bound."""
+    phase(f"9 times on {card}")
+    cfg, *_ = trainer
+    b = TRAIN_BATCH
+    cases = _bottleneck_cases(b, cfg.model.num_keypoints, cfg.model.sigma, 3)
+    rs = np.random.RandomState(4)
+    img = torch.from_numpy(rs.rand(b, 3, 128, 128).astype(np.float32)).cuda()
+    img = img.to(torch.bfloat16)
+    field = random_warp_field(step_generator(0, 0, "cuda"), b,
+                              warp_config(cfg))
+    grid = upsample_field_aligned(field, 128, 128).contiguous()
+    grid_bf16 = grid.to(torch.bfloat16)
+    cases["warp_bilinear"] = (
+        lambda: wcu.warp_bilinear_cuda(img, grid, "border", True),
+        lambda: plain_warp(img, grid, "border", True),
+        lambda: F.grid_sample(img, grid_bf16, "bilinear", "border", True),
+        _bound(2 * img.nelement() * img.element_size()
+               + grid.nelement() * 4, 30 * b * 128 * 128
+               + 8 * img.nelement()))
+    out = _time_cases(cases, card)
     print("warp library call: F.grid_sample on the bf16 image takes only a "
           "bf16 grid, so it reads the grid cast to bf16", flush=True)
     img32 = img.float()
@@ -762,10 +832,10 @@ def softmax_and_extract_times(card: str) -> None:
               f"({plain_ms:.3f} ms)  [{card}]", flush=True)
 
 
-def train_step_times(card: str, trainer) -> float:
-    """ms per train step by CUDA events around 20 steps, and by the host
-    clock to a synchronise; steps already warm."""
-    _, state, step, images = trainer
+def train_step_times(card: str, trainer, steps: int = 20) -> float:
+    """ms per train step by CUDA events around ``steps`` steps (median of 3
+    runs), and by the host clock to a synchronise; steps already warm."""
+    cfg, state, step, images = trainer
     for _ in range(3):
         state, _ = step(state, images)
     torch.cuda.synchronize()
@@ -775,14 +845,15 @@ def train_step_times(card: str, trainer) -> float:
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        for _ in range(20):
+        for _ in range(steps):
             state, _ = step(state, images)
         end.record()
         end.synchronize()
-        runs.append((start.elapsed_time(end) / 20,
-                     (time.perf_counter() - t0) / 20 * 1e3))
+        runs.append((start.elapsed_time(end) / steps,
+                     (time.perf_counter() - t0) / steps * 1e3))
     ms = float(np.median([r[0] for r in runs]))
-    print(f"train step b{TRAIN_BATCH} bf16: {ms:.3f} ms/step by CUDA events "
+    print(f"{cfg.name} train step b{TRAIN_BATCH} bf16: {ms:.3f} ms/step by "
+          f"CUDA events "
           f"(runs {', '.join(f'{r[0]:.3f}' for r in runs)}; host clock "
           f"{', '.join(f'{r[1]:.3f}' for r in runs)}), "
           f"{TRAIN_BATCH / ms * 1e3:.0f} frames/s  [{card}]", flush=True)
@@ -791,13 +862,20 @@ def train_step_times(card: str, trainer) -> float:
 
 def _profile(label: str, fn, calls: int, card: str, wall_ms: float,
              kernels: dict) -> None:
+    """Device time of ``calls`` calls of ``fn`` under torch.profiler: the
+    sum of the kernels and copies it saw on the card, against ``wall_ms``
+    (taken without the profiler) and against the host clock around the
+    profiled calls, which the profiler slows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) / calls * 1e3
     on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not on_card:
         print(f"{label}: wall {wall_ms:.3f} ms/call; device time not "
@@ -811,8 +889,10 @@ def _profile(label: str, fn, calls: int, card: str, wall_ms: float,
                 if any(key in e.name for key in keys)) / calls / 1e3
         shares.append(f"{name} {t:.4f} ms ({t / device:.2%})")
     print(f"{label}: wall {wall_ms:.3f} ms/call, device {device:.3f} "
-          f"ms/call, device idle {1 - device / wall_ms:.1%} of wall ({calls} "
-          f"calls)  [{card}]", flush=True)
+          f"ms/call, device idle {1 - device / wall_ms:.1%} of wall; "
+          f"profiled wall {profiled_ms:.3f} ms/call, idle "
+          f"{1 - device / profiled_ms:.1%} of it ({calls} calls)  [{card}]",
+          flush=True)
     if shares:
         print("  kernels: " + "; ".join(shares), flush=True)
     print(prof.key_averages().table(sort_by="self_device_time_total",
@@ -885,6 +965,216 @@ def profile_phase(card: str, trainer, step_ms: float) -> None:
               "warp": ("warp_bilinear",)})
 
 
+def pose_kernels_phase() -> dict:
+    """The pose256 slice's kernels against their plain versions: the field
+    warp at the augmentation's shape and at ragged ones, the max pool
+    forward and backward at the VGG pools' shapes, bit for bit; the
+    soft-argmax and raster kernels at the path's 2,048 heatmaps."""
+    phase("11 pose256-slice kernels vs plain")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    errs = {"warp_field": 0.0, "max_pool_fwd": 0.0, "max_pool_bwd": 0.0}
+
+    def uniform(*shape, lo=-1.2, hi=1.2):
+        return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
+
+    # field warp (K5): the augmentation's fields, then fields spanning
+    # [-1.2, 1.2] (points outside the image) at ragged shapes, F above and
+    # below the output size
+    aug_field = random_warp_field(step_generator(0, 1, "cuda"), TRAIN_BATCH,
+                                  warp_config(get_config("pose256")))
+    aug_field = aug_field.contiguous()
+    cases = [((TRAIN_BATCH, 3, 256, 256), aug_field, (256, 256)),
+             ((2, 3, 45, 61), uniform(2, 9, 9, 2), (37, 53)),
+             ((3, 3, 20, 30), uniform(3, 33, 33, 2), (19, 23))]
+    n_cases = 0
+    for shape, field, out_hw in cases:
+        img32 = torch.rand(shape, generator=gen, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            img = img32.to(dtype)
+            for padding in ("zeros", "border"):
+                for align in (True, False):
+                    got = wcu.warp_field_cuda(img, field, *out_hw, padding,
+                                              align)
+                    torch.cuda.synchronize()
+                    want = plain_warp(img, upsample_field_aligned(
+                        field, *out_hw), padding, align)
+                    what = (f"{shape} F={field.shape[1]} -> {out_hw} {dtype} "
+                            f"{padding} align={align}")
+                    check(got.dtype == dtype and got.shape == want.shape,
+                          f"warp_field {what}: {got.dtype} {got.shape}")
+                    diff = (got.float() - want.float()).abs()
+                    errs["warp_field"] = max(errs["warp_field"],
+                                             diff.max().item())
+                    if dtype == torch.float32:
+                        check(diff.max().item() <= FIELD_WARP_TOL,
+                              f"warp_field {what}: {diff.max().item()}")
+                    else:
+                        check(bool((diff <= bf16_ulp(want)).all()),
+                              f"warp_field {what}: more than one bf16 ulp")
+                    n_cases += 1
+    print(f"field warp: {n_cases} cases, max|d| {errs['warp_field']:.3e} "
+          f"(f32 tolerance {FIELD_WARP_TOL}, bf16 within one bf16 ulp of "
+          f"plain)", flush=True)
+
+    # max pool (K6), forward and backward: equal to the plain version and
+    # to F.max_pool2d, on smooth values and on quantised values with ReLU
+    # zeros (most windows tied)
+    n_cases = 0
+    for shape in ((TRAIN_BATCH, 64, 256, 256), (TRAIN_BATCH, 128, 128, 128),
+                  (3, 5, 6, 10)):
+        pooled = (*shape[:2], shape[2] // 2, shape[3] // 2)
+        for kind in ("smooth", "ties"):
+            if kind == "smooth":
+                x32 = torch.randn(shape, generator=gen, device="cuda")
+            else:
+                x32 = torch.randint(-2, 4, shape, generator=gen,
+                                    device="cuda").clamp_min(0) * 0.5
+            g32 = torch.randn(pooled, generator=gen, device="cuda")
+            for dtype in (torch.float32, torch.bfloat16):
+                x, g = x32.to(dtype), g32.to(dtype)
+                y = pcu.max_pool_fwd_cuda(x)
+                dx = pcu.max_pool_bwd_cuda(x, g)
+                torch.cuda.synchronize()
+                what = f"{shape} {kind} {dtype}"
+                want_y = plain_pool(x)
+                want_dx = _plain_grad(plain_pool, x, g)
+                errs["max_pool_fwd"] = max(errs["max_pool_fwd"], (
+                    y.float() - want_y.float()).abs().max().item())
+                errs["max_pool_bwd"] = max(errs["max_pool_bwd"], (
+                    dx.float() - want_dx.float()).abs().max().item())
+                check(torch.equal(y, want_y), f"max_pool_fwd {what}")
+                check(torch.equal(dx, want_dx), f"max_pool_bwd {what}")
+                check(torch.equal(y, F.max_pool2d(x, 2, 2)),
+                      f"max_pool_fwd vs F.max_pool2d {what}")
+                check(torch.equal(dx, _plain_grad(
+                    lambda t: F.max_pool2d(t, 2, 2), x, g)),
+                    f"max_pool_bwd vs F.max_pool2d's gradient {what}")
+                del y, dx, want_y, want_dx
+                n_cases += 1
+    print(f"max pool: {n_cases} cases, forward and backward equal to the "
+          f"plain version and to F.max_pool2d bit for bit", flush=True)
+
+    # the soft-argmax and raster kernels at this path's shapes: b128 x 16
+    # heatmaps of 32^2, sigma 0.05, with phase 4's tolerances
+    cfg = get_config("pose256").model
+    cases = _bottleneck_cases(TRAIN_BATCH, cfg.num_keypoints, cfg.sigma, 5)
+    for name, (kernel, plain, *_) in cases.items():
+        want = plain()
+        want = want[0] if isinstance(want, tuple) else want
+        got = kernel().reshape(want.shape)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        errs[name] = max(errs.get(name, 0.0), err)
+        tol = {"spatial_softmax_fwd": KERNEL_TOL,
+               "gaussian_bwd": RASTER_GRAD_RTOL * want.abs().max().item()
+               }.get(name, GRAD_TOL)
+        print(f"{name} N={TRAIN_BATCH * cfg.num_keypoints} 32x32 sigma "
+              f"{cfg.sigma}: max|d| {err:.3e} (tolerance {tol:.3e})",
+              flush=True)
+        check(err <= tol, f"{name} at pose256's shape: {err} > {tol}")
+    return errs
+
+
+def pose_times_phase(card: str) -> dict:
+    """The pose256 slice's kernels at b128 (3x256^2 bf16 images, the VGG
+    pools in bf16, 16 keypoints): device time, plain and library times and
+    the bound, as in phase 9; the field warp against upsample + dense warp
+    at 256^2 and 128^2; the bottleneck kernels at N = 2,048."""
+    phase(f"14 pose256 times on {card}")
+    b = TRAIN_BATCH
+    cfg = get_config("pose256")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    field = random_warp_field(step_generator(0, 2, "cuda"), b,
+                              warp_config(cfg)).contiguous()
+    img = torch.rand((b, 3, 256, 256), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    cases = {"warp_field": (
+        lambda: wcu.warp_field_cuda(img, field, 256, 256, "border", True),
+        lambda: plain_warp(img, upsample_field_aligned(field, 256, 256),
+                           "border", True), None,
+        _bound(2 * img.nelement() * 2 + field.nelement() * 4,
+               50 * b * 256 * 256 + 8 * img.nelement()))}
+    pool_shapes = {"pool1": (b, 64, 256, 256), "pool2": (b, 128, 128, 128)}
+    pool_inputs = {}
+    for label, shape in pool_shapes.items():
+        x = torch.randn(shape, generator=gen, device="cuda",
+                        dtype=torch.bfloat16).relu()
+        g = torch.randn((*shape[:2], shape[2] // 2, shape[3] // 2),
+                        generator=gen, device="cuda", dtype=torch.bfloat16)
+        x_req = x.clone().requires_grad_(True)
+        pool_inputs[label] = (x, g, x_req, plain_pool(x_req),
+                              F.max_pool2d(x_req, 2, 2))
+    out = _time_cases(cases, card)
+    for label, (x, g, x_req, y_plain, y_lib) in pool_inputs.items():
+        nx, ny = x.nelement() * 2, x.nelement() // 2
+        pool = _time_cases({
+            "max_pool_fwd": (
+                lambda: pcu.max_pool_fwd_cuda(x), lambda: plain_pool(x),
+                lambda: F.max_pool2d(x, 2, 2),
+                _bound(nx + ny, 3 * x.nelement() // 4)),
+            "max_pool_bwd": (
+                lambda: pcu.max_pool_bwd_cuda(x, g),
+                lambda: torch.autograd.grad(y_plain, x_req, g,
+                                            retain_graph=True),
+                lambda: torch.autograd.grad(y_lib, x_req, g,
+                                            retain_graph=True),
+                _bound(2 * nx + ny, 2 * x.nelement()))},
+            card, reps=10, plain_reps=3, label=f" {label} {tuple(x.shape)}")
+        if label == "pool1":
+            out.update(pool)
+    print("pool library calls: F.max_pool2d and its autograd backward "
+          "(max_pool2d_with_indices_backward); the kernels' line reports "
+          "pool1, the larger call", flush=True)
+
+    # the field kernel against the path it replaces, upsample + dense warp
+    for size in (256, 128):
+        im = img if size == 256 else img[:, :, :128, :128].contiguous()
+        k5 = cuda_median_ms(lambda: wcu.warp_field_cuda(
+            im, field, size, size, "border", True), reps=20)
+        k4 = cuda_median_ms(lambda: wcu.warp_bilinear_cuda(
+            im, upsample_field_aligned(field, size, size), "border", True),
+            reps=20)
+        k5_again = cuda_median_ms(lambda: wcu.warp_field_cuda(
+            im, field, size, size, "border", True), reps=20)
+        print(f"field warp b{b} 3x{size}^2 bf16: field kernel "
+              f"{k5 * 1e3:.2f} us (again {k5_again * 1e3:.2f}), upsample + "
+              f"dense-grid kernel {k4 * 1e3:.2f} us  [{card}]", flush=True)
+
+    _time_cases(_bottleneck_cases(b, cfg.model.num_keypoints,
+                                  cfg.model.sigma, 5), card,
+                label=f" N={b * cfg.model.num_keypoints}")
+
+    # the perceptual loss alone: the VGG trunk on a reconstruction (f32,
+    # with its backward) and on a bf16 target, as the step runs it
+    loss = make_loss(cfg)
+    recon = torch.rand((b, 3, 256, 256), generator=gen,
+                       device="cuda").requires_grad_(True)
+    vgg_ms = cuda_median_ms(lambda: torch.autograd.grad(loss(recon, img),
+                                                        recon), runs=5)
+    print(f"perceptual loss b{b} 256^2 (VGG-16 to relu3_3 on recon and "
+          f"target, bf16 convs), forward and backward: {vgg_ms:.3f} ms  "
+          f"[{card}]", flush=True)
+    return out
+
+
+def pose_profile_phase(card: str, trainer, step_ms: float) -> None:
+    phase(f"15 profile on {card}")
+    _, state, step, images = trainer
+
+    def train_step():
+        step(state, images)
+
+    _profile(f"pose256 train step b{TRAIN_BATCH} bf16 (wall = CUDA-event "
+             f"ms/step)", train_step, 2, card, step_ms,
+             {"soft-argmax fwd": ("marginal_fwd",),
+              "soft-argmax bwd": ("marginal_bwd",),
+              "raster fwd": ("gaussian_fwd",),
+              "raster bwd": ("gaussian_bwd",),
+              "field warp": ("warp_field",),
+              "pool fwd": ("max_pool_fwd",),
+              "pool bwd": ("max_pool_bwd",)})
+
+
 def main() -> int:
     card = device_phase()
     build_phase()
@@ -894,18 +1184,31 @@ def main() -> int:
     parity_phase()
     with tempfile.TemporaryDirectory() as tmp:
         served = serve_phase(tmp)
-    train_parity_phase()
-    train_counts, trainer = train_phase()
+        train_parity_phase(7, TRAIN_REFERENCE, tmp)
+    train_counts, trainer = train_phase(8, "celeba128", TRAIN_STEPS)
     times = kernel_times_phase(card, trainer)
     softmax_and_extract_times(card)
     step_ms = train_step_times(card, trainer)
     print(f"http n=1 latency p50 {served['http_p50_ms']:.3f} ms "
           f"(30 requests, host clock)  [{card}]", flush=True)
     profile_phase(card, trainer, step_ms)
+    del trainer
+    torch.cuda.empty_cache()
+
+    for name, err in pose_kernels_phase().items():
+        errs[name] = max(errs.get(name, 0.0), err)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        train_parity_phase(12, POSE_REFERENCE, tmp)
+    pose_counts, pose_trainer = train_phase(13, "pose256", POSE_STEPS)
+    times.update(pose_times_phase(card))
+    pose_ms = train_step_times(card, pose_trainer, steps=10)
+    pose_profile_phase(card, pose_trainer, pose_ms)
 
     errs["spatial_softmax_fwd"] = max(errs["spatial_softmax_fwd"],
                                       served["serve_max_abs_err"])
-    launches = dict(train_counts)
+    launches = {name: train_counts[name] + pose_counts[name]
+                for name in KERNELS}
     launches["spatial_softmax_fwd"] += served["launches"]
     kernels = [{
         "name": name, "route": "cuda",

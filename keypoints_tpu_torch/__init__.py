@@ -12,10 +12,14 @@ Ported so far:
 * the training step: ``training.init_state`` and ``make_train_step`` —
   ``data.augment`` (TPS/affine warps, ``ops.color`` jitter) → ``models``
   (Φ, Ψ, soft-argmax, Gaussian raster, decoder) → ``losses.l2_loss`` →
-  Adam with the warmup-cosine schedule.
+  Adam with the warmup-cosine schedule;
+* the perceptual loss of pose256: ``train.make_loss`` →
+  ``losses.make_perceptual_loss`` over ``models.vgg`` (the VGG-16 trunk to
+  relu3_3, its 2×2 max pools), for ``make_train_step(cfg, loss=...)``.
 
 The soft-argmax (forward and backward), the Gaussian raster (forward and
-backward) and the bilinear warp run hand-written CUDA kernels on CUDA tensors
+backward), the bilinear warps (dense grid and coarse field) and the 2×2 max
+pool (forward and backward) run hand-written CUDA kernels on CUDA tensors
 (``kernels``, sources in ``csrc/``) and their plain PyTorch versions on CPU
 tensors (``ops``).
 """

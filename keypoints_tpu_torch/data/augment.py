@@ -8,9 +8,11 @@ device, each followed by per-example color jitter:
   noise of std ``tps_scale`` (clipped to ±3σ, as in JAX),
 * composed with a random affine (rotation, isotropic scale, translation),
 * the backward sampling grid is evaluated (a coarse ``field_res`` field
-  upsampled to the image when ``field_res`` is below the image size, else
-  the exact dense TPS) and the image is bilinearly sampled with border
-  padding (``kernels.warp_sample``: the CUDA warp on CUDA),
+  when ``field_res`` is below the image size, else the exact dense TPS)
+  and the image is bilinearly sampled at it with border padding: the field
+  through ``kernels.warp_sample_field`` (on CUDA the field kernel above
+  128 wide, else the upsample and the dense-grid kernel), the dense grid
+  through ``kernels.warp_sample``,
 * then ``ops.color`` jitter.
 
 Every random function is split in two: a draw step that takes a
@@ -36,7 +38,7 @@ from typing import NamedTuple
 import torch
 
 from keypoints_tpu_torch.coords import DEFAULT_ALIGN_CORNERS, axis_coords
-from keypoints_tpu_torch.kernels import warp_sample
+from keypoints_tpu_torch.kernels import warp_sample, warp_sample_field
 from keypoints_tpu_torch.ops.color import JitterFactors, apply_jitter, draw_jitter
 from keypoints_tpu_torch.ops.warp import (tps_grid, tps_grid_fixed,
                                           upsample_field_aligned)
@@ -199,18 +201,22 @@ def pair_from_draws(image: torch.Tensor, draws: PairDraws,
                     cfg: WarpConfig = WarpConfig(),
                     align_corners: bool = DEFAULT_ALIGN_CORNERS
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, C, H, W) → (source, target) from given warps and factors: each
-    coarse field is upsampled to the image, the image is sampled with border
-    padding (the CUDA warp on CUDA) and jittered. Deterministic; the pair
-    has the image's dtype. This is JAX's ``_warped_pair`` after its draws."""
+    """(B, C, H, W) → (source, target) from given warps and factors: the
+    image is sampled at each warp with border padding (a coarse field
+    through ``warp_sample_field``, a dense grid through ``warp_sample``;
+    the CUDA warps on CUDA) and jittered. Deterministic; the pair has the
+    image's dtype. This is JAX's ``_warped_pair`` after its draws."""
     _, _, h, w = image.shape
     out = []
     for warp, factors in ((draws.source, draws.source_jitter),
                           (draws.target, draws.target_jitter)):
         if _use_field(cfg, h, w):
-            warp = upsample_field_aligned(warp, h, w)
-        warped = warp_sample(image, warp, padding_mode="border",
-                             align_corners=align_corners)
+            warped = warp_sample_field(image, warp, h, w,
+                                       padding_mode="border",
+                                       align_corners=align_corners)
+        else:
+            warped = warp_sample(image, warp, padding_mode="border",
+                                 align_corners=align_corners)
         out.append(apply_jitter(warped, factors))
     return out[0], out[1]
 

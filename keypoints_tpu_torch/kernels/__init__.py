@@ -4,8 +4,9 @@ A CUDA tensor goes to the kernel, a CPU tensor to the kernel's plain PyTorch
 version (``keypoints_tpu_torch.ops``), and any other device raises. There is
 no switch that forces the plain path on CUDA and no fallback when a launch
 fails. The kernel modules (``spatial_softmax_cuda``, ``gaussian_cuda``,
-``warp_cuda``: wrappers, autograd Functions and launch counts) are
-submodules of this package; ``_build`` builds the one library they share.
+``warp_cuda``, ``pool_cuda``: wrappers, autograd Functions and launch
+counts) are submodules of this package; ``_build`` builds the one library
+they share.
 
 The TPU dispatch rules of ``keypoints_tpu/kernels/__init__.py`` (the B=1
 marginal routing, ``xla_only``, the lane-tile width limits, the joint-only
@@ -18,11 +19,19 @@ from __future__ import annotations
 import torch
 
 from keypoints_tpu_torch.coords import DEFAULT_ALIGN_CORNERS
-from keypoints_tpu_torch.kernels import (gaussian_cuda, spatial_softmax_cuda,
-                                         warp_cuda)
+from keypoints_tpu_torch.kernels import (gaussian_cuda, pool_cuda,
+                                         spatial_softmax_cuda, warp_cuda)
 from keypoints_tpu_torch.ops.gaussian import gaussian_maps as _plain_gaussian
+from keypoints_tpu_torch.ops.pool import max_pool_2x2 as _plain_pool
 from keypoints_tpu_torch.ops.spatial_softmax import spatial_softmax as _plain
 from keypoints_tpu_torch.ops.warp import grid_sample as _plain_grid_sample
+from keypoints_tpu_torch.ops.warp import upsample_field_aligned
+
+# ``warp_sample_field`` on CUDA takes the field kernel (K5) above this output
+# width and the upsample + dense-grid kernel (K4) at or below it, which keeps
+# celeba128's 128-wide warps on K4 (the JAX package's TPU threshold, not yet
+# chosen by H100 timings)
+_FIELD_KERNEL_MIN_WIDTH = 128
 
 
 def _on_cuda(t: torch.Tensor, what: str) -> bool:
@@ -74,6 +83,36 @@ def warp_sample(image: torch.Tensor, grid: torch.Tensor,
     return _plain_grid_sample(image, grid, padding_mode, align_corners)
 
 
+def warp_sample_field(image: torch.Tensor, field: torch.Tensor,
+                      out_height: int, out_width: int,
+                      padding_mode: str = "zeros",
+                      align_corners: bool = DEFAULT_ALIGN_CORNERS
+                      ) -> torch.Tensor:
+    """Warp from a coarse (B, F, F, 2) field (data path, no gradient):
+    ``upsample_field_aligned(field, Ho, Wo)`` then the bilinear sample.
+
+    On CUDA the field kernel when ``out_width`` exceeds 128 (the dense grid
+    never exists), else the upsample and the dense-grid kernel; on the CPU
+    the upsample and ``ops.warp.grid_sample``. Output in the image's dtype.
+    """
+    ho, wo = int(out_height), int(out_width)
+    field = field.float()
+    if _on_cuda(image, "warp") and wo > _FIELD_KERNEL_MIN_WIDTH:
+        return warp_cuda.warp_field_cuda(image.contiguous(), field.contiguous(),
+                                         ho, wo, padding_mode, align_corners)
+    return warp_sample(image, upsample_field_aligned(field, ho, wo),
+                       padding_mode, align_corners)
+
+
+def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """2×2/stride-2 max pool, NCHW: the CUDA kernels (forward and backward)
+    on CUDA, ``ops.pool.max_pool_2x2`` on CPU. Differentiable on both; the
+    gradient goes to each window's first maximum in row-major order."""
+    if _on_cuda(x, "max pool"):
+        return pool_cuda.max_pool_2x2_cuda(x.contiguous())
+    return _plain_pool(x)
+
+
 def extract_and_render(heatmaps: torch.Tensor, out_height: int,
                        out_width: int, temperature: float = 1.0,
                        sigma: float = 0.1, variant: str = "marginal",
@@ -90,5 +129,5 @@ def extract_and_render(heatmaps: torch.Tensor, out_height: int,
 
 
 __all__ = ["spatial_softmax", "gaussian_maps", "warp_sample",
-           "extract_and_render", "spatial_softmax_cuda", "gaussian_cuda",
-           "warp_cuda"]
+           "warp_sample_field", "max_pool_2x2", "extract_and_render",
+           "spatial_softmax_cuda", "gaussian_cuda", "warp_cuda", "pool_cuda"]

@@ -21,6 +21,7 @@ flax 0.12's ``force_float32_reductions``.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -30,6 +31,22 @@ from torch import nn
 # nearest-up(2x) + conv3x3 == one stride-2 transposed conv with a 4x4 kernel,
 # a fixed linear map of the 3x3 one: per axis k4 = A w, with
 _UP_A = ((0.0, 0.0, 1.0), (0.0, 1.0, 1.0), (1.0, 1.0, 0.0), (1.0, 0.0, 0.0))
+
+
+def init_flax_defaults(model: nn.Module, generator: torch.Generator) -> None:
+    """flax's defaults on every conv and GroupNorm of ``model``, in module
+    order, from ``generator``: lecun-normal conv kernels (normal truncated
+    at ±2σ, variance 1/fan_in), zero biases, unit GroupNorm scales."""
+    for mod in model.modules():
+        if isinstance(mod, nn.Conv2d):
+            fan_in = mod.weight[0].numel()
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std, b=2 * std,
+                                  generator=generator)
+            nn.init.zeros_(mod.bias)
+        elif isinstance(mod, nn.GroupNorm):
+            nn.init.ones_(mod.weight)
+            nn.init.zeros_(mod.bias)
 
 
 class GroupNorm(nn.GroupNorm):

@@ -5,7 +5,10 @@ stable across numpy versions), so the same seed gives the same arrays to the
 JAX package and to the port, here and on the GPU machine. The committed JAX
 references ``tests/data/torch_port_celeba128_extract.json`` and
 ``tests/data/torch_port_celeba128_train.json`` are made from
-``random_flax_params(celeba128, 0)`` and ``random_images(n, celeba128, 1)``.
+``random_flax_params(celeba128, 0)`` and ``random_images(n, celeba128, 1)``;
+``tests/data/torch_port_pose256_train.json`` also from
+``random_vgg_params(0)``, which both packages read from the file
+``write_torchvision_vgg`` writes.
 """
 
 from __future__ import annotations
@@ -15,8 +18,10 @@ import base64
 import numpy as np
 import torch
 
+from keypoints_tpu_torch.checkpoint import state_dict_from_flax
 from keypoints_tpu_torch.configs import Config
 from keypoints_tpu_torch.data.augment import PairDraws, WarpDraws
+from keypoints_tpu_torch.models.vgg import DEFAULT_LAYERS, trunk_layout
 from keypoints_tpu_torch.ops.color import JitterFactors
 
 
@@ -64,6 +69,33 @@ def random_flax_params(cfg: Config, seed: int = 0) -> dict:
         cin = f
     decoder["head"] = conv(3, cin, m.out_channels)
     return {"encoder": encoder, "keynet": keynet, "decoder": decoder}
+
+
+def random_vgg_params(seed: int = 0,
+                      layers: tuple[str, ...] = DEFAULT_LAYERS) -> dict:
+    """VGG-16 trunk params up to the deepest of ``layers`` in flax layout,
+    ``{"conv{idx}": {"kernel" (3, 3, I, O), "bias" (O,)}}``, numpy f32:
+    kernels of variance 1/fan_in, biases of std 0.1."""
+    rs = np.random.RandomState(seed)
+    params, cin = {}, 3
+    for idx, feats, _ in trunk_layout(layers):
+        if idx < 0:
+            continue
+        params[f"conv{idx}"] = {
+            "kernel": (rs.randn(3, 3, cin, feats) / np.sqrt(9 * cin))
+            .astype(np.float32),
+            "bias": (0.1 * rs.randn(feats)).astype(np.float32)}
+        cin = feats
+    return params
+
+
+def write_torchvision_vgg(params: dict, path) -> None:
+    """Save flax-layout VGG params (``random_vgg_params``) as a torchvision
+    ``vgg16`` state dict, ``features.{idx}.weight`` (OIHW) and
+    ``features.{idx}.bias``, which the loaders of both packages read."""
+    state = {f"features.{key[len('conv'):]}": torch.from_numpy(value)
+             for key, value in state_dict_from_flax(params).items()}
+    torch.save(state, path)
 
 
 def random_images(n: int, cfg: Config, seed: int = 1) -> np.ndarray:

@@ -32,24 +32,9 @@ from keypoints_tpu_torch.data.augment import (PairDraws, WarpConfig,
                                               draw_pair, pair_from_draws)
 from keypoints_tpu_torch.losses import l2_loss
 from keypoints_tpu_torch.models import KeypointAutoencoder
-from keypoints_tpu_torch.models.nets import Conv2d
+from keypoints_tpu_torch.models.nets import Conv2d, init_flax_defaults
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def _init_params(model: nn.Module, generator: torch.Generator) -> None:
-    """flax's defaults: lecun-normal conv kernels (normal truncated at ±2σ,
-    variance 1/fan_in), zero biases, unit GroupNorm scales."""
-    for mod in model.modules():
-        if isinstance(mod, nn.Conv2d):
-            fan_in = mod.weight[0].numel()
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std, b=2 * std,
-                                  generator=generator)
-            nn.init.zeros_(mod.bias)
-        elif isinstance(mod, nn.GroupNorm):
-            nn.init.ones_(mod.weight)
-            nn.init.zeros_(mod.bias)
 
 
 def build_model(cfg: Config, device: torch.device | str = "cuda",
@@ -72,7 +57,7 @@ def build_model(cfg: Config, device: torch.device | str = "cuda",
             decoder_upsample=m.decoder_upsample, groups=m.groups,
             dtype=COMPUTE_DTYPES[cfg.train.compute_dtype])
     model.to_empty(device="cpu")
-    _init_params(model, torch.Generator().manual_seed(seed))
+    init_flax_defaults(model, torch.Generator().manual_seed(seed))
     return model.to(device)
 
 

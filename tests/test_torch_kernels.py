@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions, on the GPU.
 
 The soft-argmax forward and backward, the Gaussian raster forward and
-backward, and the bilinear warp; their dispatchers and autograd Functions;
-launch counts; rejections; and a backward through the full model.
+backward, the bilinear warps (dense grid and coarse field) and the 2×2 max
+pool forward and backward; their dispatchers and autograd Functions;
+launch counts; rejections; and a backward through the full model and
+through the VGG perceptual loss.
 
 Marked ``cuda``: every test skips where ``torch.cuda.is_available()`` is
 false (a CUDA kernel has no CPU mode). The kernel is built with nvcc at
@@ -20,13 +22,18 @@ import torch.nn.functional as F
 
 from keypoints_tpu_torch.configs import get_config
 from keypoints_tpu_torch.kernels import gaussian_cuda as gc
+from keypoints_tpu_torch.kernels import pool_cuda as pc
 from keypoints_tpu_torch.kernels import spatial_softmax_cuda as ssc
-from keypoints_tpu_torch.kernels import (gaussian_maps, spatial_softmax,
-                                         warp_cuda, warp_sample)
+from keypoints_tpu_torch.kernels import (gaussian_maps, max_pool_2x2,
+                                         spatial_softmax, warp_cuda,
+                                         warp_sample, warp_sample_field)
 from keypoints_tpu_torch.ops.gaussian import gaussian_maps as plain_gaussian
+from keypoints_tpu_torch.ops.pool import max_pool_2x2 as plain_pool
 from keypoints_tpu_torch.ops.spatial_softmax import spatial_softmax as plain
 from keypoints_tpu_torch.ops.warp import grid_sample as plain_warp
-from keypoints_tpu_torch.testing import bf16_ulp
+from keypoints_tpu_torch.ops.warp import upsample_field_aligned
+from keypoints_tpu_torch.testing import bf16_ulp, random_images
+from keypoints_tpu_torch.train import make_loss
 from keypoints_tpu_torch.training import build_model
 
 pytestmark = pytest.mark.cuda
@@ -234,6 +241,9 @@ def test_new_wrappers_reject_what_they_do_not_take(cuda):
         warp_cuda.warp_bilinear_cuda(img, grid, "reflection")
     with pytest.raises(ValueError, match="grid"):
         warp_cuda.warp_bilinear_cuda(img, grid[:1].contiguous())
+    odd = torch.zeros(2 * 4 * 4 * 2 + 1, device=cuda)[1:].view(2, 4, 4, 2)
+    with pytest.raises(ValueError, match="aligned"):
+        warp_cuda.warp_bilinear_cuda(img, odd)
     kp = torch.zeros((6, 2), device=cuda)
     with pytest.raises(ValueError, match="float32"):
         gc.gaussian_fwd_cuda(kp.double(), 8, 8)
@@ -267,3 +277,163 @@ def test_backward_through_forward_reaches_every_parameter(cuda):
         assert p.dtype == torch.float32, name
         assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
     assert model.keynet.trunk.Conv_0.weight.grad.abs().sum().item() > 0
+
+
+# --- field warp (K5) ---------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("align", [True, False])
+@pytest.mark.parametrize("padding", ["zeros", "border"])
+@pytest.mark.parametrize("case", [((16, 3, 256, 256), 33, (256, 256)),
+                                  ((2, 3, 45, 61), 9, (37, 53)),
+                                  ((3, 3, 20, 30), 33, (19, 23))],
+                         ids=["b16-256", "ragged-F9", "ragged-F33"])
+def test_field_warp_matches_upsample_and_plain_warp(cuda, case, padding,
+                                                     align, dtype):
+    """The field kernel against ``upsample_field_aligned`` + the plain warp:
+    f32 within 1e-4 (JAX's bar for its field kernel; the upsample is
+    rebuilt to the bit, so only the corner sum's order differs), bf16
+    within one bf16 ulp."""
+    shape, f, out_hw = case
+    rs = np.random.RandomState(8)
+    img = torch.from_numpy(rs.rand(*shape).astype(np.float32)).to(cuda)
+    img = img.to(dtype)
+    field = torch.from_numpy((rs.rand(shape[0], f, f, 2) * 2.4 - 1.2)
+                             .astype(np.float32)).to(cuda)
+    before = warp_cuda.field_launches
+    got = warp_cuda.warp_field_cuda(img, field, *out_hw, padding, align)
+    torch.cuda.synchronize()
+    assert warp_cuda.field_launches == before + 1
+    assert got.dtype == dtype and got.shape == (shape[0], 3, *out_hw)
+    want = plain_warp(img, upsample_field_aligned(field, *out_hw), padding,
+                      align)
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-4
+    else:
+        assert bool((err <= bf16_ulp(want)).all())
+
+
+@pytest.mark.parametrize("width,kernel", [(256, "field"), (128, "dense")])
+def test_warp_sample_field_routes_by_output_width(cuda, width, kernel):
+    img = torch.rand((2, 3, width, width), device=cuda)
+    field = torch.rand((2, 33, 33, 2), device=cuda) * 2 - 1
+    before = (warp_cuda.field_launches, warp_cuda.launches)
+    got = warp_sample_field(img, field, width, width, "border", True)
+    torch.cuda.synchronize()
+    after = (warp_cuda.field_launches, warp_cuda.launches)
+    assert after == ((before[0] + 1, before[1]) if kernel == "field"
+                     else (before[0], before[1] + 1))
+    want = plain_warp(img, upsample_field_aligned(field, width, width),
+                      "border", True)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+# --- max pool (K6) -------------------------------------------------------------------
+
+def _pool_case(kind, shape, device, seed=9):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if kind == "smooth":
+        x = torch.randn(shape, generator=gen, device=device)
+    else:           # quantised values with ReLU zeros: most windows tied
+        x = torch.randint(-2, 4, shape, generator=gen,
+                          device=device).clamp_min(0) * 0.5
+    g = torch.randn((*shape[:2], shape[2] // 2, shape[3] // 2),
+                    generator=gen, device=device)
+    return x, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["smooth", "ties"])
+@pytest.mark.parametrize("shape", [(8, 64, 256, 256), (8, 128, 128, 128),
+                                   (3, 5, 6, 10), (1, 1, 2, 2)],
+                         ids=["pool1-b8", "pool2-b8", "ragged", "one"])
+def test_pool_forward_and_backward_bitwise(cuda, shape, kind, dtype):
+    """Forward and first-maximum backward equal, bit for bit, to the plain
+    version and to F.max_pool2d and its gradient, through the dispatcher
+    (the autograd Function: one launch of each kernel)."""
+    x, g = _pool_case(kind, shape, cuda)
+    x, g = x.to(dtype), g.to(dtype)
+    fwd, bwd = pc.launches, pc.bwd_launches
+    xk = x.clone().requires_grad_(True)
+    y = max_pool_2x2(xk)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert (pc.launches, pc.bwd_launches) == (fwd + 1, bwd + 1)
+    for pool in (plain_pool, lambda t: F.max_pool2d(t, 2, 2)):
+        xr = x.clone().requires_grad_(True)
+        want = pool(xr)
+        want.backward(g)
+        assert torch.equal(y, want)
+        assert torch.equal(xk.grad, xr.grad)
+
+
+def test_pool_nan_is_the_maximum_as_in_torch(cuda):
+    x = torch.tensor([[[[1.0, float("nan")], [3.0, float("nan")]],
+                       [[2.0, 5.0], [5.0, -1.0]]]], device=cuda)
+    x = x.reshape(1, 2, 2, 2)
+    g = torch.tensor([[[[7.0]], [[9.0]]]], device=cuda)
+    y = pc.max_pool_fwd_cuda(x)
+    dx = pc.max_pool_bwd_cuda(x, g)
+    assert torch.isnan(y[0, 0, 0, 0]) and y[0, 1, 0, 0].item() == 5.0
+    assert dx[0, 0].flatten().tolist() == [0.0, 7.0, 0.0, 0.0]
+    assert dx[0, 1].flatten().tolist() == [0.0, 9.0, 0.0, 0.0]
+
+
+def test_pool_and_field_wrappers_reject_what_they_do_not_take(cuda):
+    x = torch.rand((2, 3, 8, 8), device=cuda)
+    with pytest.raises(ValueError, match="even"):
+        pc.max_pool_fwd_cuda(torch.rand((2, 3, 7, 8), device=cuda))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        pc.max_pool_fwd_cuda(x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        pc.max_pool_fwd_cuda(x.transpose(2, 3))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pc.max_pool_fwd_cuda(x.cpu())
+    odd = torch.empty(2 * 3 * 8 * 8 + 1, device=cuda)[1:].view(2, 3, 8, 8)
+    with pytest.raises(ValueError, match="aligned"):
+        pc.max_pool_fwd_cuda(odd)
+    with pytest.raises(ValueError, match="grad"):
+        pc.max_pool_bwd_cuda(x, torch.zeros((2, 3, 4, 3), device=cuda))
+    with pytest.raises(ValueError, match="bfloat16"):
+        pc.max_pool_bwd_cuda(x.bfloat16(), torch.zeros((2, 3, 4, 4),
+                                                       device=cuda))
+    field = torch.zeros((2, 33, 33, 2), device=cuda)
+    with pytest.raises(ValueError, match="field"):
+        warp_cuda.warp_field_cuda(x, field[:1].contiguous(), 8, 8)
+    with pytest.raises(ValueError, match="field"):
+        warp_cuda.warp_field_cuda(x, torch.zeros((2, 1, 1, 2), device=cuda),
+                                  8, 8)
+    with pytest.raises(ValueError, match="padding_mode"):
+        warp_cuda.warp_field_cuda(x, field, 8, 8, "reflection")
+
+
+# --- the VGG perceptual loss on the card -----------------------------------------
+
+def test_perceptual_loss_on_the_card_matches_the_cpu(cuda):
+    """pose256's loss with its seeded trunk, f32 with TF32 off: the card
+    (CUDA pools) within 1e-5 relative of the CPU (plain pools), and its
+    gradient in the reconstruction within 1e-6; two pool launches a pass
+    and two backward launches."""
+    cfg = get_config("pose256").override(**{
+        "train.compute_dtype": "float32", "data.image_size": 64})
+    a, b = random_images(2, cfg, 1), random_images(2, cfg, 2)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = {}
+        for device in ("cpu", "cuda"):
+            x = torch.from_numpy(a).to(device).requires_grad_(True)
+            fwd, bwd = pc.launches, pc.bwd_launches
+            value = make_loss(cfg, device)(x, torch.from_numpy(b).to(device))
+            value.backward()
+            if device == "cuda":
+                torch.cuda.synchronize()
+                assert (pc.launches, pc.bwd_launches) == (fwd + 4, bwd + 2)
+            out[device] = (value.item(), x.grad.cpu())
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    assert (out["cuda"][1] - out["cpu"][1]).abs().max().item() <= 1e-6

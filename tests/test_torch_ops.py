@@ -208,3 +208,99 @@ def test_cpu_dispatchers_keep_the_gradient():
     maps2.sum().backward()
     assert hm.grad is not None and torch.isfinite(hm.grad).all()
     assert hm.grad.abs().sum() > 0
+
+
+# --- the pose256 slice's kernels: the plain versions against JAX --------------
+
+from keypoints_tpu.data.augment import WarpConfig as JaxWarpConfig  # noqa: E402
+from keypoints_tpu.data.augment import \
+    random_warp_field as jax_random_warp_field  # noqa: E402
+from keypoints_tpu.kernels.pool_pallas import max_pool_2x2_pallas  # noqa: E402
+from keypoints_tpu.kernels.warp_pallas import warp_field_pallas  # noqa: E402
+from keypoints_tpu.models.vgg import max_pool_2x2 as jax_max_pool  # noqa: E402
+from keypoints_tpu_torch.kernels import max_pool_2x2 as pool_dispatch  # noqa: E402
+from keypoints_tpu_torch.kernels import warp_sample_field  # noqa: E402
+from keypoints_tpu_torch.ops.pool import max_pool_2x2  # noqa: E402
+
+
+def _pool_inputs(kind, shape, seed):
+    """NCHW inputs: smooth values, or plateaus (quantised values with ReLU
+    zeros, so most windows hold ties); and a gradient for the output."""
+    rs = np.random.RandomState(seed)
+    n, c, h, w = shape
+    if kind == "smooth":
+        x = rs.randn(*shape)
+    else:
+        x = np.maximum(rs.randint(-2, 4, size=shape), 0) * 0.5
+    g = rs.randn(n, c, h // 2, w // 2)
+    return x.astype(np.float32), g.astype(np.float32)
+
+
+def _nhwc(a):
+    return np.ascontiguousarray(a.transpose(0, 2, 3, 1))
+
+
+def _bits(a) -> np.ndarray:
+    """float32 view of a bf16 or f32 array/tensor (exact)."""
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a, np.float32)
+
+
+@pytest.mark.parametrize("kind", ["smooth", "plateaus"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 5, 8, 12), (3, 4, 6, 16)],
+                         ids=["2x5x8x12", "3x4x6x16"])
+def test_plain_pool_and_grad_match_jax_and_pallas_bitwise(shape, dtype, kind):
+    """Forward and the first-maximum gradient equal, bit for bit, to JAX's
+    reduce-window pool (select-and-scatter gradient) and to the Pallas pool
+    in interpret mode; NCHW here, NHWC there."""
+    x, g = _pool_inputs(kind, shape, seed=18)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    xt = torch.from_numpy(x).to(tdt).requires_grad_(True)
+    y = max_pool_2x2(xt)
+    y.backward(torch.from_numpy(g).to(tdt))
+    assert y.dtype == tdt and y.shape == (shape[0], shape[1], shape[2] // 2,
+                                          shape[3] // 2)
+    xj, gj = jnp.asarray(_nhwc(x), jdt), jnp.asarray(_nhwc(g), jdt)
+    for pool in (jax_max_pool, lambda v: max_pool_2x2_pallas(v, True)):
+        yj, vjp = jax.vjp(pool, xj)
+        (dj,) = vjp(gj)
+        np.testing.assert_array_equal(_nhwc(_bits(y.detach())), _bits(yj))
+        np.testing.assert_array_equal(_nhwc(_bits(xt.grad)), _bits(dj))
+
+
+def test_pool_dispatcher_on_cpu_is_the_plain_pool():
+    x, g = _pool_inputs("plateaus", (2, 3, 4, 6), seed=19)
+    a = torch.from_numpy(x).requires_grad_(True)
+    b = torch.from_numpy(x).requires_grad_(True)
+    pool_dispatch(a).backward(torch.from_numpy(g))
+    max_pool_2x2(b).backward(torch.from_numpy(g))
+    torch.testing.assert_close(a.grad, b.grad, rtol=0, atol=0)
+    torch.testing.assert_close(
+        a.grad, torch.autograd.grad(F.max_pool2d(b, 2, 2), b,
+                                    torch.from_numpy(g))[0], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="even"):
+        max_pool_2x2(torch.zeros((1, 1, 3, 4)))
+
+
+@pytest.mark.parametrize("case,tol", [((3, 64, "zeros"), 1e-5),
+                                      ((3, 64, "border"), 1e-5),
+                                      ((1, 256, "border"), 1e-4)],
+                         ids=["3x64-zeros", "3x64-border", "1x256-border"])
+def test_field_warp_on_cpu_matches_pallas_field_kernel(case, tol):
+    """``warp_sample_field`` on CPU tensors (upsample + plain warp) against
+    the TPU field kernel in interpret mode, with no y_window. 1e-4 at 256²:
+    the Pallas kernel lerps the field W first, the upsample H first (JAX's
+    own test_warp_field_windowed_and_wide allows the same)."""
+    b, size, padding = case
+    img = np.random.RandomState(20).rand(b, 3, size, size).astype(np.float32)
+    field = jax_random_warp_field(jax.random.PRNGKey(20), b, JaxWarpConfig())
+    want = warp_field_pallas(jnp.asarray(img), field, size, size, padding,
+                             True, interpret=True)
+    got = warp_sample_field(torch.from_numpy(img),
+                            torch.from_numpy(np.array(field)), size, size,
+                            padding, True)
+    assert got.shape == (b, 3, size, size) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=tol)

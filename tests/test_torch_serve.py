@@ -240,7 +240,10 @@ def test_cuda_wrapper_raises_on_cpu_tensor():
 def test_port_imports_no_jax():
     code = ("import sys, keypoints_tpu_torch, keypoints_tpu_torch.serve, "
             "keypoints_tpu_torch.kernels, keypoints_tpu_torch.training, "
-            "keypoints_tpu_torch.checkpoint, keypoints_tpu_torch.testing; "
+            "keypoints_tpu_torch.checkpoint, keypoints_tpu_torch.testing, "
+            "keypoints_tpu_torch.models.vgg, keypoints_tpu_torch.train, "
+            "keypoints_tpu_torch.ops.pool, "
+            "keypoints_tpu_torch.kernels.pool_cuda; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'keypoints_tpu.')) or m == 'keypoints_tpu');"
             " assert not bad, bad")

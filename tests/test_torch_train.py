@@ -219,6 +219,24 @@ def test_train_step_matches_jax_temporal(overrides):
 FULL = {"train.compute_dtype": "float32"}
 
 
+def record_step_draws(key, batch: int, wcfg, fields: list,
+                      warp_draws: list, factors: list) -> None:
+    """Append what JAX's ``_warped_pair`` draws from a step's ``key`` (the
+    same splits): its two warp fields, the TPS noise and affine draws they
+    come from, and the two sets of jitter factors, as JSON-ready lists."""
+    ks, kt, kc_s, kc_t = jax.random.split(key, 4)
+    fields.append([np.asarray(random_warp_field(k, batch, wcfg))
+                   for k in (ks, kt)])
+    warp_draws.append([[t.numpy().ravel().tolist()
+                        for t in jax_warp_draws(k, batch, wcfg)]
+                       for k in (ks, kt)])
+    factors.append([[np.asarray(_factor(k, s, batch, jnp.float32)).ravel()
+                     .tolist() for k, s in zip(
+                         jax.random.split(kc, 3),
+                         (wcfg.brightness, wcfg.contrast, wcfg.saturation))]
+                    for kc in (kc_s, kc_t)])
+
+
 def jax_train_reference() -> dict:
     """JAX f32 full-width celeba128: 3 warp-mode train steps at b2 from
     ``random_flax_params(cfg, 0)`` and ``random_images(2, cfg, 1)`` (the same
@@ -238,18 +256,8 @@ def jax_train_reference() -> dict:
     rng = jax.random.PRNGKey(ref["rng_seed"])
     fields, warp_draws, factors, losses, norms = [], [], [], [], []
     for i in range(ref["steps"]):
-        # the step's own key splits: fold_in, then _warped_pair's four
-        ks, kt, kc_s, kc_t = jax.random.split(jax.random.fold_in(rng, i), 4)
-        fields.append([np.asarray(random_warp_field(k, b, wcfg))
-                       for k in (ks, kt)])
-        warp_draws.append([[t.numpy().ravel().tolist()
-                            for t in jax_warp_draws(k, b, wcfg)]
-                           for k in (ks, kt)])
-        factors.append([[np.asarray(_factor(k, s, b, jnp.float32)).ravel()
-                         .tolist() for k, s in zip(
-                             jax.random.split(kc, 3),
-                             (wcfg.brightness, wcfg.contrast,
-                              wcfg.saturation))] for kc in (kc_s, kc_t)])
+        record_step_draws(jax.random.fold_in(rng, i), b, wcfg, fields,
+                          warp_draws, factors)
         if i == 0:
             src, tgt = make_pair(jax.random.fold_in(rng, 0), images, wcfg)
 
