@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
 
-Drives the three ported paths of ``keypoints_tpu_torch`` at full width
+Drives the four ported paths of ``keypoints_tpu_torch`` at full width
 through their user entry points, with weights made from a seed: celeba128's
 keypoint-serving path (``make_server``) and training step (``init_state`` +
-``make_train_step``, b128, bf16, augmentation inside), and pose256's
-training step (``init_state`` + ``make_train_step(cfg,
-loss=make_loss(cfg))``, b128, bf16: 256² augmentation through the field
-warp, the VGG-16 perceptual loss with its max pools).
+``make_train_step``, b128, bf16, augmentation inside), pose256's training
+step (``init_state`` + ``make_train_step(cfg, loss=make_loss(cfg))``, b128,
+bf16: 256² augmentation through the field warp, the VGG-16 perceptual loss
+with its max pools), and transporter_atari's training step (``init_state``
++ ``make_train_step`` in temporal mode, the preset's b64, bf16, on
+scripted-Pong pairs drawn on the card), with the joint soft-argmax (the
+fused bottleneck kernel) and with the preset's marginal one.
 
    1. device    torch/CUDA versions, ``nvidia-smi`` name and power limit
    2. build     the one kernel library, every ``csrc/*.cu`` built by nvcc
@@ -55,6 +58,22 @@ warp, the VGG-16 perceptual loss with its max pools).
                 perceptual loss alone; train ms/step and frames/s
   15. profile   torch.profiler over 2 pose256 train steps: idle share, ops,
                 each kernel's share
+  16. kernel    the fused bottleneck (K3) against its plain version and its
+                autograd: both variants, both align_corners, at
+                transporter_atari's b64 16^2, a ragged shape, and the joint
+                celeba128 and pose256 shapes; its keypoints and maps against
+                K1 then K2 on the same heatmaps, bit for bit
+  17. train     full-width transporter_atari in float32 (TF32 off), 3 train
+     parity     steps per variant (marginal, joint) on seeded temporal pairs,
+                card and CPU, against
+                tests/data/torch_port_transporter_atari_train.json
+  18. train     full-width transporter_atari at b64 in bf16, 30 steps on
+                scripted-Pong pairs drawn on the card, joint then marginal:
+                finite, falling losses, float32 parameters, launches per step
+  19. times     K3 against K1 + K2 back to back, the plain version and the
+                bound at the three shapes, both variants; the transporter
+                step's ms/step and pairs/s per variant; torch.profiler over
+                its steps: idle share, ops, each kernel's share
 
 Run from a checkout:  python3 chip_smoke.py
 The card's ``nvidia-smi`` line, then a JSON object of the kernels
@@ -87,11 +106,15 @@ from keypoints_tpu_torch.checkpoint import (load_model_state,  # noqa: E402
 from keypoints_tpu_torch.configs import get_config  # noqa: E402
 from keypoints_tpu_torch.data.augment import (pair_from_draws,  # noqa: E402
                                               random_warp_field, warp_field)
+from keypoints_tpu_torch.data.synthetic import scripted_pong_pair  # noqa: E402
 from keypoints_tpu_torch.kernels import _build  # noqa: E402
+from keypoints_tpu_torch.kernels import fused_bottleneck_cuda as fbc  # noqa: E402
 from keypoints_tpu_torch.kernels import gaussian_cuda as gcu  # noqa: E402
 from keypoints_tpu_torch.kernels import pool_cuda as pcu  # noqa: E402
 from keypoints_tpu_torch.kernels import spatial_softmax_cuda as ssc  # noqa: E402
 from keypoints_tpu_torch.kernels import warp_cuda as wcu  # noqa: E402
+from keypoints_tpu_torch.ops.fused_bottleneck import \
+    softargmax_raster as plain_bottleneck  # noqa: E402
 from keypoints_tpu_torch.ops.gaussian import \
     gaussian_maps as plain_gaussian  # noqa: E402
 from keypoints_tpu_torch.ops.pool import max_pool_2x2 as plain_pool  # noqa: E402
@@ -103,7 +126,9 @@ from keypoints_tpu_torch.serve import (build_parser, http_extract,  # noqa: E402
                                        http_meta, make_live_extract,
                                        make_server)
 from keypoints_tpu_torch.testing import (bf16_ulp,  # noqa: E402
-                                         decode_f32, grad_norm_tolerance,
+                                         decode_f32, fused_grad_tolerance,
+                                         fused_map_tolerance,
+                                         grad_norm_tolerance,
                                          random_flax_params, random_images,
                                          random_vgg_params, reference_draws,
                                          reference_warp_draws,
@@ -131,32 +156,38 @@ POSE_STEPS = 20
 REFERENCE = ROOT / "tests" / "data" / "torch_port_celeba128_extract.json"
 TRAIN_REFERENCE = ROOT / "tests" / "data" / "torch_port_celeba128_train.json"
 POSE_REFERENCE = ROOT / "tests" / "data" / "torch_port_pose256_train.json"
+TRANSPORTER_REFERENCE = (ROOT / "tests" / "data"
+                         / "torch_port_transporter_atari_train.json")
+TRANSPORTER_STEPS = 30
 META_KEYS = {"format", "version", "batches", "image_size", "channels",
              "num_keypoints", "input_dtype", "data_parallel_devices"}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS = 67e12           # H100 SXM data sheet, float32 outside tensor cores
 
 # name -> (module, counter, source, TPU kernel it replaces, launches a step
-# on the (celeba128, pose256) train paths)
+# on each of PATHS)
 KERNELS = {
     "spatial_softmax_fwd": (ssc, "launches", "spatial_softmax.cu",
-                            "spatial_softmax_pallas.py:151", (1, 1)),
+                            "spatial_softmax_pallas.py:151", (1, 1, 0, 2)),
     "spatial_softmax_bwd": (ssc, "bwd_launches", "spatial_softmax.cu",
-                            "spatial_softmax_pallas.py:157", (1, 1)),
+                            "spatial_softmax_pallas.py:157", (1, 1, 1, 1)),
     "gaussian_fwd": (gcu, "launches", "gaussian.cu", "gaussian_pallas.py:32",
-                     (1, 1)),
+                     (1, 1, 0, 2)),
     "gaussian_bwd": (gcu, "bwd_launches", "gaussian.cu",
-                     "gaussian_pallas.py:40", (1, 1)),
+                     "gaussian_pallas.py:40", (1, 1, 1, 1)),
     "warp_bilinear": (wcu, "launches", "warp.cu", "warp_pallas.py:93",
-                      (2, 0)),
+                      (2, 0, 0, 0)),
     "warp_field": (wcu, "field_launches", "warp.cu", "warp_pallas.py:237",
-                   (0, 2)),
+                   (0, 2, 0, 0)),
     "max_pool_fwd": (pcu, "launches", "pool.cu", "pool_pallas.py:92",
-                     (0, 4)),
+                     (0, 4, 0, 0)),
     "max_pool_bwd": (pcu, "bwd_launches", "pool.cu", "pool_pallas.py:102",
-                     (0, 2)),
+                     (0, 2, 0, 0)),
+    "softargmax_raster_fwd": (fbc, "launches", "fused_bottleneck.cu",
+                              "fused_bottleneck.py:44", (0, 0, 2, 0)),
 }
-PATHS = ("celeba128", "pose256")
+PATHS = ("celeba128", "pose256", "transporter_atari joint",
+         "transporter_atari marginal")
 
 
 class SmokeFailure(Exception):
@@ -832,9 +863,12 @@ def softmax_and_extract_times(card: str) -> None:
               f"({plain_ms:.3f} ms)  [{card}]", flush=True)
 
 
-def train_step_times(card: str, trainer, steps: int = 20) -> float:
+def train_step_times(card: str, trainer, steps: int = 20, label: str = "",
+                     unit: str = "frames") -> float:
     """ms per train step by CUDA events around ``steps`` steps (median of 3
-    runs), and by the host clock to a synchronise; steps already warm."""
+    runs), and by the host clock to a synchronise; steps already warm.
+    ``trainer``'s last item is what each step takes: an image batch, or a
+    (source, target) pair in temporal mode."""
     cfg, state, step, images = trainer
     for _ in range(3):
         state, _ = step(state, images)
@@ -852,11 +886,12 @@ def train_step_times(card: str, trainer, steps: int = 20) -> float:
         runs.append((start.elapsed_time(end) / steps,
                      (time.perf_counter() - t0) / steps * 1e3))
     ms = float(np.median([r[0] for r in runs]))
-    print(f"{cfg.name} train step b{TRAIN_BATCH} bf16: {ms:.3f} ms/step by "
+    b = cfg.train.batch_size
+    print(f"{label or cfg.name} train step b{b} bf16: {ms:.3f} ms/step by "
           f"CUDA events "
           f"(runs {', '.join(f'{r[0]:.3f}' for r in runs)}; host clock "
           f"{', '.join(f'{r[1]:.3f}' for r in runs)}), "
-          f"{TRAIN_BATCH / ms * 1e3:.0f} frames/s  [{card}]", flush=True)
+          f"{b / ms * 1e3:.0f} {unit}/s  [{card}]", flush=True)
     return ms
 
 
@@ -1175,6 +1210,251 @@ def pose_profile_phase(card: str, trainer, step_ms: float) -> None:
               "pool bwd": ("max_pool_bwd",)})
 
 
+# the fused bottleneck's shapes: transporter_atari's b64 (the main path), a
+# ragged one, and the joint celeba128 and pose256 bottlenecks at b128
+BOTTLENECK_CASES = {"atari b64": ((64, 4, 16, 16), (16, 16), 0.1),
+                    "ragged": ((1, 7, 13, 29), (11, 17), 0.1),
+                    "celeba128 b128": ((128, 10, 32, 32), (32, 32), 0.1),
+                    "pose256 b128": ((128, 16, 32, 32), (32, 32), 0.05)}
+
+
+def fused_kernel_phase() -> dict:
+    """K3 against its plain version (forward) and its autograd (the
+    composed backward), and against K1 then K2 on the same heatmaps."""
+    phase("16 fused bottleneck (K3) vs plain")
+    rs = np.random.RandomState(16)
+    worst = {"kp": 0.0, "maps": 0.0, "dh": 0.0, "dh_share": 0.0}
+    cases = same = 0
+    for label, (shape, (ho, wo), sigma) in BOTTLENECK_CASES.items():
+        x = torch.from_numpy((3 * rs.randn(*shape)).astype(np.float32)).cuda()
+        g_kp = torch.from_numpy(rs.randn(*shape[:2], 2).astype(np.float32))
+        g_maps = torch.from_numpy(rs.randn(*shape[:2], ho, wo)
+                                  .astype(np.float32))
+        g_kp, g_maps = g_kp.cuda(), g_maps.cuda()
+        for variant in ("joint", "marginal"):
+            for align in (True, False):
+                what = f"{label} {variant} align={align}"
+                kp, maps = fbc.softargmax_raster_cuda(x, ho, wo, 0.7, sigma,
+                                                      align, variant)
+                torch.cuda.synchronize()
+                kp_p, maps_p = plain_bottleneck(x, ho, wo, 0.7, sigma, align,
+                                                variant)
+                e_kp = (kp - kp_p).abs().max().item()
+                e_maps = (maps - maps_p).abs().max().item()
+                check(e_kp <= KERNEL_TOL, f"K3 keypoints {what}: {e_kp}")
+                check(e_maps <= fused_map_tolerance(sigma),
+                      f"K3 maps {what}: {e_maps}")
+                kp1 = ssc.spatial_softmax_cuda(x, 0.7, variant, align)
+                maps2 = gcu.gaussian_fwd_cuda(kp1.reshape(-1, 2), ho, wo,
+                                              sigma, align)
+                same += int(torch.equal(kp, kp1)
+                            and torch.equal(maps, maps2.reshape(maps.shape)))
+
+                xk = x.clone().requires_grad_(True)
+                torch.autograd.backward(fbc.softargmax_raster_autograd(
+                    xk, ho, wo, 0.7, sigma, align, variant), (g_kp, g_maps))
+                xr = x.clone().requires_grad_(True)
+                torch.autograd.backward(plain_bottleneck(
+                    xr, ho, wo, 0.7, sigma, align, variant), (g_kp, g_maps))
+                torch.cuda.synchronize()
+                diff = (xk.grad - xr.grad).abs()
+                tol = fused_grad_tolerance(x, ho, wo, 0.7, sigma, align,
+                                           variant, g_kp, g_maps)
+                check(bool((diff <= tol).all()),
+                      f"K3 dheatmaps {what}: {diff.max().item()}")
+                worst["kp"] = max(worst["kp"], e_kp)
+                worst["maps"] = max(worst["maps"], e_maps)
+                worst["dh"] = max(worst["dh"], diff.max().item())
+                worst["dh_share"] = max(worst["dh_share"],
+                                        (diff / tol).max().item())
+                cases += 1
+    print(f"K3: {cases} cases; keypoints max|d| {worst['kp']:.3e} (tolerance "
+          f"{KERNEL_TOL}), maps max|d| {worst['maps']:.3e} (tolerance "
+          f"{fused_map_tolerance(0.1):.2e} at sigma 0.1, "
+          f"{fused_map_tolerance(0.05):.2e} at 0.05), "
+          f"dheatmaps max|d| {worst['dh']:.3e} (at {worst['dh_share']:.3f} of "
+          f"its elementwise tolerance); keypoints and maps equal to K1 then "
+          f"K2 bit for bit in {same} of {cases} cases", flush=True)
+    return {"softargmax_raster_fwd": max(worst["kp"], worst["maps"])}
+
+
+def transporter_parity_phase() -> None:
+    """3 full-width f32 temporal-mode steps per variant on the card (the
+    kernels: K3 for joint) and on this machine's CPU (the plain versions),
+    against the committed JAX reference."""
+    ref = json.loads(TRANSPORTER_REFERENCE.read_text())
+    phase(f"17 train parity: full-width {ref['preset']} f32 (TF32 off), 3 "
+          f"steps per variant on seeded pairs, card and CPU vs committed JAX "
+          f"reference")
+    with NoTF32():
+        for variant, want in ref["runs"].items():
+            cfg = get_config(ref["preset"]).override(**{
+                **ref["overrides"], "model.softmax_variant": variant})
+            for device in ("cuda", "cpu"):
+                t0 = time.perf_counter()
+                state = init_state(cfg, device)
+                load_model_state(state.model, state_dict_from_flax(
+                    random_flax_params(cfg, ref["param_seed"])))
+                src, tgt = (torch.from_numpy(random_images(
+                    ref["batch"], cfg, s)).to(device)
+                    for s in ref["image_seeds"])
+                with torch.no_grad():
+                    kp = state.model(src, tgt)[1].cpu().numpy()
+                step = make_train_step(cfg)
+                losses, norms, grads = [], [], {}
+                for i in range(ref["steps"]):
+                    state, metrics = step(state, (src, tgt))
+                    losses.append(metrics["loss"].item())
+                    norms.append(metrics["grad_norm"].item())
+                    if i == 0:
+                        grads = {k: p.grad.norm().item()
+                                 for k, p in state.model.named_parameters()}
+                check(all(p.dtype == torch.float32
+                          for p in state.model.parameters()), "non-f32 params")
+                kp_err = float(np.abs(kp - np.asarray(want["keypoints"]))
+                               .max())
+                loss_rel = max(abs(a / b - 1)
+                               for a, b in zip(losses, want["loss"]))
+                norm_rel = max(abs(a / b - 1)
+                               for a, b in zip(norms, want["grad_norm"]))
+                worst_param = max(
+                    abs(grads[k] - v) / grad_norm_tolerance(
+                        v, want["grad_norm"][0])
+                    for k, v in want["grad_norms"].items())
+                print(f"{variant} {device}: losses {losses} grad_norms {norms}"
+                      f" ({time.perf_counter() - t0:.1f}s); vs JAX: step-1 "
+                      f"keypoints max|d| {kp_err:.3e} (tolerance "
+                      f"{TRAIN_KP_TOL}), loss rel {loss_rel:.3e}, grad_norm "
+                      f"rel {norm_rel:.3e} (tolerance {TRAIN_RTOL}), "
+                      f"per-parameter gradient norms at {worst_param:.3f} of "
+                      f"their tolerance", flush=True)
+                check(kp_err <= TRAIN_KP_TOL,
+                      f"{variant} {device} keypoints {kp_err}")
+                check(loss_rel <= TRAIN_RTOL,
+                      f"{variant} {device} loss rel {loss_rel}")
+                check(norm_rel <= TRAIN_RTOL,
+                      f"{variant} {device} grad_norm rel {norm_rel}")
+                check(grads.keys() == want["grad_norms"].keys(),
+                      "parameter names")
+                check(worst_param <= 1.0,
+                      f"{variant} {device} per-parameter grad norms")
+
+
+def transporter_train_phase(variant: str, steps: int):
+    """transporter_atari's training path at the preset's b64 in bf16:
+    ``steps`` scripted-Pong pairs drawn on the card first (the raster
+    kernel renders the ball), then ``steps`` temporal-mode steps with the
+    counts reset just before; every kernel launched exactly as often as a
+    step of this variant launches it."""
+    cfg = get_config("transporter_atari").override(
+        **{"model.softmax_variant": variant})
+    b = cfg.train.batch_size
+    phase(f"18 train (transporter_atari full width, softmax_variant={variant},"
+          f" b{b}, bf16, {steps} steps on scripted-Pong pairs drawn on the "
+          f"card)")
+    state = init_state(cfg, "cuda")
+    step = make_train_step(cfg)
+    reset_counts()
+    pairs = [scripted_pong_pair(step_generator(cfg.train.seed, i, "cuda"), b,
+                                cfg.data.image_size)[:2]
+             for i in range(steps)]
+    torch.cuda.synchronize()
+    drawn = read_counts()
+    print(f"{steps} pairs of 2x{b}x1x{cfg.data.image_size}^2 frames: "
+          f"raster launches {drawn['gaussian_fwd']} (2 a pair), mean pixel "
+          f"{torch.stack([p[0].mean() for p in pairs]).mean().item():.4f}",
+          flush=True)
+    check(drawn["gaussian_fwd"] == 2 * steps, f"pong raster launches {drawn}")
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for pair in pairs:
+        state, metrics = step(state, pair)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    losses = torch.stack(losses).cpu().numpy()
+    print(f"{steps} steps in {wall:.2f}s (first steps include cuDNN's "
+          f"set-up); losses {losses[0]:.5f} -> {losses[-1]:.5f}, mean of the "
+          f"first 5 {losses[:5].mean():.5f}, of the last 5 "
+          f"{losses[-5:].mean():.5f}", flush=True)
+    print(f"kernel launches during training: {counts}", flush=True)
+    check(bool(np.isfinite(losses).all()), f"non-finite losses {losses}")
+    check(losses[-5:].mean() < losses[:5].mean(),
+          f"losses did not fall: {losses}")
+    check(all(p.dtype == torch.float32 for p in state.model.parameters()),
+          "parameters are not float32 after bf16 steps")
+    path = PATHS.index(f"transporter_atari {variant}")
+    for name, (*_, per_step) in KERNELS.items():
+        want = per_step[path] * steps
+        check(counts[name] == want, f"{name} launched {counts[name]} times "
+              f"in {steps} {variant} steps ({want} expected)")
+    return counts, (cfg, state, step, pairs[0])
+
+
+def _fused_cases(shape, out_hw, sigma: float, variant: str, seed: int):
+    """K3 at one shape: (kernel, plain, library, bound) for ``_time_cases``
+    and the unfused K1 then K2 pair on the same heatmaps."""
+    b, k, h, w = shape
+    ho, wo = out_hw
+    n = b * k
+    x = torch.from_numpy((3 * np.random.RandomState(seed).randn(*shape))
+                         .astype(np.float32)).cuda()
+
+    def unfused():
+        kp = ssc.spatial_softmax_cuda(x, 1.0, variant)
+        return gcu.gaussian_fwd_cuda(kp.reshape(n, 2), ho, wo, sigma)
+    case = (lambda: fbc.softargmax_raster_cuda(x, ho, wo, 1.0, sigma, True,
+                                               variant),
+            lambda: plain_bottleneck(x, ho, wo, 1.0, sigma, True, variant),
+            None,
+            _bound(n * h * w * 4 + n * ho * wo * 4 + n * 8,
+                   6 * n * h * w + 10 * n * ho * wo))
+    return case, unfused
+
+
+def transporter_times_phase(card: str, trainers: dict) -> dict:
+    """K3 at the three bottleneck shapes, both variants: device time
+    (calls queued behind a sleep, inputs L2-warm) against K1 + K2 back to
+    back, the plain version and the byte bound; then each variant's train
+    step and a torch.profiler breakdown of it."""
+    phase(f"19 transporter times on {card}")
+    out = {}
+    for label in ("atari b64", "celeba128 b128", "pose256 b128"):
+        shape, out_hw, sigma = BOTTLENECK_CASES[label]
+        for variant in ("joint", "marginal"):
+            case, unfused = _fused_cases(shape, out_hw, sigma, variant, 19)
+            timed = _time_cases({"softargmax_raster_fwd": case}, card,
+                                label=f" {label} {variant} (N="
+                                f"{shape[0] * shape[1]}, "
+                                f"{shape[2]}x{shape[3]} -> "
+                                f"{out_hw[0]}x{out_hw[1]})")
+            k1k2 = cuda_median_ms(unfused, reps=20)
+            print(f"  K1 then K2 on the same heatmaps: {k1k2 * 1e3:.2f} us "
+                  f"(K3 {timed['softargmax_raster_fwd']['ms'] * 1e3:.2f})  "
+                  f"[{card}]", flush=True)
+            if label == "atari b64" and variant == "joint":
+                out.update(timed)         # the main path's shape and variant
+    profiled = {"fused bottleneck": ("fused_fwd",),
+                "soft-argmax fwd": ("joint_fwd", "marginal_fwd"),
+                "soft-argmax bwd": ("joint_bwd", "marginal_bwd"),
+                "raster fwd": ("gaussian_fwd",),
+                "raster bwd": ("gaussian_bwd",)}
+    for variant, trainer in trainers.items():
+        cfg, state, step, pair = trainer
+        label = f"transporter_atari {variant}"
+        ms = train_step_times(card, trainer, steps=20, label=label,
+                              unit="pairs")
+
+        def train_step():
+            step(state, pair)
+        _profile(f"{label} train step b{cfg.train.batch_size} bf16 (wall = "
+                 f"CUDA-event ms/step)", train_step, 5, card, ms, profiled)
+    return out
+
+
+
 def main() -> int:
     card = device_phase()
     build_phase()
@@ -1204,10 +1484,22 @@ def main() -> int:
     times.update(pose_times_phase(card))
     pose_ms = train_step_times(card, pose_trainer, steps=10)
     pose_profile_phase(card, pose_trainer, pose_ms)
+    del pose_trainer
+    torch.cuda.empty_cache()
+
+    errs.update(fused_kernel_phase())
+    transporter_parity_phase()
+    path_counts = [train_counts, pose_counts]
+    trainers = {}
+    for variant in ("joint", "marginal"):
+        counts, trainers[variant] = transporter_train_phase(
+            variant, TRANSPORTER_STEPS)
+        path_counts.append(counts)
+    times.update(transporter_times_phase(card, trainers))
 
     errs["spatial_softmax_fwd"] = max(errs["spatial_softmax_fwd"],
                                       served["serve_max_abs_err"])
-    launches = {name: train_counts[name] + pose_counts[name]
+    launches = {name: sum(counts[name] for counts in path_counts)
                 for name in KERNELS}
     launches["spatial_softmax_fwd"] += served["launches"]
     kernels = [{

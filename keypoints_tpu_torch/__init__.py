@@ -15,11 +15,15 @@ Ported so far:
   Adam with the warmup-cosine schedule;
 * the perceptual loss of pose256: ``train.make_loss`` →
   ``losses.make_perceptual_loss`` over ``models.vgg`` (the VGG-16 trunk to
-  relu3_3, its 2×2 max pools), for ``make_train_step(cfg, loss=...)``.
+  relu3_3, its 2×2 max pools), for ``make_train_step(cfg, loss=...)``;
+* the Transporter (transporter_atari): ``models.Transporter`` from
+  ``training.build_model``, trained through the temporal mode of
+  ``make_train_step`` on (source, target) frame pairs, such as the
+  scripted-Pong pairs of ``data.synthetic``.
 
 The soft-argmax (forward and backward), the Gaussian raster (forward and
-backward), the bilinear warps (dense grid and coarse field) and the 2×2 max
-pool (forward and backward) run hand-written CUDA kernels on CUDA tensors
-(``kernels``, sources in ``csrc/``) and their plain PyTorch versions on CPU
-tensors (``ops``).
+backward), the fused soft-argmax → raster bottleneck, the bilinear warps
+(dense grid and coarse field) and the 2×2 max pool (forward and backward)
+run hand-written CUDA kernels on CUDA tensors (``kernels``, sources in
+``csrc/``) and their plain PyTorch versions on CPU tensors (``ops``).
 """

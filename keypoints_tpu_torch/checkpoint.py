@@ -10,7 +10,8 @@ export-torch`` with no ``--rename`` loads as it is:
   HWIO → OIHW, ``kernel``/``scale`` → ``weight`` — with numpy alone;
 * ``load_checkpoint(path)`` reads a ``.pt`` state dict;
 * ``load_model_state(model, state_dict)`` loads ``encoder.*``, ``keynet.*``
-  and ``decoder.*`` into the full autoencoder with ``strict=True``.
+  and ``decoder.*`` into the whole model, the autoencoder or the
+  Transporter (the same three trees), with ``strict=True``.
 """
 
 from __future__ import annotations
@@ -73,11 +74,12 @@ def load_model_state(model: nn.Module, state_dict: Mapping) -> None:
     parameter's dtype and on its device.
     """
     own = model.state_dict()
+    trees = ", ".join(sorted({k.split(".")[0] + ".*" for k in own}))
     tensors = {}
     for key, value in state_dict.items():
         if key not in own:
-            raise KeyError(f"unexpected state-dict key {key!r}: the model "
-                           f"has encoder.*, keynet.* and decoder.*")
+            raise KeyError(f"unexpected state-dict key {key!r}: "
+                           f"{type(model).__name__} has {trees}")
         tensors[key] = (value if isinstance(value, torch.Tensor)
                         else torch.from_numpy(np.array(value)))
     model.load_state_dict(tensors, strict=True)

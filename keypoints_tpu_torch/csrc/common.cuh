@@ -29,4 +29,16 @@ __device__ __forceinline__ float axis_coord(int i, int n, bool align) {
   return -1.0f + (2.0f * fi + 1.0f) / static_cast<float>(n);
 }
 
+// The Gaussian raster's value at a pixel of coordinates (u, v) for a keypoint
+// (kx, ky): exp(-((u - kx)^2 + (v - ky)^2) * inv_two_s2), inv_two_s2 =
+// 1 / (2 sigma^2), u and v from axis_coord. The raster (gaussian.cu) and the
+// fused bottleneck (fused_bottleneck.cu) both write it, so their maps agree
+// to the bit.
+__device__ __forceinline__ float gaussian_value(float u, float v, float kx,
+                                                float ky, float inv_two_s2) {
+  const float du = u - kx;
+  const float dv = v - ky;
+  return expf(-(du * du + dv * dv) * inv_two_s2);
+}
+
 }  // namespace kpcommon

@@ -1,0 +1,125 @@
+// Fused keypoint bottleneck on Hopper: soft-argmax, then the Gaussian raster
+// of its keypoint, in one pass per heatmap.
+//   heatmaps (N, H, W) f32 -> keypoints (N, 2) f32 (x, y)
+//                           and maps (N, Ho, Wo) f32,
+//   maps[n, v, u] = exp(-((u - x_n)^2 + (v - y_n)^2) / (2 sigma^2))
+//
+// Replaces keypoints_tpu/kernels/fused_bottleneck.py:121
+// softargmax_raster_fused, forward: _fused_fwd_kernel (:44), called at :66,
+// both variants (joint and marginal). Its backward (:84-115) composes the
+// raster backward and the soft-argmax backward kernels; so does the port's
+// (kernels/fused_bottleneck_cuda.py: gaussian.cu's K2 backward, then
+// spatial_softmax.cu's K1b), so this file holds the forward only.
+//
+// What bounds it: it reads N*H*W*4 bytes and writes N*Ho*Wo*4 + N*8, a few
+// flops and one exp per element, so it is byte bound. At 3.35 TB/s:
+// transporter_atari b64 (N = 256, 16x16 -> 16x16) moves 0.53 MB, 0.16 us,
+// far below a launch: launch bound; joint celeba128 b128 (N = 1280, 32x32)
+// 10.5 MB, 3.1 us; joint pose256 b128 (N = 2048, 32x32) 16.8 MB, 5.0 us. The
+// fusion saves the (N, 2) round trip and the second launch of the unfused
+// K1 -> K2 pair.
+//
+// Design: one warp per heatmap, as K1. The keypoint comes from K1's own row
+// functions (softmax.cuh: marginal_keypoint, or joint_keypoint's two
+// passes), so it equals K1's to the bit, and every lane holds it after the
+// butterfly reductions. The warp then writes the row's map straight from
+// registers, lane i at flat pixels i, i + 32, ... (one coalesced 128-byte
+// store per step), each pixel by the raster's own formula (common.cuh
+// gaussian_value), so the map equals K2's on that keypoint. A warp has 32
+// threads for Ho*Wo pixels where K2 has one thread a pixel, so the loop is
+// kept short: the output grid's coordinates (axis_coord, two float
+// divisions each) are computed once per block into shared memory, and the
+// pixel's (x, y) advance by 32 without an integer division. H, W 1..64 (the
+// soft-argmax's limit); Ho + Wo up to kMaxOut (the table). The TPU kernel's
+// block-row tiling (_block_rows, _flat_spec) and indicator-matrix marginals
+// exist for Mosaic's lack of lane-splitting reshapes and have no
+// counterpart here.
+
+#include <cuda_runtime.h>
+
+#include "softmax.cuh"
+
+namespace {
+
+using kpcommon::axis_coord;
+using kpcommon::gaussian_value;
+using kpcommon::kWarp;
+using kpsoftmax::bad_shape;
+using kpsoftmax::joint_keypoint;
+using kpsoftmax::marginal_keypoint;
+
+constexpr int kWarpsPerBlock = 8;
+constexpr int kMaxOut = 4096;              // Ho + Wo: the coordinate table,
+                                           // 16 KB of shared memory at most
+
+template <bool kJoint>
+__global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
+fused_fwd(const float* __restrict__ in, float* __restrict__ kp,
+          float* __restrict__ maps, int n_rows, int h, int w, int ho, int wo,
+          float inv_t, float inv_two_s2, bool align) {
+  extern __shared__ float coords[];          // u of x < wo, then v of y < ho
+  for (int i = threadIdx.x; i < wo + ho; i += blockDim.x)
+    coords[i] = i < wo ? axis_coord(i, wo, align)
+                       : axis_coord(i - wo, ho, align);
+  __syncthreads();
+  const float* us = coords;
+  const float* vs = coords + wo;
+
+  const int lane = threadIdx.x % kWarp;
+  const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+  if (row >= n_rows) return;                 // uniform across the warp
+  const float* p = in + static_cast<size_t>(row) * h * w;
+  float ex, ey;
+  if (kJoint)
+    joint_keypoint(p, h, w, inv_t, align, lane, ex, ey);
+  else
+    marginal_keypoint(p, h, w, inv_t, align, lane, ex, ey);
+  if (lane == 0) {
+    kp[2 * static_cast<size_t>(row)] = ex;
+    kp[2 * static_cast<size_t>(row) + 1] = ey;
+  }
+  const int hw = ho * wo;
+  float* o = maps + static_cast<size_t>(row) * hw;
+  int y = lane / wo, x = lane - y * wo;      // of flat pixel i = lane
+#pragma unroll 4
+  for (int i = lane; i < hw; i += kWarp) {
+    o[i] = gaussian_value(us[x], vs[y], ex, ey, inv_two_s2);
+    x += kWarp;                              // pixel i + 32
+    while (x >= wo) {
+      x -= wo;
+      ++y;
+    }
+  }
+}
+
+}  // namespace
+
+// variant: 0 = joint, 1 = marginal. Launches on `stream` and returns
+// cudaGetLastError() (0 on success); does not synchronise.
+extern "C" int kp_softargmax_raster_fwd(int variant, int n, int h, int w,
+                                        int ho, int wo, float inv_t,
+                                        float sigma, int align_corners,
+                                        const void* heatmaps, void* kp,
+                                        void* maps, void* stream) {
+  if (bad_shape(variant, n, h, w) || ho < 1 || wo < 1 || ho + wo > kMaxOut ||
+      !(sigma > 0.0f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const dim3 block(kWarpsPerBlock * kWarp);
+  const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* x = static_cast<const float*>(heatmaps);
+  auto* k = static_cast<float*>(kp);
+  auto* m = static_cast<float*>(maps);
+  // the raster's 1 / (2 sigma^2), computed as gaussian.cu computes it
+  const float inv_two_s2 = 1.0f / (2.0f * sigma * sigma);
+  const bool align = align_corners != 0;
+  const size_t table = static_cast<size_t>(ho + wo) * sizeof(float);
+  if (variant == 0)
+    fused_fwd<true><<<grid, block, table, s>>>(x, k, m, n, h, w, ho, wo,
+                                               inv_t, inv_two_s2, align);
+  else
+    fused_fwd<false><<<grid, block, table, s>>>(x, k, m, n, h, w, ho, wo,
+                                                inv_t, inv_two_s2, align);
+  return static_cast<int>(cudaGetLastError());
+}

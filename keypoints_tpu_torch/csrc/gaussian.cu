@@ -30,6 +30,7 @@
 namespace {
 
 using kpcommon::axis_coord;
+using kpcommon::gaussian_value;
 using kpcommon::kWarp;
 using kpcommon::warp_sum;
 
@@ -46,9 +47,8 @@ gaussian_fwd(const float* __restrict__ kp, float* __restrict__ out,
   const int r = static_cast<int>(i - n * hw);
   const int y = r / w;
   const int x = r - y * w;
-  const float du = axis_coord(x, w, align) - __ldg(kp + 2 * n);
-  const float dv = axis_coord(y, h, align) - __ldg(kp + 2 * n + 1);
-  out[i] = expf(-(du * du + dv * dv) * inv_two_s2);
+  out[i] = gaussian_value(axis_coord(x, w, align), axis_coord(y, h, align),
+                          __ldg(kp + 2 * n), __ldg(kp + 2 * n + 1), inv_two_s2);
 }
 
 __global__ void __launch_bounds__(kThreads)

@@ -36,84 +36,28 @@
 // The TPU kernel's 0/1 indicator-matrix matmuls (:97-121) exist only because
 // Mosaic has no lane-splitting reshape; plain loads and shuffles replace
 // them here. H and W may be 1..64, any shape; the wrapper checks the bound.
-// Making it fast (vector loads, several rows per warp, reading bf16
-// heatmaps directly) is later work.
+// The per-row functions live in softmax.cuh, which the fused bottleneck
+// (fused_bottleneck.cu, K3) shares. Making it fast (vector loads, several
+// rows per warp, reading bf16 heatmaps directly) is later work.
 
 #include <cuda_runtime.h>
-#include <math_constants.h>
 
-#include "common.cuh"
+#include "softmax.cuh"
 
 namespace {
 
 using kpcommon::axis_coord;
 using kpcommon::kFull;
 using kpcommon::kWarp;
-using kpcommon::warp_max;
 using kpcommon::warp_sum;
+using kpsoftmax::bad_shape;
+using kpsoftmax::joint_keypoint;
+using kpsoftmax::joint_max;
+using kpsoftmax::marginal_keypoint;
+using kpsoftmax::marginal_sums;
+using kpsoftmax::softmax_probs;
 
-constexpr int kMaxSide = 2 * kWarp;        // each lane holds index i and i + 32
 constexpr int kWarpsPerBlock = 8;
-
-// Softmax over n <= 64 logits held two per lane (index lane and lane + 32),
-// then the expectation of axis_coord under it. Every lane gets the result.
-__device__ float softmax_expectation(float v0, float v1, int n, bool align,
-                                     int lane) {
-  const bool ok0 = lane < n, ok1 = lane + kWarp < n;
-  const float m = warp_max(fmaxf(ok0 ? v0 : -CUDART_INF_F,
-                                 ok1 ? v1 : -CUDART_INF_F));
-  const float e0 = ok0 ? expf(v0 - m) : 0.0f;
-  const float e1 = ok1 ? expf(v1 - m) : 0.0f;
-  const float s = warp_sum(e0 + e1);
-  const float c = warp_sum(e0 * axis_coord(lane, n, align) +
-                           e1 * axis_coord(lane + kWarp, n, align));
-  return c / s;
-}
-
-// The same softmax, returning the probabilities of index lane and lane + 32.
-__device__ void softmax_probs(float v0, float v1, int n, int lane, float& p0,
-                              float& p1) {
-  const bool ok0 = lane < n, ok1 = lane + kWarp < n;
-  const float m = warp_max(fmaxf(ok0 ? v0 : -CUDART_INF_F,
-                                 ok1 ? v1 : -CUDART_INF_F));
-  const float e0 = ok0 ? expf(v0 - m) : 0.0f;
-  const float e1 = ok1 ? expf(v1 - m) : 0.0f;
-  const float inv = 1.0f / warp_sum(e0 + e1);
-  p0 = e0 * inv;
-  p1 = e1 * inv;
-}
-
-// Column sums (x = lane, lane + 32) and row sums (y = lane, lane + 32) of one
-// (h, w) heatmap, one coalesced pass.
-__device__ void marginal_sums(const float* __restrict__ p, int h, int w,
-                              int lane, float& col0, float& col1, float& row0,
-                              float& row1) {
-  const bool ok0 = lane < w, ok1 = lane + kWarp < w;
-  col0 = col1 = row0 = row1 = 0.0f;
-  for (int y = 0; y < h; ++y) {
-    const float* r = p + static_cast<size_t>(y) * w;
-    const float a = ok0 ? __ldg(r + lane) : 0.0f;
-    const float b = ok1 ? __ldg(r + lane + kWarp) : 0.0f;
-    col0 += a;
-    col1 += b;
-    const float t = warp_sum(a + b);
-    if (y == lane) row0 = t;
-    if (y == lane + kWarp) row1 = t;
-  }
-}
-
-// Max of h/T over one (h, w) heatmap, on every lane.
-__device__ float joint_max(const float* __restrict__ p, int h, int w,
-                           float inv_t, int lane) {
-  const bool ok0 = lane < w, ok1 = lane + kWarp < w;
-  float m = -CUDART_INF_F;
-  for (int y = 0; y < h; ++y) {
-    const float* r = p + static_cast<size_t>(y) * w;
-    if (ok0) m = fmaxf(m, __ldg(r + lane) * inv_t);
-    if (ok1) m = fmaxf(m, __ldg(r + lane + kWarp) * inv_t);
-  }
-  return warp_max(m);
-}
 
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
 marginal_fwd(const float* __restrict__ in, float* __restrict__ out, int n_rows,
@@ -121,22 +65,9 @@ marginal_fwd(const float* __restrict__ in, float* __restrict__ out, int n_rows,
   const int lane = threadIdx.x % kWarp;
   const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
   if (row >= n_rows) return;                 // uniform across the warp
-  const float* p = in + static_cast<size_t>(row) * h * w;
-  const bool ok0 = lane < w, ok1 = lane + kWarp < w;
-  float col0 = 0.0f, col1 = 0.0f;            // column sums of x = lane, lane+32
-  float row0 = 0.0f, row1 = 0.0f;            // row sums of y = lane, lane+32
-  for (int y = 0; y < h; ++y) {
-    const float* r = p + static_cast<size_t>(y) * w;
-    const float a = ok0 ? __ldg(r + lane) : 0.0f;
-    const float b = ok1 ? __ldg(r + lane + kWarp) : 0.0f;
-    col0 += a;
-    col1 += b;
-    const float t = warp_sum(a + b);
-    if (y == lane) row0 = t;
-    if (y == lane + kWarp) row1 = t;
-  }
-  const float ex = softmax_expectation(col0 * inv_t, col1 * inv_t, w, align, lane);
-  const float ey = softmax_expectation(row0 * inv_t, row1 * inv_t, h, align, lane);
+  float ex, ey;
+  marginal_keypoint(in + static_cast<size_t>(row) * h * w, h, w, inv_t, align,
+                    lane, ex, ey);
   if (lane == 0) {
     out[2 * static_cast<size_t>(row)] = ex;
     out[2 * static_cast<size_t>(row) + 1] = ey;
@@ -149,34 +80,12 @@ joint_fwd(const float* __restrict__ in, float* __restrict__ out, int n_rows,
   const int lane = threadIdx.x % kWarp;
   const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
   if (row >= n_rows) return;                 // uniform across the warp
-  const float* p = in + static_cast<size_t>(row) * h * w;
-  const bool ok0 = lane < w, ok1 = lane + kWarp < w;
-
-  float m = -CUDART_INF_F;
-  for (int y = 0; y < h; ++y) {
-    const float* r = p + static_cast<size_t>(y) * w;
-    if (ok0) m = fmaxf(m, __ldg(r + lane) * inv_t);
-    if (ok1) m = fmaxf(m, __ldg(r + lane + kWarp) * inv_t);
-  }
-  m = warp_max(m);
-
-  float c0 = 0.0f, c1 = 0.0f;                // sum over y of e at x = lane, lane+32
-  float sy = 0.0f;                           // sum of e * y-coordinate
-  for (int y = 0; y < h; ++y) {
-    const float* r = p + static_cast<size_t>(y) * w;
-    const float a = ok0 ? expf(__ldg(r + lane) * inv_t - m) : 0.0f;
-    const float b = ok1 ? expf(__ldg(r + lane + kWarp) * inv_t - m) : 0.0f;
-    c0 += a;
-    c1 += b;
-    sy += (a + b) * axis_coord(y, h, align);
-  }
-  const float s = warp_sum(c0 + c1);
-  const float sx = warp_sum(c0 * axis_coord(lane, w, align) +
-                            c1 * axis_coord(lane + kWarp, w, align));
-  sy = warp_sum(sy);
+  float ex, ey;
+  joint_keypoint(in + static_cast<size_t>(row) * h * w, h, w, inv_t, align,
+                 lane, ex, ey);
   if (lane == 0) {
-    out[2 * static_cast<size_t>(row)] = sx / s;
-    out[2 * static_cast<size_t>(row) + 1] = sy / s;
+    out[2 * static_cast<size_t>(row)] = ex;
+    out[2 * static_cast<size_t>(row) + 1] = ey;
   }
 }
 
@@ -245,11 +154,6 @@ joint_bwd(const float* __restrict__ in, const float* __restrict__ kp,
     if (ok1)
       q[lane + kWarp] = expf(__ldg(r + lane + kWarp) * inv_t - m) * inv_s * (du1 + dv);
   }
-}
-
-bool bad_shape(int variant, int n, int h, int w) {
-  return n < 0 || h < 1 || w < 1 || h > kMaxSide || w > kMaxSide ||
-         (variant != 0 && variant != 1);
 }
 
 }  // namespace

@@ -1,2 +1,3 @@
-"""Data side of the port (the JAX package's ``keypoints_tpu.data``): so far
-the device-side pair augmentation, ``augment``."""
+"""Data side of the port (the JAX package's ``keypoints_tpu.data``): the
+device-side pair augmentation, ``augment``, and the synthetic temporal
+pairs (scripted Pong, moving dots), ``synthetic``."""

@@ -4,14 +4,16 @@ A CUDA tensor goes to the kernel, a CPU tensor to the kernel's plain PyTorch
 version (``keypoints_tpu_torch.ops``), and any other device raises. There is
 no switch that forces the plain path on CUDA and no fallback when a launch
 fails. The kernel modules (``spatial_softmax_cuda``, ``gaussian_cuda``,
-``warp_cuda``, ``pool_cuda``: wrappers, autograd Functions and launch
-counts) are submodules of this package; ``_build`` builds the one library
-they share.
+``fused_bottleneck_cuda``, ``warp_cuda``, ``pool_cuda``: wrappers, autograd
+Functions and launch counts) are submodules of this package; ``_build``
+builds the one library they share.
 
-The TPU dispatch rules of ``keypoints_tpu/kernels/__init__.py`` (the B=1
-marginal routing, ``xla_only``, the lane-tile width limits, the joint-only
-fused bottleneck) work around XLA:TPU and Mosaic and have no counterpart
-here.
+``extract_and_render`` routes as ``keypoints_tpu/kernels/__init__.py:158``
+does: the joint variant takes the fused bottleneck kernel (K3), the
+marginal variant the soft-argmax kernel then the raster kernel. The other
+TPU dispatch rules there (the B=1 marginal routing, ``xla_only``, the
+lane-tile width limits) work around XLA:TPU and Mosaic and have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -19,8 +21,9 @@ from __future__ import annotations
 import torch
 
 from keypoints_tpu_torch.coords import DEFAULT_ALIGN_CORNERS
-from keypoints_tpu_torch.kernels import (gaussian_cuda, pool_cuda,
-                                         spatial_softmax_cuda, warp_cuda)
+from keypoints_tpu_torch.kernels import (fused_bottleneck_cuda, gaussian_cuda,
+                                         pool_cuda, spatial_softmax_cuda,
+                                         warp_cuda)
 from keypoints_tpu_torch.ops.gaussian import gaussian_maps as _plain_gaussian
 from keypoints_tpu_torch.ops.pool import max_pool_2x2 as _plain_pool
 from keypoints_tpu_torch.ops.spatial_softmax import spatial_softmax as _plain
@@ -120,14 +123,22 @@ def extract_and_render(heatmaps: torch.Tensor, out_height: int,
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """The keypoint bottleneck: heatmaps → (keypoints, Gaussian maps).
 
-    The soft-argmax, then the raster, for both variants; on CUDA each is its
-    own kernel pair. The fused kernel of the TPU's joint path
-    (``softargmax_raster_fused``) is not ported yet.
+    On CUDA the joint variant is one fused kernel (K3,
+    ``fused_bottleneck_cuda.SoftargmaxRasterFused``), the marginal variant
+    the soft-argmax kernel then the raster kernel, as the JAX package
+    routes them on the TPU; on CPU the plain soft-argmax then the plain
+    raster (``ops.fused_bottleneck`` is that composition). Differentiable
+    in the heatmaps on both.
     """
+    if variant == "joint" and _on_cuda(heatmaps, "keypoint bottleneck"):
+        return fused_bottleneck_cuda.softargmax_raster_autograd(
+            heatmaps, out_height, out_width, temperature, sigma,
+            align_corners, variant)
     kp = spatial_softmax(heatmaps, temperature, variant, align_corners)
     return kp, gaussian_maps(kp, out_height, out_width, sigma, align_corners)
 
 
 __all__ = ["spatial_softmax", "gaussian_maps", "warp_sample",
            "warp_sample_field", "max_pool_2x2", "extract_and_render",
-           "spatial_softmax_cuda", "gaussian_cuda", "warp_cuda", "pool_cuda"]
+           "spatial_softmax_cuda", "gaussian_cuda", "fused_bottleneck_cuda",
+           "warp_cuda", "pool_cuda"]

@@ -1,0 +1,128 @@
+"""Wrappers of the hand-written CUDA fused bottleneck (``csrc/fused_bottleneck.cu``).
+
+Replaces ``keypoints_tpu/kernels/fused_bottleneck.py``
+``softargmax_raster_fused`` (K3) on NVIDIA Hopper: heatmaps → keypoints and
+their Gaussian maps in one kernel, both soft-argmax variants. The kernel
+comes from the port's one kernel library (``kernels/_build.py``).
+
+:class:`SoftargmaxRasterFused` carries the gradient as the JAX package's
+``custom_vjp`` does (``_fused_bwd``): the raster's backward kernel (K2
+backward, ``gaussian_cuda.gaussian_bwd_cuda``) turns ``dL/dmaps`` into a
+keypoint gradient, the direct ``dL/dkeypoints`` is added to it, and the
+soft-argmax backward kernel (K1b, ``spatial_softmax_cuda.
+spatial_softmax_bwd_cuda``) turns the sum into ``dL/dheatmaps``. No backward
+kernel of its own.
+
+The plain PyTorch version is ``keypoints_tpu_torch.ops.fused_bottleneck``;
+the tests and ``chip_smoke.py`` hold the kernel against it and its
+autograd. Nothing on the CUDA path calls it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from keypoints_tpu_torch.coords import DEFAULT_ALIGN_CORNERS
+from keypoints_tpu_torch.kernels import _build
+from keypoints_tpu_torch.kernels.gaussian_cuda import (check_sigma,
+                                                       gaussian_bwd_cuda)
+from keypoints_tpu_torch.kernels.spatial_softmax_cuda import (
+    VARIANTS, check_heatmaps, spatial_softmax_bwd_cuda)
+
+MAX_OUT = 4096         # Ho + Wo: the kernel's coordinate table in shared memory
+
+#: kernel launches so far; the wrapper adds one per launch, nowhere else
+launches = 0
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def softargmax_raster_cuda(heatmaps: torch.Tensor, out_height: int,
+                           out_width: int, temperature: float = 1.0,
+                           sigma: float = 0.1,
+                           align_corners: bool = DEFAULT_ALIGN_CORNERS,
+                           variant: str = "joint"
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel: ``(B, K, H, W)`` f32 CUDA heatmaps → keypoints ``(B, K,
+    2)`` ``(x, y)`` and maps ``(B, K, Ho, Wo)``, both f32.
+
+    Launches on the current stream of the tensor's device and does not
+    synchronise. Raises on anything the kernel does not take: a tensor that
+    is not a contiguous float32 CUDA tensor, H or W outside 1..64, an
+    unknown variant, sigma not positive, or an output size below 1 or with
+    Ho + Wo above 4096. The outputs carry no gradient:
+    :class:`SoftargmaxRasterFused` does.
+    """
+    global launches
+    check_heatmaps(heatmaps, variant, "softargmax_raster_cuda")
+    check_sigma(sigma)
+    ho, wo = int(out_height), int(out_width)
+    if ho < 1 or wo < 1 or ho + wo > MAX_OUT:
+        raise ValueError(f"softargmax_raster_cuda needs an output size with "
+                         f"Ho, Wo >= 1 and Ho + Wo <= {MAX_OUT}, got "
+                         f"{ho}x{wo}")
+    b, k, h, w = heatmaps.shape
+    kp = torch.empty((b, k, 2), dtype=torch.float32, device=heatmaps.device)
+    maps = torch.empty((b, k, ho, wo), dtype=torch.float32,
+                       device=heatmaps.device)
+    if b * k == 0:
+        return kp, maps
+    fn = _build.entry("kp_softargmax_raster_fwd", _I, _I, _I, _I, _I, _I, _F,
+                      _F, _I, _P, _P, _P, _P)
+    _build.launch(fn, heatmaps, f"softargmax_raster_fwd (N={b * k}, {h}x{w} "
+                  f"-> {ho}x{wo}, {variant})", VARIANTS[variant], b * k, h, w,
+                  ho, wo, 1.0 / float(temperature), float(sigma),
+                  int(bool(align_corners)), heatmaps.data_ptr(),
+                  kp.data_ptr(), maps.data_ptr())
+    with _build.lock:
+        launches += 1
+    return kp, maps
+
+
+class SoftargmaxRasterFused(torch.autograd.Function):
+    """The fused forward kernel; the backward composes the raster's and the
+    soft-argmax's backward kernels (``fused_bottleneck.py:84-115``).
+
+    Saves the heatmaps and the keypoints; the backward kernels recompute the
+    maps and the softmax from them. The incoming map gradient is made f32
+    and contiguous first.
+    """
+
+    @staticmethod
+    def forward(ctx, heatmaps, out_height, out_width, temperature, sigma,
+                align_corners, variant):
+        kp, maps = softargmax_raster_cuda(heatmaps, out_height, out_width,
+                                          temperature, sigma, align_corners,
+                                          variant)
+        ctx.save_for_backward(heatmaps, kp)
+        ctx.args = (temperature, sigma, align_corners, variant)
+        return kp, maps
+
+    @staticmethod
+    def backward(ctx, g_kp, g_maps):
+        heatmaps, kp = ctx.saved_tensors
+        temperature, sigma, align_corners, variant = ctx.args
+        b, k, ho, wo = g_maps.shape
+        dkp = gaussian_bwd_cuda(kp.reshape(b * k, 2),
+                                g_maps.float().reshape(b * k, ho, wo)
+                                .contiguous(), sigma, align_corners)
+        total = (g_kp.float() + dkp.reshape(b, k, 2)).contiguous()
+        dh = spatial_softmax_bwd_cuda(heatmaps, kp, total, temperature,
+                                      variant, align_corners)
+        return dh, None, None, None, None, None, None
+
+
+def softargmax_raster_autograd(heatmaps: torch.Tensor, out_height: int,
+                               out_width: int, temperature: float = 1.0,
+                               sigma: float = 0.1,
+                               align_corners: bool = DEFAULT_ALIGN_CORNERS,
+                               variant: str = "joint"
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:class:`SoftargmaxRasterFused` applied: the keypoints and maps carry
+    a ``grad_fn`` whenever ``heatmaps`` requires grad."""
+    return SoftargmaxRasterFused.apply(heatmaps, int(out_height),
+                                       int(out_width), float(temperature),
+                                       float(sigma), bool(align_corners),
+                                       variant)

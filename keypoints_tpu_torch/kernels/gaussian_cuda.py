@@ -27,7 +27,7 @@ bwd_launches = 0
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def _check_sigma(sigma: float) -> None:
+def check_sigma(sigma: float) -> None:
     if not sigma > 0:
         raise ValueError(f"sigma must be positive, got {sigma}")
 
@@ -43,7 +43,7 @@ def gaussian_fwd_cuda(keypoints: torch.Tensor, height: int, width: int,
         raise ValueError(f"gaussian_fwd_cuda needs (N, 2) keypoints and a "
                          f"positive size, got {tuple(keypoints.shape)} -> "
                          f"{height}x{width}")
-    _check_sigma(sigma)
+    check_sigma(sigma)
     n = keypoints.shape[0]
     out = torch.empty((n, height, width), dtype=torch.float32,
                       device=keypoints.device)
@@ -74,7 +74,7 @@ def gaussian_bwd_cuda(keypoints: torch.Tensor, grad: torch.Tensor,
         raise ValueError(f"gaussian_bwd_cuda keypoints must be ({n}, 2) on "
                          f"{grad.device}, got {tuple(keypoints.shape)} on "
                          f"{keypoints.device}")
-    _check_sigma(sigma)
+    check_sigma(sigma)
     out = torch.empty((n, 2), dtype=torch.float32, device=grad.device)
     if n == 0:
         return out

@@ -33,7 +33,10 @@ bwd_launches = 0
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def _check(heatmaps: torch.Tensor, variant: str, what: str) -> None:
+def check_heatmaps(heatmaps: torch.Tensor, variant: str, what: str) -> None:
+    """Raise unless ``heatmaps`` is what a warp-per-row soft-argmax kernel
+    takes: a contiguous 4-D float32 CUDA tensor, H and W in 1..64, and a
+    known variant."""
     _build.require(heatmaps, what, (torch.float32,), 4)
     h, w = heatmaps.shape[2:]
     if not (1 <= h <= MAX_SIDE and 1 <= w <= MAX_SIDE):
@@ -55,7 +58,7 @@ def spatial_softmax_cuda(heatmaps: torch.Tensor, temperature: float = 1.0,
     does.
     """
     global launches
-    _check(heatmaps, variant, "spatial_softmax_cuda")
+    check_heatmaps(heatmaps, variant, "spatial_softmax_cuda")
     b, k, h, w = heatmaps.shape
     out = torch.empty((b, k, 2), dtype=torch.float32, device=heatmaps.device)
     if b * k == 0:
@@ -80,7 +83,7 @@ def spatial_softmax_bwd_cuda(heatmaps: torch.Tensor, keypoints: torch.Tensor,
     and ``dL/dkeypoints`` (both ``(B, K, 2)``), all contiguous f32 CUDA →
     ``dL/dheatmaps`` ``(B, K, H, W)`` f32."""
     global bwd_launches
-    _check(heatmaps, variant, "spatial_softmax_bwd_cuda")
+    check_heatmaps(heatmaps, variant, "spatial_softmax_bwd_cuda")
     b, k, h, w = heatmaps.shape
     for name, t in (("keypoints", keypoints), ("grad", grad)):
         _build.require(t, f"spatial_softmax_bwd_cuda {name}",

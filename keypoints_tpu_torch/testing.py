@@ -8,7 +8,9 @@ references ``tests/data/torch_port_celeba128_extract.json`` and
 ``random_flax_params(celeba128, 0)`` and ``random_images(n, celeba128, 1)``;
 ``tests/data/torch_port_pose256_train.json`` also from
 ``random_vgg_params(0)``, which both packages read from the file
-``write_torchvision_vgg`` writes.
+``write_torchvision_vgg`` writes;
+``tests/data/torch_port_transporter_atari_train.json`` from
+``random_flax_params(transporter_atari, 0)`` and ``random_images``.
 """
 
 from __future__ import annotations
@@ -23,13 +25,18 @@ from keypoints_tpu_torch.configs import Config
 from keypoints_tpu_torch.data.augment import PairDraws, WarpDraws
 from keypoints_tpu_torch.models.vgg import DEFAULT_LAYERS, trunk_layout
 from keypoints_tpu_torch.ops.color import JitterFactors
+from keypoints_tpu_torch.ops.gaussian import gaussian_maps
+from keypoints_tpu_torch.ops.spatial_softmax import spatial_softmax
 
 
 def random_flax_params(cfg: Config, seed: int = 0) -> dict:
-    """Autoencoder params of ``cfg`` in flax layout (HWIO kernels), numpy f32.
+    """Params of ``cfg``'s model in flax layout (HWIO kernels), numpy f32.
 
     → ``{"encoder": {"Conv_i", "GroupNorm_i"}, "keynet": {"trunk": {...},
-    "head"}, "decoder": {"Conv_i", "GroupNorm_i", "head"}}``. Kernels have
+    "head"}, "decoder": {"Conv_i", "GroupNorm_i", "head"}}``, the tree of
+    the autoencoder and of the Transporter alike; only the decoder's input
+    width differs (the autoencoder's takes the K maps after the features,
+    the Transporter's the transported features alone). Kernels have
     variance 1/fan_in; biases and GroupNorm affines are perturbed so every
     parameter matters. The keynet is drawn first, so its values do not
     depend on the rest of the tree.
@@ -62,7 +69,9 @@ def random_flax_params(cfg: Config, seed: int = 0) -> dict:
     cin = m.encoder_filters[-1]
     keynet = {"trunk": trunk, "head": conv(1, cin, m.num_keypoints, 0.3)}
     encoder = stack(cfg.data.channels)
-    decoder, cin = {}, cin + m.num_keypoints
+    if cfg.train.model_kind == "autoencoder":
+        cin += m.num_keypoints
+    decoder = {}
     for i, f in enumerate(m.decoder_filters):
         decoder[f"Conv_{i}"] = conv(3, cin, f)
         decoder[f"GroupNorm_{i}"] = norm(f)
@@ -117,6 +126,40 @@ def grad_norm_tolerance(want: float, global_norm: float) -> float:
     of the norm, plus 1e-6 of the global norm for the parameters whose
     gradient is rounding noise."""
     return 1e-3 * want + 1e-6 * global_norm
+
+
+def fused_map_tolerance(sigma: float, kp_tol: float = 2e-5) -> float:
+    """How far the fused bottleneck's maps may be from the plain version's:
+    maps of keypoints within ``kp_tol`` of each other differ by at most
+    sqrt(2) ``kp_tol`` times the Gaussian's largest slope e^(-1/2)/sigma
+    (6.1 at sigma 0.1, 12.1 at 0.05); that, with a margin of 2."""
+    return 2 * np.sqrt(2) * kp_tol * np.exp(-0.5) / sigma
+
+
+def fused_grad_tolerance(x: torch.Tensor, out_height: int, out_width: int,
+                         temperature: float, sigma: float, align: bool,
+                         variant: str, g_kp: torch.Tensor,
+                         g_maps: torch.Tensor) -> torch.Tensor:
+    """Elementwise bound on the fused bottleneck's composed backward
+    (dL/dheatmaps for dL/dkeypoints ``g_kp`` and dL/dmaps ``g_maps``)
+    against the plain autograd. The soft-argmax backward's own 1e-5, for an
+    incoming keypoint gradient of order 1, scaled by the size of the one it
+    gets here (the raster backward's output, ~50 at the train shapes: a
+    linear map's rounding scales with its input); plus the raster
+    backward's 1e-4 of its largest keypoint gradient (its sums over Ho*Wo
+    run in another order) carried through the soft-argmax's Jacobian
+    |dkp_x/dh| + |dkp_y/dh|, which matters where dL/dheatmaps is small: the
+    marginal softmax's peaks."""
+    xr = x.detach().clone().requires_grad_(True)
+    kp = spatial_softmax(xr, temperature, variant, align)
+    (jx,) = torch.autograd.grad(kp[..., 0].sum(), xr, retain_graph=True)
+    (jy,) = torch.autograd.grad(kp[..., 1].sum(), xr)
+    kp = kp.detach().requires_grad_(True)
+    (dkp,) = torch.autograd.grad((gaussian_maps(kp, out_height, out_width,
+                                                sigma, align)
+                                  * g_maps).sum(), kp)
+    scale = max(1.0, (dkp + g_kp).abs().max().item())
+    return 1e-5 * scale + 1e-4 * dkp.abs().max() * (jx.abs() + jy.abs())
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,10 @@ heatmaps reach the soft-argmax as float32, the reconstruction comes back as
 float32), as flax's ``dtype=`` does. :func:`freeze_for_inference` casts the
 conv weights to the compute dtype once, for serving.
 
+``build_model`` builds the autoencoder or the Transporter
+(``train.model_kind``); both take a (source, target) pair, so the
+Transporter trains through the temporal mode of the same step.
+
 PyTorch is eager, so the train step is a Python function: augmentation (in
 warp mode) → Φ/Ψ → soft-argmax → raster → decoder → L2 → backward → Adam,
 each on the device of the batch. The step's metrics stay on the device; the
@@ -31,23 +35,29 @@ from keypoints_tpu_torch.configs import Config
 from keypoints_tpu_torch.data.augment import (PairDraws, WarpConfig,
                                               draw_pair, pair_from_draws)
 from keypoints_tpu_torch.losses import l2_loss
-from keypoints_tpu_torch.models import KeypointAutoencoder
+from keypoints_tpu_torch.models import KeypointAutoencoder, Transporter
 from keypoints_tpu_torch.models.nets import Conv2d, init_flax_defaults
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+#: the model classes of ``train.model_kind``
+MODELS = {"autoencoder": KeypointAutoencoder, "transporter": Transporter}
+KeypointModel = KeypointAutoencoder | Transporter
+
+
 def build_model(cfg: Config, device: torch.device | str = "cuda",
-                seed: int = 0) -> KeypointAutoencoder:
-    """The autoencoder of ``cfg`` (Φ, Ψ and the decoder) on ``device``, with
-    float32 parameters drawn from ``seed`` and convs computing in
+                seed: int = 0) -> KeypointModel:
+    """The model of ``cfg.train.model_kind`` (the autoencoder or the
+    Transporter: Φ, Ψ and the decoder) on ``device``, with float32
+    parameters drawn from ``seed`` and convs computing in
     ``cfg.train.compute_dtype``."""
-    if cfg.train.model_kind != "autoencoder":
-        raise NotImplementedError(
-            f"model_kind {cfg.train.model_kind!r} is not ported yet")
+    kind = cfg.train.model_kind
+    if kind not in MODELS:
+        raise ValueError(f"unknown model_kind {kind!r}; have {sorted(MODELS)}")
     m = cfg.model
     with torch.device("meta"):
-        model = KeypointAutoencoder(
+        model = MODELS[kind](
             num_keypoints=m.num_keypoints, in_channels=cfg.data.channels,
             out_channels=m.out_channels, sigma=m.sigma,
             temperature=m.temperature, softmax_variant=m.softmax_variant,
@@ -117,7 +127,7 @@ class TrainState:
     updates taken. The step's random draws are a function of
     ``cfg.train.seed`` and this count (:func:`step_generator`), as JAX folds
     the step into its key."""
-    model: KeypointAutoencoder
+    model: KeypointModel
     optimizer: torch.optim.Optimizer
     step: int = 0
 
@@ -247,7 +257,7 @@ def make_train_step(cfg: Config, loss: Optional[Callable] = None) -> Callable:
     return step
 
 
-def make_extract_fn(model: KeypointAutoencoder) -> Callable:
+def make_extract_fn(model: KeypointModel) -> Callable:
     """Keypoint extraction: NCHW images in [0, 1] → (B, K, 2)."""
     def extract(images: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():

@@ -1,10 +1,11 @@
 """The CUDA kernels against their plain PyTorch versions, on the GPU.
 
 The soft-argmax forward and backward, the Gaussian raster forward and
+backward, the fused bottleneck (soft-argmax then raster) with its composed
 backward, the bilinear warps (dense grid and coarse field) and the 2×2 max
 pool forward and backward; their dispatchers and autograd Functions;
-launch counts; rejections; and a backward through the full model and
-through the VGG perceptual loss.
+launch counts; rejections; and a backward through the full autoencoder,
+through the Transporter and through the VGG perceptual loss.
 
 Marked ``cuda``: every test skips where ``torch.cuda.is_available()`` is
 false (a CUDA kernel has no CPU mode). The kernel is built with nvcc at
@@ -21,18 +22,23 @@ import torch
 import torch.nn.functional as F
 
 from keypoints_tpu_torch.configs import get_config
+from keypoints_tpu_torch.kernels import fused_bottleneck_cuda as fbc
 from keypoints_tpu_torch.kernels import gaussian_cuda as gc
 from keypoints_tpu_torch.kernels import pool_cuda as pc
 from keypoints_tpu_torch.kernels import spatial_softmax_cuda as ssc
-from keypoints_tpu_torch.kernels import (gaussian_maps, max_pool_2x2,
-                                         spatial_softmax, warp_cuda,
-                                         warp_sample, warp_sample_field)
+from keypoints_tpu_torch.kernels import (extract_and_render, gaussian_maps,
+                                         max_pool_2x2, spatial_softmax,
+                                         warp_cuda, warp_sample,
+                                         warp_sample_field)
+from keypoints_tpu_torch.ops.fused_bottleneck import \
+    softargmax_raster as plain_bottleneck
 from keypoints_tpu_torch.ops.gaussian import gaussian_maps as plain_gaussian
 from keypoints_tpu_torch.ops.pool import max_pool_2x2 as plain_pool
 from keypoints_tpu_torch.ops.spatial_softmax import spatial_softmax as plain
 from keypoints_tpu_torch.ops.warp import grid_sample as plain_warp
 from keypoints_tpu_torch.ops.warp import upsample_field_aligned
-from keypoints_tpu_torch.testing import bf16_ulp, random_images
+from keypoints_tpu_torch.testing import (bf16_ulp, fused_grad_tolerance,
+                                         fused_map_tolerance, random_images)
 from keypoints_tpu_torch.train import make_loss
 from keypoints_tpu_torch.training import build_model
 
@@ -437,3 +443,141 @@ def test_perceptual_loss_on_the_card_matches_the_cpu(cuda):
         torch.backends.cudnn.allow_tf32 = saved
     assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
     assert (out["cuda"][1] - out["cpu"][1]).abs().max().item() <= 1e-6
+
+
+# --- fused bottleneck (K3) --------------------------------------------------
+
+BOTTLENECK = [((64, 4, 16, 16), (16, 16), 0.1),     # transporter_atari b64
+              ((1, 7, 13, 29), (11, 17), 0.1),      # ragged, Ho, Wo != H, W
+              ((128, 10, 32, 32), (32, 32), 0.1),   # joint celeba128 b128
+              ((128, 16, 32, 32), (32, 32), 0.05)]  # joint pose256 b128
+
+
+@pytest.mark.parametrize("align", [True, False])
+@pytest.mark.parametrize("variant", ["marginal", "joint"])
+@pytest.mark.parametrize("case", BOTTLENECK,
+                         ids=["atari-b64", "ragged", "celeba-b128",
+                              "pose-b128"])
+def test_fused_bottleneck_matches_plain_and_the_unfused_kernels(
+        cuda, case, variant, align):
+    """K3 against ``ops.fused_bottleneck``: keypoints within TOL, maps
+    within ``testing.fused_map_tolerance``; and against K1 then K2 on the
+    same heatmaps: keypoints and maps equal bit for bit (the same row
+    functions and pixel formula)."""
+    shape, (ho, wo), sigma = case
+    x = _heatmaps(*shape, cuda, seed=10)
+    before = fbc.launches
+    kp, maps = fbc.softargmax_raster_cuda(x, ho, wo, 0.7, sigma, align,
+                                          variant)
+    torch.cuda.synchronize()
+    assert fbc.launches == before + 1
+    assert kp.shape == (*shape[:2], 2) and maps.shape == (*shape[:2], ho, wo)
+    kp_p, maps_p = plain_bottleneck(x, ho, wo, 0.7, sigma, align, variant)
+    assert (kp - kp_p).abs().max().item() <= TOL
+    assert (maps - maps_p).abs().max().item() <= fused_map_tolerance(sigma)
+    kp1 = ssc.spatial_softmax_cuda(x, 0.7, variant, align)
+    maps2 = gc.gaussian_fwd_cuda(kp1.reshape(-1, 2), ho, wo, sigma, align)
+    assert torch.equal(kp, kp1)
+    assert torch.equal(maps, maps2.reshape(maps.shape))
+
+
+@pytest.mark.parametrize("align", [True, False])
+@pytest.mark.parametrize("variant", ["marginal", "joint"])
+@pytest.mark.parametrize("case", BOTTLENECK[:3],
+                         ids=["atari-b64", "ragged", "celeba-b128"])
+def test_fused_bottleneck_backward_matches_plain_autograd(cuda, case,
+                                                          variant, align):
+    """``SoftargmaxRasterFused``'s dL/dheatmaps for random dL/dkeypoints
+    and dL/dmaps: one K3, one K2 backward and one K1b launch, no K1 or K2
+    forward; within ``testing.fused_grad_tolerance``."""
+    shape, (ho, wo), sigma = case
+    x = _heatmaps(*shape, cuda, seed=11).requires_grad_(True)
+    rs = np.random.RandomState(12)
+    g_kp = torch.from_numpy(rs.randn(*shape[:2], 2).astype(np.float32))
+    g_maps = torch.from_numpy(rs.randn(*shape[:2], ho, wo).astype(np.float32))
+    g_kp, g_maps = g_kp.to(cuda), g_maps.to(cuda)
+    counts = (fbc.launches, gc.bwd_launches, ssc.bwd_launches, ssc.launches,
+              gc.launches)
+    kp, maps = fbc.softargmax_raster_autograd(x, ho, wo, 0.7, sigma, align,
+                                              variant)
+    assert kp.grad_fn is not None and maps.grad_fn is not None
+    torch.autograd.backward((kp, maps), (g_kp, g_maps))
+    torch.cuda.synchronize()
+    assert (fbc.launches, gc.bwd_launches, ssc.bwd_launches, ssc.launches,
+            gc.launches) == (counts[0] + 1, counts[1] + 1, counts[2] + 1,
+                             counts[3], counts[4])
+    xr = x.detach().clone().requires_grad_(True)
+    torch.autograd.backward(plain_bottleneck(xr, ho, wo, 0.7, sigma, align,
+                                             variant), (g_kp, g_maps))
+    tol = fused_grad_tolerance(x, ho, wo, 0.7, sigma, align, variant, g_kp,
+                               g_maps)
+    assert bool(((x.grad - xr.grad).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("variant", ["marginal", "joint"])
+def test_extract_and_render_routes_joint_to_the_fused_kernel(cuda, variant):
+    """On CUDA the joint variant takes K3 alone, the marginal variant K1
+    then K2 (K3 untouched), as the JAX package routes them on the TPU."""
+    x = _heatmaps(8, 4, 16, 16, cuda, seed=13)
+    before = (fbc.launches, ssc.launches, gc.launches)
+    kp, maps = extract_and_render(x, 16, 16, 1.0, 0.1, variant, True)
+    torch.cuda.synchronize()
+    after = (fbc.launches, ssc.launches, gc.launches)
+    want = (1, 0, 0) if variant == "joint" else (0, 1, 1)
+    assert tuple(a - b for a, b in zip(after, before)) == want
+    kp_p, maps_p = plain_bottleneck(x, 16, 16, 1.0, 0.1, True, variant)
+    assert (kp - kp_p).abs().max().item() <= TOL
+    assert (maps - maps_p).abs().max().item() <= fused_map_tolerance(0.1)
+
+
+def test_fused_bottleneck_rejects_what_it_does_not_take(cuda):
+    x = _heatmaps(2, 3, 16, 16, cuda)
+    before = fbc.launches
+    with pytest.raises(ValueError, match="float32"):
+        fbc.softargmax_raster_cuda(x.to(torch.bfloat16), 16, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        fbc.softargmax_raster_cuda(x.transpose(2, 3), 16, 16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fbc.softargmax_raster_cuda(x.cpu(), 16, 16)
+    with pytest.raises(ValueError, match="1..64"):
+        fbc.softargmax_raster_cuda(_heatmaps(1, 1, 65, 8, cuda), 16, 16)
+    with pytest.raises(ValueError, match="variant"):
+        fbc.softargmax_raster_cuda(x, 16, 16, variant="mean")
+    with pytest.raises(ValueError, match="sigma"):
+        fbc.softargmax_raster_cuda(x, 16, 16, sigma=0.0)
+    with pytest.raises(ValueError, match="output size"):
+        fbc.softargmax_raster_cuda(x, 0, 16)
+    assert fbc.launches == before
+
+
+@pytest.mark.parametrize("variant", ["marginal", "joint"])
+def test_transporter_step_launches_and_reaches_every_parameter(cuda,
+                                                              variant):
+    """Full-width transporter_atari in bf16 compute, one forward and
+    backward at b2: the source branch has no graph, so per pass K3 runs
+    twice (joint) or K1 and K2 twice each (marginal), and K1b and the K2
+    backward once; every (float32) parameter gets a finite gradient."""
+    cfg = get_config("transporter_atari").override(
+        **{"model.softmax_variant": variant})
+    model = build_model(cfg, cuda)
+    x, y = (torch.rand((2, 1, 64, 64), device=cuda) for _ in range(2))
+    names = ("fbc", "ssc fwd", "ssc bwd", "gc fwd", "gc bwd")
+
+    def counts():
+        return dict(zip(names, (fbc.launches, ssc.launches,
+                                ssc.bwd_launches, gc.launches,
+                                gc.bwd_launches)))
+    before = counts()
+    recon, kp = model(x, y)
+    ((recon - y) ** 2).mean().backward()
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in counts().items()}
+    want = ({"fbc": 2, "ssc fwd": 0, "ssc bwd": 1, "gc fwd": 0, "gc bwd": 1}
+            if variant == "joint" else
+            {"fbc": 0, "ssc fwd": 2, "ssc bwd": 1, "gc fwd": 2, "gc bwd": 1})
+    assert got == want
+    assert recon.shape == (2, 1, 64, 64) and kp.shape == (2, 4, 2)
+    for name, p in model.named_parameters():
+        assert p.dtype == torch.float32, name
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
+    assert model.keynet.trunk.Conv_0.weight.grad.abs().sum().item() > 0

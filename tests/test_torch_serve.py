@@ -243,7 +243,11 @@ def test_port_imports_no_jax():
             "keypoints_tpu_torch.checkpoint, keypoints_tpu_torch.testing, "
             "keypoints_tpu_torch.models.vgg, keypoints_tpu_torch.train, "
             "keypoints_tpu_torch.ops.pool, "
-            "keypoints_tpu_torch.kernels.pool_cuda; "
+            "keypoints_tpu_torch.kernels.pool_cuda, "
+            "keypoints_tpu_torch.models.transporter, "
+            "keypoints_tpu_torch.data.synthetic, "
+            "keypoints_tpu_torch.ops.fused_bottleneck, "
+            "keypoints_tpu_torch.kernels.fused_bottleneck_cuda; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'keypoints_tpu.')) or m == 'keypoints_tpu');"
             " assert not bad, bad")
