@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
 
-Drives the four ported paths of ``keypoints_tpu_torch`` at full width
+Drives the ported paths of ``keypoints_tpu_torch`` at full width
 through their user entry points, with weights made from a seed: celeba128's
 keypoint-serving path (``make_server``) and training step (``init_state`` +
 ``make_train_step``, b128, bf16, augmentation inside), pose256's training
@@ -10,7 +10,11 @@ bf16: 256² augmentation through the field warp, the VGG-16 perceptual loss
 with its max pools), and transporter_atari's training step (``init_state``
 + ``make_train_step`` in temporal mode, the preset's b64, bf16, on
 scripted-Pong pairs drawn on the card), with the joint soft-argmax (the
-fused bottleneck kernel) and with the preset's marginal one.
+fused bottleneck kernel) and with the preset's marginal one; the banded
+warps K7 and K8 through their entry points (``kernels.experimental``) at
+celeba128's and pose256's b128 warps; and the eval CLI (``python -m
+keypoints_tpu_torch.eval``) of celeba128, pose256 and transporter_atari
+(joint) at b64.
 
    1. device    torch/CUDA versions, ``nvidia-smi`` name and power limit
    2. build     the one kernel library, every ``csrc/*.cu`` built by nvcc
@@ -74,6 +78,21 @@ fused bottleneck kernel) and with the preset's marginal one.
                 bound at the three shapes, both variants; the transporter
                 step's ms/step and pairs/s per variant; torch.profiler over
                 its steps: idle share, ops, each kernel's share
+  20. kernels   the banded warps K7 and K8 against their plain versions
+                (within one bf16 ulp) and, where the window holds, against
+                K4 (bit for bit): b128 3x128^2 (y_window 40) and 3x256^2
+                (y_window 75) at the augmentation's grids, both paddings,
+                no band, rows read in place, ragged shapes, violated
+                windows at 128 and 256 rows; then
+                the two entry points once at each main shape, counted
+  21. times     K7 and K8 against the bound, the plain version,
+                F.grid_sample and K4 at both shapes; launches per call
+  22. eval      the eval CLI on the card for celeba128, pose256 and
+                transporter_atari (joint) at full width, b64, seeded weights
+                in a state dict: in this process with the launches counted,
+                then as ``python -m keypoints_tpu_torch.eval``; f32
+                ``evaluate`` against tests/data/torch_port_celeba128_eval.json;
+                bulk extraction (b1024 x 8) against one batch
 
 Run from a checkout:  python3 chip_smoke.py
 The card's ``nvidia-smi`` line, then a JSON object of the kernels
@@ -107,12 +126,20 @@ from keypoints_tpu_torch.configs import get_config  # noqa: E402
 from keypoints_tpu_torch.data.augment import (pair_from_draws,  # noqa: E402
                                               random_warp_field, warp_field)
 from keypoints_tpu_torch.data.synthetic import scripted_pong_pair  # noqa: E402
+from keypoints_tpu_torch import eval as peval  # noqa: E402
+from keypoints_tpu_torch.eval import float32_precision  # noqa: E402
 from keypoints_tpu_torch.kernels import _build  # noqa: E402
+from keypoints_tpu_torch.kernels import experimental as banded  # noqa: E402
+from keypoints_tpu_torch.kernels import experimental_cuda as ecu  # noqa: E402
 from keypoints_tpu_torch.kernels import fused_bottleneck_cuda as fbc  # noqa: E402
 from keypoints_tpu_torch.kernels import gaussian_cuda as gcu  # noqa: E402
 from keypoints_tpu_torch.kernels import pool_cuda as pcu  # noqa: E402
 from keypoints_tpu_torch.kernels import spatial_softmax_cuda as ssc  # noqa: E402
 from keypoints_tpu_torch.kernels import warp_cuda as wcu  # noqa: E402
+from keypoints_tpu_torch.ops.experimental import \
+    warp_bilinear_rowwin as plain_rowwin  # noqa: E402
+from keypoints_tpu_torch.ops.experimental import \
+    warp_bilinear_tree as plain_tree  # noqa: E402
 from keypoints_tpu_torch.ops.fused_bottleneck import \
     softargmax_raster as plain_bottleneck  # noqa: E402
 from keypoints_tpu_torch.ops.gaussian import \
@@ -131,12 +158,15 @@ from keypoints_tpu_torch.testing import (bf16_ulp,  # noqa: E402
                                          grad_norm_tolerance,
                                          random_flax_params, random_images,
                                          random_vgg_params, reference_draws,
+                                         reference_eval_batch,
                                          reference_warp_draws,
                                          write_torchvision_vgg)
 from keypoints_tpu_torch.train import make_loss  # noqa: E402
 from keypoints_tpu_torch.training import (build_model,  # noqa: E402
                                           freeze_for_inference, init_state,
-                                          make_extract_fn, make_train_step,
+                                          make_extract_fn,
+                                          make_extract_many_fn,
+                                          make_train_step,
                                           step_generator, warp_config)
 
 KERNEL_TOL = 2e-5      # soft-argmax forward: f32 both sides, sum order only
@@ -185,6 +215,10 @@ KERNELS = {
                      (0, 2, 0, 0)),
     "softargmax_raster_fwd": (fbc, "launches", "fused_bottleneck.cu",
                               "fused_bottleneck.py:44", (0, 0, 2, 0)),
+    "warp_band": (ecu, "tree_launches", "warp_experimental.cu",
+                  "experimental.py:70", (0, 0, 0, 0)),
+    "warp_rowwin": (ecu, "rowwin_launches", "warp_experimental.cu",
+                    "experimental.py:210", (0, 0, 0, 0)),
 }
 PATHS = ("celeba128", "pose256", "transporter_atari joint",
          "transporter_atari marginal")
@@ -211,20 +245,6 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     return {name: getattr(mod, counter)
             for name, (mod, counter, *_) in KERNELS.items()}
-
-
-class NoTF32:
-    """TF32 off for cuDNN and matmul inside the block (float32 parity)."""
-
-    def __enter__(self):
-        self.saved = (torch.backends.cudnn.allow_tf32,
-                      torch.backends.cuda.matmul.allow_tf32)
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-
-    def __exit__(self, *exc):
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = self.saved
 
 
 def cuda_median_ms(fn, runs: int = 25, reps: int = 1,
@@ -421,7 +441,7 @@ def parity_phase() -> None:
     ref = json.loads(REFERENCE.read_text())
     cfg = get_config(ref["preset"]).override(
         **{"train.compute_dtype": "float32"})
-    with NoTF32():
+    with float32_precision():
         model = build_model(cfg, "cuda")
         load_model_state(model, state_dict_from_flax(
             random_flax_params(cfg, ref["param_seed"])))
@@ -608,7 +628,7 @@ def train_parity_phase(number: int, reference: Path, tmp: str) -> None:
     cfg = get_config(ref["preset"]).override(**overrides)
     fields = torch.from_numpy(decode_f32(ref["fields"], ref["fields_shape"]))
     runs = {}
-    with NoTF32():
+    with float32_precision():
         for device in ("cuda", "cpu"):
             t0 = time.perf_counter()
             field_err = max(
@@ -1286,7 +1306,7 @@ def transporter_parity_phase() -> None:
     phase(f"17 train parity: full-width {ref['preset']} f32 (TF32 off), 3 "
           f"steps per variant on seeded pairs, card and CPU vs committed JAX "
           f"reference")
-    with NoTF32():
+    with float32_precision():
         for variant, want in ref["runs"].items():
             cfg = get_config(ref["preset"]).override(**{
                 **ref["overrides"], "model.softmax_variant": variant})
@@ -1454,6 +1474,297 @@ def transporter_times_phase(card: str, trainers: dict) -> dict:
     return out
 
 
+# the banded warps' shapes: b128 bf16 images at the port's own warp grids,
+# with each size's warp_y_window (keypoints_tpu.data.augment.warp_y_window)
+BANDED_SHAPES = {"celeba128": (128, 40), "pose256": (256, 75)}
+BANDED = {"warp_band": (ecu.warp_bilinear_tree_cuda, plain_tree,
+                        banded.warp_bilinear_tree),
+          "warp_rowwin": (ecu.warp_bilinear_rowwin_cuda, plain_rowwin,
+                          banded.warp_bilinear_rowwin)}
+
+
+def _banded_inputs(preset: str, size: int, seed: int):
+    """A b128 3 x size^2 bf16 batch and a warp grid of ``preset``'s
+    augmentation (its coarse field upsampled to the image)."""
+    cfg = get_config(preset)
+    rs = np.random.RandomState(seed)
+    img = torch.from_numpy(rs.rand(TRAIN_BATCH, 3, size, size)
+                           .astype(np.float32)).cuda().to(torch.bfloat16)
+    field = random_warp_field(step_generator(seed, 0, "cuda"), TRAIN_BATCH,
+                              warp_config(cfg))
+    return img, upsample_field_aligned(field, size, size).contiguous()
+
+
+def _alternating_grid(transpose: bool) -> torch.Tensor:
+    """tests/test_experimental_kernels.py's violated-window grid, 64 x 64:
+    y alternates between -0.9 and 0.9 from output row to output row (every
+    8-row block spans the image), or with ``transpose`` from column to
+    column (every row spans it)."""
+    xs = torch.linspace(-0.9, 0.9, 64)
+    ys = torch.where(torch.arange(64) % 2 == 0, -0.9, 0.9)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    if transpose:
+        gy = gy.T
+    return torch.stack([gx, gy], -1)[None].contiguous().cuda()
+
+
+def banded_kernels_phase() -> tuple[dict, dict]:
+    """K7 and K8 against their plain versions (within one bf16 ulp) and,
+    where the window holds, against K4 (bit for bit); no band, rows read in
+    place, violated windows; then the two entry points once at each main
+    shape with the counts reset: the launches of their path."""
+    phase("20 banded warps (K7, K8) vs plain and vs K4")
+    errs = {name: 0.0 for name in BANDED}
+
+    def held(name, got, want, what):
+        check(got.dtype == torch.bfloat16 and got.shape == want.shape,
+              f"{name} {what}: {got.dtype} {tuple(got.shape)}")
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        errs[name] = max(errs[name], err)
+        check(bool((diff <= bf16_ulp(want)).all()),
+              f"{name} {what}: more than one bf16 ulp from plain ({err})")
+        return err
+
+    cases = [(f"{preset} b{TRAIN_BATCH} 3x{size}^2 y_window {win}",
+              *_banded_inputs(preset, size, 20), win, True)
+             for preset, (size, win) in BANDED_SHAPES.items()]
+    rs = np.random.RandomState(20)
+    img, grid = cases[1][1:3]
+    # K7 without a band: all 256 rows staged
+    cases.append(("256^2 no band", img[:4], grid[:4], None, True))
+    # 1,024 wide: the reserve passes the card's limit, every block reads in
+    # place
+    cases.append(("256x1024 -> 256^2 (read in place)",
+                  torch.from_numpy(rs.rand(2, 3, 256, 1024).astype(np.float32))
+                  .cuda().to(torch.bfloat16), grid[:2], 75, True))
+    # a ragged width (16-bit staging) and points outside the image
+    for align in (True, False):
+        cases.append((f"ragged 48x36 -> 16x20 align={align}",
+                      torch.from_numpy(rs.rand(2, 3, 48, 36)
+                                       .astype(np.float32)).cuda()
+                      .to(torch.bfloat16),
+                      torch.from_numpy((rs.rand(2, 16, 20, 2) * 2.4 - 1.2)
+                                       .astype(np.float32)).cuda(), 8, align))
+    print(f"shared memory a block may take for its rows: {ecu.smem_limit()} "
+          f"bytes; output rows a block takes: {ecu.BLOCK_OUTPUT_ROWS}",
+          flush=True)
+    for what, img, grid, win, align in cases:
+        for padding in ("zeros", "border"):
+            k4 = wcu.warp_bilinear_cuda(img, grid, padding, align)
+            unbanded = plain_tree(img, grid, padding, align, None)
+            for name, (kernel, plain, _) in BANDED.items():
+                if win is None and name == "warp_rowwin":
+                    continue
+                got = kernel(img, grid, padding, align, win)
+                torch.cuda.synchronize()
+                want = plain(img, grid, padding, align, win)
+                err = held(name, got, want, f"{what} {padding}")
+                holds = torch.equal(want, unbanded)
+                same = torch.equal(got, k4)
+                print(f"{name} {what} {padding}: max|d| vs plain {err:.3e}; "
+                      f"window {'holds' if holds else 'violated'}; "
+                      f"{'equal to' if same else 'differs from'} K4",
+                      flush=True)
+                if holds:
+                    check(same, f"{name} {what} {padding}: window holds but "
+                          f"the result differs from K4")
+
+    # violated windows at 128 and 256 rows: rows past each band read as 0;
+    # at 256 the blocks' bands read more rows than they reserve, in place
+    for h in (128, 256):
+        img = torch.from_numpy(np.random.RandomState(29).rand(1, 3, h, 64)
+                               * 0.8 + 0.1).float().cuda().to(torch.bfloat16)
+        for name, transpose in (("warp_band", False), ("warp_rowwin", True)):
+            kernel, plain, _ = BANDED[name]
+            grid = _alternating_grid(transpose)
+            got = kernel(img, grid, "zeros", True, 32)
+            torch.cuda.synchronize()
+            err = held(name, got, plain(img, grid, "zeros", True, 32),
+                       f"violated window, {h} rows")
+            # the samples at y = 0.9 (odd rows, or odd columns) lie past
+            # the band
+            zeroed = got[..., 1::2] if transpose else got[:, :, 1::2]
+            check(bool((zeroed == 0).all()), f"{name}: the out-of-band "
+                  f"samples of a violated window are not 0")
+            check(bool((got[:, :, ::2, ::2] > 0).all()),
+                  f"{name}: in-band samples of a violated window are 0")
+            print(f"{name} violated window ({h} rows, y alternating by "
+                  f"{'column' if transpose else 'row'}, y_window 32): "
+                  f"max|d| vs plain {err:.3e}; the {zeroed.numel()} "
+                  f"out-of-band samples are 0", flush=True)
+
+    # the entry points once at each main shape: the launches of their path
+    reset_counts()
+    for what, img, grid, win, _ in cases[:2]:
+        for name, (*_, entry) in BANDED.items():
+            entry(img, grid, "border", True, win)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"kernel launches of the entry points at the two main shapes: "
+          f"{counts}", flush=True)
+    for name in KERNELS:
+        want = 2 if name in BANDED else 0
+        check(counts[name] == want, f"{name} launched {counts[name]} times "
+              f"by the banded entry points ({want} expected)")
+    return errs, counts
+
+
+def banded_times_phase(card: str) -> dict:
+    """K7 and K8 at the two main shapes: device time (calls queued behind a
+    sleep, inputs L2-warm) against the byte bound, the plain version,
+    F.grid_sample on the bf16 image and K4 on the same grid; the launches a
+    call makes."""
+    phase(f"21 banded warp times on {card}")
+    out = {}
+    for preset, (size, win) in BANDED_SHAPES.items():
+        img, grid = _banded_inputs(preset, size, 21)
+        grid_bf16 = grid.to(torch.bfloat16)
+        pixels = TRAIN_BATCH * size * size
+        bound = _bound(2 * img.nelement() * img.element_size()
+                       + grid.nelement() * 4, 30 * pixels + 8 * img.nelement())
+        cases = {name: (
+            (lambda k=kernel: k(img, grid, "border", True, win)),
+            (lambda p=plain: p(img, grid, "border", True, win)),
+            lambda: F.grid_sample(img, grid_bf16, "bilinear", "border", True),
+            bound) for name, (kernel, plain, _) in BANDED.items()}
+        timed = _time_cases(cases, card, plain_reps=2,
+                            label=f" {preset} b{TRAIN_BATCH} 3x{size}^2 "
+                            f"y_window {win}")
+        k4 = cuda_median_ms(lambda: wcu.warp_bilinear_cuda(img, grid,
+                                                           "border", True),
+                            reps=20)
+        reset_counts()
+        for kernel, *_ in BANDED.values():
+            kernel(img, grid, "border", True, win)
+        per_call = read_counts()
+        print(f"  K4 on the same grid: {k4 * 1e3:.2f} us; launches per call: "
+              f"K7 {per_call['warp_band']}, K8 {per_call['warp_rowwin']}  "
+              f"[{card}]", flush=True)
+        if preset == "celeba128":
+            out.update(timed)
+    print("library call: F.grid_sample on the bf16 image takes only a bf16 "
+          "grid, so it reads the grid cast to bf16", flush=True)
+    return out
+
+EVAL_REFERENCE = ROOT / "tests" / "data" / "torch_port_celeba128_eval.json"
+EVAL_BATCH = 64
+EVAL_RTOL = 1e-4       # eval parity: eval_loss
+EVAL_KP_TOL = 1e-4     # eval parity: keypoints
+LANDMARK_TOL = 1e-5    # eval parity: landmarks carried into the target
+EVAL_RECORD_KEYS = {"preset", "step", "metrics", "source", "held_out", "rows",
+                    "requested_rows", "gt"}
+# preset, overrides, the kernels one eval of b64 launches: the pair
+# (celeba128's warps, pose256's field warps, the Pong frames' raster), the
+# bottleneck, pose256's VGG pools on the reconstruction and the target
+EVAL_CASES = {
+    "celeba128": ([], {"warp_bilinear": 2, "spatial_softmax_fwd": 1,
+                       "gaussian_fwd": 1}),
+    "pose256": ([], {"warp_field": 2, "spatial_softmax_fwd": 1,
+                     "gaussian_fwd": 1, "max_pool_fwd": 4}),
+    "transporter_atari": (["model.softmax_variant=joint"],
+                          {"gaussian_fwd": 2, "softargmax_raster_fwd": 2}),
+}
+
+
+def eval_phase(card: str, tmp: str) -> list:
+    """The eval CLI on the card for celeba128, pose256 and transporter_atari
+    (joint) at full width and b64, with seeded weights saved as the state
+    dict ``serve`` loads: in this process with the counts reset (the
+    launches of the path), then as ``python -m keypoints_tpu_torch.eval``;
+    f32 ``evaluate`` against the committed JAX reference; bulk extraction
+    against per-batch extraction at b1024."""
+    phase(f"22 eval on {card}")
+    path_counts = []
+    for preset, (overrides, want) in EVAL_CASES.items():
+        cfg = get_config(preset)
+        ckpt = os.path.join(tmp, f"{preset}.pt")
+        torch.save({k: torch.from_numpy(v) for k, v in state_dict_from_flax(
+            random_flax_params(cfg, 0)).items()}, ckpt)
+        # data.data_dir without a store: the synthetic eval set
+        argv = ["--preset", preset, "--checkpoint", ckpt, "--batch",
+                str(EVAL_BATCH), "--override", f"data.data_dir={tmp}",
+                *overrides]
+        reset_counts()
+        t0 = time.perf_counter()
+        in_process = peval.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        path_counts.append(counts)
+        print(f"{preset} eval b{EVAL_BATCH} in this process: {wall:.2f}s "
+              f"(first call of the preset), launches {counts}", flush=True)
+        for name in KERNELS:
+            check(counts[name] == want.get(name, 0),
+                  f"{preset} eval launched {name} {counts[name]} times "
+                  f"({want.get(name, 0)} expected)")
+        out = os.path.join(tmp, f"{preset}.json")
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "keypoints_tpu_torch.eval",
+                              *argv, "--json", out], cwd=ROOT,
+                             capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(run.returncode == 0, f"{preset} eval CLI exited "
+              f"{run.returncode}: {run.stderr[-2000:]}")
+        record = json.loads(Path(out).read_text())
+        print(f"{preset} eval CLI ({wall:.2f}s): {run.stdout.splitlines()[-2]}",
+              flush=True)
+        for result in (record, in_process):
+            check(set(result) == EVAL_RECORD_KEYS,
+                  f"{preset} record keys {sorted(result)}")
+            check(result["source"] == "synthetic" and result["held_out"]
+                  and result["rows"] == EVAL_BATCH and result["step"] is None,
+                  f"{preset} record {result}")
+            check(all(np.isfinite(v) for v in result["metrics"].values()),
+                  f"{preset} metrics {result['metrics']}")
+
+    ref = json.loads(EVAL_REFERENCE.read_text())
+    cfg = get_config(ref["preset"]).override(**ref["overrides"])
+    b = ref["batch"]
+    src, tgt, pos = reference_eval_batch(ref, "cuda")
+    model = build_model(cfg, "cuda")
+    load_model_state(model, state_dict_from_flax(
+        random_flax_params(cfg, ref["param_seed"])))
+    got = peval.evaluate(model, src, tgt, true_positions=pos.cpu().numpy())
+    _, kp = peval.eval_forward(model, src, tgt)
+    want = ref["metrics"]
+    loss_rel = abs(got["eval_loss"] - want["eval_loss"]) / want["eval_loss"]
+    kp_err = float(np.abs(kp.cpu().numpy()
+                          - decode_f32(ref["keypoints"], (b, 10, 2))).max())
+    pos_err = float(np.abs(pos.cpu().numpy() - decode_f32(
+        ref["target_positions"], (b, 4, 2))).max())
+    print(f"eval parity, full-width {ref['preset']} f32 b{b} on JAX's draws: "
+          f"eval_loss {got['eval_loss']:.6f} vs JAX {want['eval_loss']:.6f} "
+          f"(rel {loss_rel:.2e}, tolerance {EVAL_RTOL}); keypoints max|d| "
+          f"{kp_err:.2e} (tolerance {EVAL_KP_TOL}); carried landmarks max|d| "
+          f"{pos_err:.2e} (tolerance {LANDMARK_TOL}); locking_mean "
+          f"{got['locking_mean']:.5f} vs {want['locking_mean']:.5f}",
+          flush=True)
+    check(loss_rel <= EVAL_RTOL, f"eval_loss rel {loss_rel}")
+    check(kp_err <= EVAL_KP_TOL, f"eval keypoints {kp_err}")
+    check(pos_err <= LANDMARK_TOL, f"carried landmarks {pos_err}")
+
+    # bulk extraction: 8 batches of 1024 queued, one sync, against one batch
+    cfg = get_config("celeba128")
+    model = build_model(cfg, "cuda")
+    load_model_state(model, state_dict_from_flax(random_flax_params(cfg, 0)))
+    freeze_for_inference(model)
+    batches = torch.from_numpy(np.stack([random_images(1024, cfg, 40 + i)
+                                         for i in range(8)])).cuda()
+    many = make_extract_many_fn(model)
+    one = make_extract_fn(model)
+    check(torch.equal(many(batches[:2])[1], one(batches[1])),
+          "extract_many differs from per-batch extraction")
+    many_ms = cuda_median_ms(lambda: many(batches), runs=10,
+                             queue_behind_sleep=False)
+    one_ms = cuda_median_ms(lambda: one(batches[0]), runs=10,
+                            queue_behind_sleep=False)
+    print(f"extract_many b1024 x N=8 bf16: {8 * 1024 / many_ms * 1e3:.0f} "
+          f"images/s ({many_ms:.3f} ms a call); per batch b1024: "
+          f"{1024 / one_ms * 1e3:.0f} images/s ({one_ms:.3f} ms)  [{card}]",
+          flush=True)
+    return path_counts
+
 
 def main() -> int:
     card = device_phase()
@@ -1496,12 +1807,23 @@ def main() -> int:
             variant, TRANSPORTER_STEPS)
         path_counts.append(counts)
     times.update(transporter_times_phase(card, trainers))
+    del trainers
+    torch.cuda.empty_cache()
+
+    banded_errs, banded_counts = banded_kernels_phase()
+    errs.update(banded_errs)
+    path_counts.append(banded_counts)
+    times.update(banded_times_phase(card))
+    with tempfile.TemporaryDirectory() as tmp:
+        path_counts.extend(eval_phase(card, tmp))
 
     errs["spatial_softmax_fwd"] = max(errs["spatial_softmax_fwd"],
                                       served["serve_max_abs_err"])
     launches = {name: sum(counts[name] for counts in path_counts)
                 for name in KERNELS}
     launches["spatial_softmax_fwd"] += served["launches"]
+    for name, count in launches.items():
+        check(count > 0, f"{name} was launched no time on the paths")
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"keypoints_tpu_torch/csrc/{source}",

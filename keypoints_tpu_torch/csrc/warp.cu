@@ -21,7 +21,8 @@
 // and sum rounded on its own as PyTorch computes the upsample, so the grid
 // point it samples at is the plain version's to the bit. (The Pallas kernel
 // lerps W first; JAX's own test allows 1e-4 for that at 256^2.) Both
-// kernels share the sampler, sample_pixel.
+// kernels share the sampler, sample_pixel, whose corner math and sum
+// (sampler.cuh) the banded warps of warp_experimental.cu share too.
 //
 // What bounds them: bytes. A warp reads its image once and writes C values
 // per output pixel; warp_bilinear also reads 8 bytes of grid per pixel,
@@ -50,6 +51,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "sampler.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -59,9 +62,7 @@ constexpr int kMaxField = 78;               // 2 * 78^2 floats < 48 KB
 __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
 
 __device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  const unsigned short bits =
-      __ldg(reinterpret_cast<const unsigned short*>(p));
-  return __uint_as_float(static_cast<unsigned>(bits) << 16);
+  return kpwarp::bf16_bits(__ldg(reinterpret_cast<const unsigned short*>(p)));
 }
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
@@ -70,57 +71,22 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// grid_sample's unnormalize: [-1, 1] -> fractional pixel index.
-__device__ __forceinline__ float unnormalize(float c, int size, bool align) {
-  if (align) return (c + 1.0f) * 0.5f * static_cast<float>(size - 1);
-  return (c + 1.0f) * 0.5f * static_cast<float>(size) - 0.5f;
-}
-
-__device__ __forceinline__ int clamp_index(float v, int size) {
-  return static_cast<int>(fminf(fmaxf(v, 0.0f), static_cast<float>(size - 1)));
-}
-
 // grid_sample of one output pixel at (gx, gy) in [-1, 1] (x, y order):
-// unnormalise, the four corners and their weights, border clamp or zero
-// weights, then the C channels, each summed in f32 and rounded once. `src`
-// is the pixel's image, `dst` its first output channel.
+// the four corners and their weights (sampler.cuh), then the C channels,
+// each summed in f32 and rounded once. `src` is the pixel's image, `dst` its
+// first output channel.
 template <typename T, bool kBorder>
 __device__ __forceinline__ void sample_pixel(const T* src, T* dst, float gx,
                                              float gy, int c, int h, int w,
                                              long long per_image, bool align) {
-  float ix = unnormalize(gx, w, align);
-  float iy = unnormalize(gy, h, align);
-  if (kBorder) {
-    ix = fminf(fmaxf(ix, 0.0f), static_cast<float>(w - 1));
-    iy = fminf(fmaxf(iy, 0.0f), static_cast<float>(h - 1));
-  }
-  const float x0 = floorf(ix), y0 = floorf(iy);
-  const float x1 = x0 + 1.0f, y1 = y0 + 1.0f;
-  const float wx1 = ix - x0, wy1 = iy - y0;
-  const float wx0 = 1.0f - wx1, wy0 = 1.0f - wy1;
-  // corners in the order of ops/warp.py: (y0,x0), (y0,x1), (y1,x0), (y1,x1)
-  float w00 = wy0 * wx0, w01 = wy0 * wx1, w10 = wy1 * wx0, w11 = wy1 * wx1;
-  if (!kBorder) {
-    const float wm = static_cast<float>(w - 1), hm = static_cast<float>(h - 1);
-    const bool vx0 = x0 >= 0.0f && x0 <= wm, vx1 = x1 >= 0.0f && x1 <= wm;
-    const bool vy0 = y0 >= 0.0f && y0 <= hm, vy1 = y1 >= 0.0f && y1 <= hm;
-    w00 = (vy0 && vx0) ? w00 : 0.0f;
-    w01 = (vy0 && vx1) ? w01 : 0.0f;
-    w10 = (vy1 && vx0) ? w10 : 0.0f;
-    w11 = (vy1 && vx1) ? w11 : 0.0f;
-  }
-  const int xi0 = clamp_index(x0, w), xi1 = clamp_index(x1, w);
-  const int yi0 = clamp_index(y0, h), yi1 = clamp_index(y1, h);
-  const int o00 = yi0 * w + xi0, o01 = yi0 * w + xi1;
-  const int o10 = yi1 * w + xi0, o11 = yi1 * w + xi1;
+  const kpwarp::Corners k = kpwarp::corners<kBorder>(gx, gy, h, w, align);
+  const int o00 = k.yi0 * w + k.xi0, o01 = k.yi0 * w + k.xi1;
+  const int o10 = k.yi1 * w + k.xi0, o11 = k.yi1 * w + k.xi1;
   const long long plane = static_cast<long long>(h) * w;
   for (int ch = 0; ch < c; ++ch) {
     const T* s = src + ch * plane;
-    float v = load(s + o00) * w00;
-    v += load(s + o01) * w01;
-    v += load(s + o10) * w10;
-    v += load(s + o11) * w11;
-    store(dst + ch * per_image, v);
+    store(dst + ch * per_image, kpwarp::blend(k, load(s + o00), load(s + o01),
+                                              load(s + o10), load(s + o11)));
   }
 }
 

@@ -20,14 +20,16 @@ Every random function is split in two: a draw step that takes a
 and the affine; ``draw_jitter``: the color factors), and a deterministic
 step that takes the draws (``warp_field``/``warp_grid``; ``apply_jitter``).
 A pair's draws (``PairDraws``: its two warps and two sets of factors) go
-to ``pair_from_draws``. ``jax.random`` and torch never give the same
-numbers, so the tests hand the deterministic steps what JAX drew and
-compare with JAX's pair; the port's own draws get distribution checks.
+to ``pair_from_draws``, or to ``pair_with_positions_from_draws``, which also
+carries ground-truth landmarks into the target (the eval set's pairs;
+``make_pair_with_positions`` draws them). ``jax.random`` and torch never
+give the same numbers, so the tests hand the deterministic steps what JAX
+drew and compare with JAX's pair; the port's own draws get distribution
+checks.
 
 Not ported: ``warp_y_window``, ``window_checks`` and ``_check_window``. They
 bound and assert the band of source rows the TPU warp keeps in VMEM, and the
-CUDA warp reads any row. ``make_pair_with_positions`` comes with the eval
-slice.
+CUDA warp reads any row.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ import torch
 from keypoints_tpu_torch.coords import DEFAULT_ALIGN_CORNERS, axis_coords
 from keypoints_tpu_torch.kernels import warp_sample, warp_sample_field
 from keypoints_tpu_torch.ops.color import JitterFactors, apply_jitter, draw_jitter
-from keypoints_tpu_torch.ops.warp import (tps_grid, tps_grid_fixed,
+from keypoints_tpu_torch.ops.warp import (invert_warp_at, tps_grid,
+                                          tps_grid_fixed,
                                           upsample_field_aligned)
 
 
@@ -230,3 +233,40 @@ def make_pair(generator: torch.Generator, image: torch.Tensor,
     draws = draw_pair(generator, tuple(image.shape), cfg, image.dtype,
                       align_corners)
     return pair_from_draws(image, draws, cfg, align_corners)
+
+
+def pair_with_positions_from_draws(image: torch.Tensor,
+                                   positions: torch.Tensor, draws: PairDraws,
+                                   cfg: WarpConfig = WarpConfig(),
+                                   align_corners: bool = DEFAULT_ALIGN_CORNERS
+                                   ) -> tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """:func:`pair_from_draws` that also carries ground-truth landmarks into
+    the target: → (source, target, target_positions), ``positions`` (B, K,
+    2 normalized (x, y) in ``image``) mapped to where they land in the
+    warped target by fixed-point inversion of the target's field
+    (``ops.warp.invert_warp_at``). Needs the coarse-field path (``field_res``
+    below the image size), whose draws are fields."""
+    _, _, h, w = image.shape
+    if not _use_field(cfg, h, w):
+        raise ValueError("make_pair_with_positions needs the coarse-field "
+                         "warp path (cfg.field_res < image size)")
+    src, tgt = pair_from_draws(image, draws, cfg, align_corners)
+    return src, tgt, invert_warp_at(draws.target.float(), positions.float())
+
+
+def make_pair_with_positions(generator: torch.Generator, image: torch.Tensor,
+                             positions: torch.Tensor,
+                             cfg: WarpConfig = WarpConfig(),
+                             align_corners: bool = DEFAULT_ALIGN_CORNERS
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """:func:`make_pair` that also carries ``positions`` into the target:
+    the pair's draws on ``generator``, then
+    :func:`pair_with_positions_from_draws`. The eval set of a warp-mode
+    preset is built with it, so locking is measured on the distribution
+    the model trains on."""
+    draws = draw_pair(generator, tuple(image.shape), cfg, image.dtype,
+                      align_corners)
+    return pair_with_positions_from_draws(image, positions, draws, cfg,
+                                          align_corners)

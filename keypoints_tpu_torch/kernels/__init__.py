@@ -6,7 +6,9 @@ no switch that forces the plain path on CUDA and no fallback when a launch
 fails. The kernel modules (``spatial_softmax_cuda``, ``gaussian_cuda``,
 ``fused_bottleneck_cuda``, ``warp_cuda``, ``pool_cuda``: wrappers, autograd
 Functions and launch counts) are submodules of this package; ``_build``
-builds the one library they share.
+builds the one library they share. The banded warps K7 and K8
+(``experimental`` and ``experimental_cuda``) are submodules too, outside
+this dispatch surface, as the JAX package keeps them out of its own.
 
 ``extract_and_render`` routes as ``keypoints_tpu/kernels/__init__.py:158``
 does: the joint variant takes the fused bottleneck kernel (K3), the

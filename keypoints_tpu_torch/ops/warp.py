@@ -13,8 +13,9 @@ Port of ``keypoints_tpu/ops/warp.py``:
   :func:`tps_evaluate`, :func:`tps_grid`, :func:`tps_grid_fixed`: the
   thin-plate-spline solve and its dense evaluation.
 * :func:`upsample_field_aligned`: bilinear blow-up of a coarse field.
-
-``eval_field_at`` and ``invert_warp_at`` come with the eval slice.
+* :func:`eval_field_at`, :func:`invert_warp_at`: a coarse field at given
+  points, and where a source point lands under the warp (the eval set's
+  ground-truth landmarks follow the target warp through them).
 """
 
 from __future__ import annotations
@@ -263,3 +264,45 @@ def upsample_field_aligned(field: torch.Tensor, height: int,
         return a * (1.0 - f.reshape(shape)) + b * f.reshape(shape)
 
     return axis_lerp(axis_lerp(field, height, 1), width, 2)
+
+
+def eval_field_at(field: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Evaluate a coarse warp field at continuous normalized points.
+
+    ``field`` (B, hc, wc, C) sampled on ``coord_grid(hc, wc)`` with
+    align_corners=True (the ``upsample_field_aligned`` convention); ``pts``
+    (B, K, 2) in [-1, 1] (x, y) → (B, K, C) bilinear values. At the dense
+    grid's positions it gives the upsampled field.
+    """
+    b, hc, wc, _ = field.shape
+    x = (pts[..., 0] + 1.0) * 0.5 * (wc - 1)
+    y = (pts[..., 1] + 1.0) * 0.5 * (hc - 1)
+    x0 = torch.floor(x).long().clamp(0, wc - 2)
+    y0 = torch.floor(y).long().clamp(0, hc - 2)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    flat = field.reshape(b, hc * wc, -1)
+
+    def gather(yi, xi):                              # (B, K) idx → (B, K, C)
+        idx = (yi * wc + xi)[..., None].expand(-1, -1, flat.shape[-1])
+        return torch.gather(flat, 1, idx)
+
+    top = gather(y0, x0) * (1.0 - fx) + gather(y0, x0 + 1) * fx
+    bot = gather(y0 + 1, x0) * (1.0 - fx) + gather(y0 + 1, x0 + 1) * fx
+    return top * (1.0 - fy) + bot * fy
+
+
+def invert_warp_at(field: torch.Tensor, pts: torch.Tensor,
+                   iters: int = 20) -> torch.Tensor:
+    """Where does source position q land in the warped image?
+
+    A backward sampling field W maps output position p to the source
+    position it reads, so a landmark at source position ``q`` appears at the
+    p with W(p) = q. With W = id + d and the mild warps of the augmentation
+    (|d| ≲ 0.15, |∇d| < 1) the fixed-point iteration p ← p + (q − W(p)) is a
+    contraction; ``iters`` = 20 steps reach the f32 floor.
+    """
+    p = pts
+    for _ in range(iters):
+        p = p + (pts - eval_field_at(field, p))
+    return p

@@ -10,7 +10,10 @@ references ``tests/data/torch_port_celeba128_extract.json`` and
 ``random_vgg_params(0)``, which both packages read from the file
 ``write_torchvision_vgg`` writes;
 ``tests/data/torch_port_transporter_atari_train.json`` from
-``random_flax_params(transporter_atari, 0)`` and ``random_images``.
+``random_flax_params(transporter_atari, 0)`` and ``random_images``;
+``tests/data/torch_port_celeba128_eval.json`` from
+``random_flax_params(celeba128, 0)`` and the faces of its numpy seed
+(:func:`reference_eval_batch`).
 """
 
 from __future__ import annotations
@@ -21,12 +24,15 @@ import numpy as np
 import torch
 
 from keypoints_tpu_torch.checkpoint import state_dict_from_flax
-from keypoints_tpu_torch.configs import Config
-from keypoints_tpu_torch.data.augment import PairDraws, WarpDraws
+from keypoints_tpu_torch.configs import Config, get_config
+from keypoints_tpu_torch.data.augment import (PairDraws, WarpDraws,
+                                              pair_with_positions_from_draws)
+from keypoints_tpu_torch.data.faces import render_faces
 from keypoints_tpu_torch.models.vgg import DEFAULT_LAYERS, trunk_layout
 from keypoints_tpu_torch.ops.color import JitterFactors
 from keypoints_tpu_torch.ops.gaussian import gaussian_maps
 from keypoints_tpu_torch.ops.spatial_softmax import spatial_softmax
+from keypoints_tpu_torch.training import warp_config
 
 
 def random_flax_params(cfg: Config, seed: int = 0) -> dict:
@@ -207,3 +213,19 @@ def reference_warp_draws(ref: dict, device: torch.device | str = "cpu"
         return WarpDraws(t(noise, (b, -1, 2)), t(theta, (b,)),
                          t(scale, (b, 1, 1)), t(trans, (b, 1, 2)))
     return [[warp(*side) for side in step] for step in ref["warp_draws"]]
+
+
+def reference_eval_batch(ref: dict, device: torch.device | str = "cpu"
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The eval batch of the committed eval reference
+    (``tests/test_torch_eval.py``), made by the port from JAX's draws: the
+    faces of its numpy seed, paired by the two warp fields and jitter
+    factors JAX drew, the landmarks carried into the target. → (src, tgt,
+    target positions) on ``device``."""
+    cfg = get_config(ref["preset"]).override(**ref["overrides"])
+    size = cfg.data.image_size
+    imgs, marks = render_faces(ref["batch"], size,
+                               np.random.RandomState(ref["numpy_seed"]))
+    return pair_with_positions_from_draws(
+        torch.from_numpy(imgs).to(device), torch.from_numpy(marks).to(device),
+        reference_draws(ref, device)[0], warp_config(cfg))

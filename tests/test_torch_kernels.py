@@ -2,8 +2,8 @@
 
 The soft-argmax forward and backward, the Gaussian raster forward and
 backward, the fused bottleneck (soft-argmax then raster) with its composed
-backward, the bilinear warps (dense grid and coarse field) and the 2×2 max
-pool forward and backward; their dispatchers and autograd Functions;
+backward, the bilinear warps (dense grid and coarse field), the banded
+warps K7 and K8, and the 2×2 max pool forward and backward; their dispatchers and autograd Functions;
 launch counts; rejections; and a backward through the full autoencoder,
 through the Transporter and through the VGG perceptual loss.
 
@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from keypoints_tpu_torch.configs import get_config
+from keypoints_tpu_torch.kernels import experimental as banded
+from keypoints_tpu_torch.kernels import experimental_cuda as ecu
 from keypoints_tpu_torch.kernels import fused_bottleneck_cuda as fbc
 from keypoints_tpu_torch.kernels import gaussian_cuda as gc
 from keypoints_tpu_torch.kernels import pool_cuda as pc
@@ -30,6 +32,7 @@ from keypoints_tpu_torch.kernels import (extract_and_render, gaussian_maps,
                                          max_pool_2x2, spatial_softmax,
                                          warp_cuda, warp_sample,
                                          warp_sample_field)
+from keypoints_tpu_torch.ops import experimental as plain_banded
 from keypoints_tpu_torch.ops.fused_bottleneck import \
     softargmax_raster as plain_bottleneck
 from keypoints_tpu_torch.ops.gaussian import gaussian_maps as plain_gaussian
@@ -581,3 +584,70 @@ def test_transporter_step_launches_and_reaches_every_parameter(cuda,
         assert p.dtype == torch.float32, name
         assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
     assert model.keynet.trunk.Conv_0.weight.grad.abs().sum().item() > 0
+
+
+# --- banded warps (K7, K8) --------------------------------------------------
+
+BANDED = {"tree": (banded.warp_bilinear_tree, plain_banded.warp_bilinear_tree,
+                   "tree_launches"),
+          "rowwin": (banded.warp_bilinear_rowwin,
+                     plain_banded.warp_bilinear_rowwin, "rowwin_launches")}
+
+
+def _banded_grid(cuda, violated: bool) -> torch.Tensor:
+    """celeba128's b128 shape: a smooth warp of the 128² image (the window
+    of y_window 40 holds), or y alternating between -0.9 and 0.9 from row to
+    row and column to column (every band is violated)."""
+    if violated:
+        xs = torch.linspace(-0.9, 0.9, 128).expand(128, 128)
+        ij = torch.arange(128)[:, None] + torch.arange(128)[None]
+        gy = torch.where(ij % 2 == 0, -0.9, 0.9)
+        grid = torch.stack([xs, gy], -1)
+        return grid.expand(128, 128, 128, 2).contiguous().to(cuda)
+    rs = np.random.RandomState(5)
+    field = upsample_field_aligned(
+        torch.from_numpy((0.05 * rs.randn(128, 5, 5, 2)).astype(np.float32)),
+        128, 128)
+    ident = torch.stack(torch.meshgrid(torch.linspace(-1, 1, 128),
+                                       torch.linspace(-1, 1, 128),
+                                       indexing="xy"), -1)
+    return (ident * 0.95 + field).contiguous().to(cuda)
+
+
+@pytest.mark.parametrize("kernel", ["tree", "rowwin"])
+@pytest.mark.parametrize("padding", ["zeros", "border"])
+@pytest.mark.parametrize("violated", [False, True])
+def test_banded_warp_matches_plain_and_k4(cuda, kernel, padding, violated):
+    """K7 and K8 at celeba128's b128 3x128² bf16, y_window 40: within one
+    bf16 ulp of the plain version; where the window holds, equal to K4 bit
+    for bit; where it is violated, zeros past the band."""
+    entry, plain, counter = BANDED[kernel]
+    img = torch.from_numpy(np.random.RandomState(6).rand(128, 3, 128, 128)
+                           .astype(np.float32) * 0.8 + 0.1).to(cuda)
+    img = img.to(torch.bfloat16)
+    grid = _banded_grid(cuda, violated)
+    before = getattr(ecu, counter)
+    got = entry(img, grid, padding, True, 40)
+    torch.cuda.synchronize()
+    assert getattr(ecu, counter) == before + 1
+    want = plain(img, grid, padding, True, 40)
+    assert got.dtype == torch.bfloat16 and got.shape == (128, 3, 128, 128)
+    assert bool(((got.float() - want.float()).abs()
+                 <= bf16_ulp(want)).all())
+    k4 = warp_cuda.warp_bilinear_cuda(img, grid, padding, True)
+    if violated:
+        assert bool((got == 0).any()) and not bool((k4 == 0).any())
+    else:
+        assert torch.equal(got, k4)
+
+
+def test_banded_warp_rejects(cuda):
+    img = torch.zeros((1, 3, 64, 64), dtype=torch.bfloat16, device=cuda)
+    grid = torch.zeros((1, 8, 8, 2), device=cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        ecu.warp_bilinear_tree_cuda(img.float(), grid)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ecu.warp_bilinear_rowwin_cuda(img.cpu(), grid.cpu())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ecu.warp_bilinear_tree_cuda(img, grid[:, :7].contiguous())
+    assert ecu.smem_limit() > 3 * 80 * 128 * 2

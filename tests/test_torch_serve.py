@@ -247,7 +247,12 @@ def test_port_imports_no_jax():
             "keypoints_tpu_torch.models.transporter, "
             "keypoints_tpu_torch.data.synthetic, "
             "keypoints_tpu_torch.ops.fused_bottleneck, "
-            "keypoints_tpu_torch.kernels.fused_bottleneck_cuda; "
+            "keypoints_tpu_torch.kernels.fused_bottleneck_cuda, "
+            "keypoints_tpu_torch.ops.experimental, "
+            "keypoints_tpu_torch.kernels.experimental, "
+            "keypoints_tpu_torch.kernels.experimental_cuda, "
+            "keypoints_tpu_torch.eval, keypoints_tpu_torch.data.faces, "
+            "keypoints_tpu_torch.data.pose; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'keypoints_tpu.')) or m == 'keypoints_tpu');"
             " assert not bad, bad")
