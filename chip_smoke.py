@@ -82,8 +82,9 @@ keypoints_tpu_torch.eval``) of celeba128, pose256 and transporter_atari
                 (within one bf16 ulp) and, where the window holds, against
                 K4 (bit for bit): b128 3x128^2 (y_window 40) and 3x256^2
                 (y_window 75) at the augmentation's grids, both paddings,
-                no band, rows read in place, ragged shapes, violated
-                windows at 128 and 256 rows; then
+                no band, a 1,024-wide image, a grid aligned to 8 bytes but
+                not 16, ragged shapes (odd Wo, Wo < 32, Wo = 600),
+                violated windows at 128 and 256 rows; then
                 the two entry points once at each main shape, counted
   21. times     K7 and K8 against the bound, the plain version,
                 F.grid_sample and K4 at both shapes; launches per call
@@ -93,6 +94,18 @@ keypoints_tpu_torch.eval``) of celeba128, pose256 and transporter_atari
                 then as ``python -m keypoints_tpu_torch.eval``; f32
                 ``evaluate`` against tests/data/torch_port_celeba128_eval.json;
                 bulk extraction (b1024 x 8) against one batch
+  23. wide      heatmaps above 64 a side (the block-per-heatmap kernels): K1,
+     heatmaps   K1b and K3 forward and backward against their plain versions
+                at 65^2, 96^2, 128^2 and 65x200, both variants, both
+                align_corners; K3 against K1 then K2 bit for bit; the
+                dispatchers (spatial_softmax, extract_and_render) at 65^2,
+                96^2 and 128^2, forward and backward, counted; then the
+                times of K1, K1b and K3 at b128 K=10 96^2 and 128^2 against
+                the bound and the plain version
+  24. wide      celeba128's widths with stride-1 encoders (128^2
+     train      heatmaps), b32, bf16, 5 steps per variant (joint: K3;
+                marginal: K1 then K2): finite losses, float32 parameters,
+                exact launches per step
 
 Run from a checkout:  python3 chip_smoke.py
 The card's ``nvidia-smi`` line, then a JSON object of the kernels
@@ -129,6 +142,8 @@ from keypoints_tpu_torch.data.synthetic import scripted_pong_pair  # noqa: E402
 from keypoints_tpu_torch import eval as peval  # noqa: E402
 from keypoints_tpu_torch.eval import float32_precision  # noqa: E402
 from keypoints_tpu_torch.kernels import _build  # noqa: E402
+from keypoints_tpu_torch.kernels import extract_and_render  # noqa: E402
+from keypoints_tpu_torch.kernels import spatial_softmax  # noqa: E402
 from keypoints_tpu_torch.kernels import experimental as banded  # noqa: E402
 from keypoints_tpu_torch.kernels import experimental_cuda as ecu  # noqa: E402
 from keypoints_tpu_torch.kernels import fused_bottleneck_cuda as fbc  # noqa: E402
@@ -157,6 +172,7 @@ from keypoints_tpu_torch.testing import (bf16_ulp,  # noqa: E402
                                          fused_map_tolerance,
                                          grad_norm_tolerance,
                                          random_flax_params, random_images,
+                                         softmax_grad_tolerance,
                                          random_vgg_params, reference_draws,
                                          reference_eval_batch,
                                          reference_warp_draws,
@@ -1531,24 +1547,29 @@ def banded_kernels_phase() -> tuple[dict, dict]:
              for preset, (size, win) in BANDED_SHAPES.items()]
     rs = np.random.RandomState(20)
     img, grid = cases[1][1:3]
-    # K7 without a band: all 256 rows staged
+    # K7 without a band
     cases.append(("256^2 no band", img[:4], grid[:4], None, True))
-    # 1,024 wide: the reserve passes the card's limit, every block reads in
-    # place
-    cases.append(("256x1024 -> 256^2 (read in place)",
+    # a 1,024-wide image
+    cases.append(("256x1024 -> 256^2",
                   torch.from_numpy(rs.rand(2, 3, 256, 1024).astype(np.float32))
                   .cuda().to(torch.bfloat16), grid[:2], 75, True))
-    # a ragged width (16-bit staging) and points outside the image
-    for align in (True, False):
-        cases.append((f"ragged 48x36 -> 16x20 align={align}",
-                      torch.from_numpy(rs.rand(2, 3, 48, 36)
-                                       .astype(np.float32)).cuda()
-                      .to(torch.bfloat16),
-                      torch.from_numpy((rs.rand(2, 16, 20, 2) * 2.4 - 1.2)
-                                       .astype(np.float32)).cuda(), 8, align))
-    print(f"shared memory a block may take for its rows: {ecu.smem_limit()} "
-          f"bytes; output rows a block takes: {ecu.BLOCK_OUTPUT_ROWS}",
-          flush=True)
+    # a grid aligned to 8 bytes but not 16: one pixel a thread
+    unaligned = torch.empty(grid[:4].numel() + 2, device="cuda")
+    unaligned = unaligned[2:].view(grid[:4].shape).copy_(grid[:4])
+    cases.append(("256^2, grid 8-byte aligned", img[:4], unaligned, 75, True))
+    # ragged widths (odd Wo: one pixel a thread; Wo < 32; 600 wide: a 38 KB
+    # K7 band) and points outside the image
+    for (hw, (ho, wo)) in (((48, 36), (16, 20)), ((48, 36), (8, 21)),
+                           ((64, 96), (8, 600))):
+        for align in (True, False):
+            cases.append((f"ragged {hw[0]}x{hw[1]} -> {ho}x{wo} "
+                          f"align={align}",
+                          torch.from_numpy(rs.rand(2, 3, *hw)
+                                           .astype(np.float32)).cuda()
+                          .to(torch.bfloat16),
+                          torch.from_numpy((rs.rand(2, ho, wo, 2) * 2.4 - 1.2)
+                                           .astype(np.float32)).cuda(), 8,
+                          align))
     for what, img, grid, win, align in cases:
         for padding in ("zeros", "border"):
             k4 = wcu.warp_bilinear_cuda(img, grid, padding, align)
@@ -1570,8 +1591,7 @@ def banded_kernels_phase() -> tuple[dict, dict]:
                     check(same, f"{name} {what} {padding}: window holds but "
                           f"the result differs from K4")
 
-    # violated windows at 128 and 256 rows: rows past each band read as 0;
-    # at 256 the blocks' bands read more rows than they reserve, in place
+    # violated windows at 128 and 256 rows: rows past each band read as 0
     for h in (128, 256):
         img = torch.from_numpy(np.random.RandomState(29).rand(1, 3, h, 64)
                                * 0.8 + 0.1).float().cuda().to(torch.bfloat16)
@@ -1766,6 +1786,209 @@ def eval_phase(card: str, tmp: str) -> list:
     return path_counts
 
 
+# heatmaps above 64 a side (the block-per-heatmap kernels): shape, raster
+# size, sigma
+WIDE_CASES = [((2, 3, 65, 65), (65, 65), 0.1),
+              ((128, 10, 96, 96), (96, 96), 0.1),
+              ((128, 10, 128, 128), (128, 128), 0.1),
+              ((2, 3, 65, 200), (33, 100), 0.05)]
+# celeba128's widths with stride-1 encoders: 128^2 heatmaps
+WIDE_TRAIN = {"model.encoder_strides": (1, 1, 1, 1, 1),
+              "model.decoder_upsample": (False, False, False),
+              "train.batch_size": 32}
+WIDE_STEPS = 5
+# launches a step of WIDE_TRAIN, by variant
+WIDE_PER_STEP = {
+    "joint": {"softargmax_raster_fwd": 1, "spatial_softmax_bwd": 1,
+              "gaussian_bwd": 1, "warp_bilinear": 2},
+    "marginal": {"spatial_softmax_fwd": 1, "spatial_softmax_bwd": 1,
+                 "gaussian_fwd": 1, "gaussian_bwd": 1, "warp_bilinear": 2},
+}
+
+
+def wide_kernels_phase(card: str) -> None:
+    """K1, K1b and K3 above 64 a side against their plain versions and
+    autograd, K3 against K1 then K2 bit for bit, the dispatchers counted;
+    then the times at b128 K=10 96^2 and 128^2."""
+    phase("23 wide heatmaps (K1, K1b, K3 block path) vs plain")
+    rs = np.random.RandomState(23)
+    worst = {"kp": 0.0, "dh": 0.0, "maps": 0.0, "dh3_share": 0.0}
+    cases = same = 0
+    for shape, (ho, wo), sigma in WIDE_CASES:
+        x = torch.from_numpy((3 * rs.randn(*shape)).astype(np.float32)).cuda()
+        g_kp = torch.from_numpy(rs.randn(*shape[:2], 2).astype(np.float32))
+        g_maps = torch.from_numpy(rs.randn(*shape[:2], ho, wo)
+                                  .astype(np.float32))
+        g_kp, g_maps = g_kp.cuda(), g_maps.cuda()
+        for variant in ("joint", "marginal"):
+            for align in (True, False):
+                what = f"{'x'.join(map(str, shape))} {variant} align={align}"
+                kp = ssc.spatial_softmax_cuda(x, 0.7, variant, align)
+                dh = ssc.spatial_softmax_bwd_cuda(x, kp, g_kp, 0.7, variant,
+                                                  align)
+                torch.cuda.synchronize()
+                e_kp = (kp - plain_softmax(x, 0.7, variant, align)).abs() \
+                    .max().item()
+                e_dh = (dh - _plain_grad(
+                    lambda t: plain_softmax(t, 0.7, variant, align), x, g_kp)
+                ).abs().max().item()
+                check(e_kp <= KERNEL_TOL, f"K1 {what}: {e_kp}")
+                check(e_dh <= softmax_grad_tolerance(*shape[2:]),
+                      f"K1b {what}: {e_dh}")
+                kp3, maps = fbc.softargmax_raster_cuda(x, ho, wo, 0.7, sigma,
+                                                       align, variant)
+                torch.cuda.synchronize()
+                kp_p, maps_p = plain_bottleneck(x, ho, wo, 0.7, sigma, align,
+                                                variant)
+                e_kp3 = (kp3 - kp_p).abs().max().item()
+                e_maps = (maps - maps_p).abs().max().item()
+                check(e_kp3 <= KERNEL_TOL, f"K3 keypoints {what}: {e_kp3}")
+                check(e_maps <= fused_map_tolerance(sigma),
+                      f"K3 maps {what}: {e_maps}")
+                maps2 = gcu.gaussian_fwd_cuda(kp.reshape(-1, 2), ho, wo,
+                                              sigma, align)
+                bits = (torch.equal(kp3, kp)
+                        and torch.equal(maps, maps2.reshape(maps.shape)))
+                check(bits, f"K3 {what}: not K1 then K2 bit for bit")
+                same += int(bits)
+                xk = x.clone().requires_grad_(True)
+                torch.autograd.backward(fbc.softargmax_raster_autograd(
+                    xk, ho, wo, 0.7, sigma, align, variant), (g_kp, g_maps))
+                xr = x.clone().requires_grad_(True)
+                torch.autograd.backward(plain_bottleneck(
+                    xr, ho, wo, 0.7, sigma, align, variant), (g_kp, g_maps))
+                torch.cuda.synchronize()
+                diff = (xk.grad - xr.grad).abs()
+                tol = fused_grad_tolerance(x, ho, wo, 0.7, sigma, align,
+                                           variant, g_kp, g_maps)
+                check(bool((diff <= tol).all()),
+                      f"K3 dheatmaps {what}: {diff.max().item()}")
+                worst["kp"] = max(worst["kp"], e_kp, e_kp3)
+                worst["dh"] = max(worst["dh"],
+                                  e_dh / softmax_grad_tolerance(*shape[2:]))
+                worst["maps"] = max(worst["maps"], e_maps)
+                worst["dh3_share"] = max(worst["dh3_share"],
+                                         (diff / tol).max().item())
+                cases += 1
+    print(f"{cases} cases: keypoints (K1, K3) max|d| {worst['kp']:.3e} "
+          f"(tolerance {KERNEL_TOL}), K1b at {worst['dh']:.3f} of its "
+          f"tolerance (testing.softmax_grad_tolerance: 1e-5 up to 64 a "
+          f"side, then in proportion to the side), K3 maps max|d| "
+          f"{worst['maps']:.3e}, K3 "
+          f"dheatmaps at {worst['dh3_share']:.3f} of their tolerance; K3 "
+          f"equal to K1 then K2 bit for bit in {same} of {cases}", flush=True)
+
+    # the dispatchers, forward and backward, counted
+    for side in (65, 96, 128):
+        x = torch.from_numpy((3 * rs.randn(4, 5, side, side))
+                             .astype(np.float32)).cuda()
+        for variant in ("joint", "marginal"):
+            xs = x.clone().requires_grad_(True)
+            xe = x.clone().requires_grad_(True)
+            reset_counts()
+            kp = spatial_softmax(xs, 1.0, variant, True)
+            kp.sum().backward()
+            kp_e, maps_e = extract_and_render(xe, side, side, 1.0, 0.1,
+                                              variant, True)
+            (kp_e.sum() + maps_e.sum()).backward()
+            torch.cuda.synchronize()
+            counts = read_counts()
+            fused = variant == "joint"
+            want = {"spatial_softmax_fwd": 1 + (not fused),
+                    "spatial_softmax_bwd": 2, "gaussian_fwd": int(not fused),
+                    "gaussian_bwd": 1, "softargmax_raster_fwd": int(fused)}
+            got = {k: counts[k] for k in want}
+            check(got == want, f"dispatchers {side}^2 {variant}: {got}")
+            check(bool(torch.isfinite(xs.grad).all()
+                       and torch.isfinite(xe.grad).all()),
+                  f"dispatchers {side}^2 {variant}: non-finite gradient")
+            err = (kp_e - plain_softmax(x, 1.0, variant, True)).abs().max()
+            check(err.item() <= KERNEL_TOL,
+                  f"extract_and_render {side}^2 {variant}: {err.item()}")
+        print(f"dispatchers at {side}^2: spatial_softmax and "
+              f"extract_and_render forward and backward through the "
+              f"kernels, both variants", flush=True)
+
+    # times at b128 K=10
+    for side in (96, 128):
+        b, k = 128, 10
+        n, hw = b * k, side * side
+        x = torch.from_numpy(rs.randn(b, k, side, side).astype(np.float32))
+        x = x.cuda()
+        g_kp = torch.from_numpy(rs.randn(b, k, 2).astype(np.float32)).cuda()
+        heat = n * hw * 4
+        for variant in ("joint", "marginal"):
+            kp = ssc.spatial_softmax_cuda(x, 1.0, variant)
+            x_req = x.clone().requires_grad_(True)
+            kp_plain = plain_softmax(x_req, 1.0, variant)
+            cases = {
+                "spatial_softmax_fwd": (
+                    lambda v=variant: ssc.spatial_softmax_cuda(x, 1.0, v),
+                    lambda v=variant: plain_softmax(x, 1.0, v), None,
+                    _bound(heat + n * 8, 3 * n * hw)),
+                "spatial_softmax_bwd": (
+                    lambda v=variant, kp=kp: ssc.spatial_softmax_bwd_cuda(
+                        x, kp, g_kp, 1.0, v),
+                    lambda kp_plain=kp_plain, x_req=x_req: torch.autograd.grad(
+                        kp_plain, x_req, g_kp, retain_graph=True), None,
+                    _bound(2 * heat + 2 * n * 8, 4 * n * hw)),
+                "softargmax_raster_fwd": (
+                    lambda v=variant: fbc.softargmax_raster_cuda(
+                        x, side, side, 1.0, 0.1, True, v),
+                    lambda v=variant: plain_bottleneck(x, side, side, 1.0,
+                                                       0.1, True, v), None,
+                    _bound(2 * heat + n * 8, 6 * n * hw + 10 * n * hw)),
+            }
+            _time_cases(cases, card, plain_reps=2,
+                        label=f" {variant} (N={n}, {side}x{side})")
+
+
+def wide_train_phase(card: str) -> list:
+    """A user's train step (``init_state`` + ``make_train_step``) of
+    celeba128's widths with stride-1 encoders, so the heatmaps are 128^2:
+    b32 bf16, ``WIDE_STEPS`` steps per variant with the counts reset just
+    before; exact launches per step."""
+    phase(f"24 wide train (celeba128 widths, stride-1 encoders, 128^2 "
+          f"heatmaps, b{WIDE_TRAIN['train.batch_size']}, bf16, "
+          f"{WIDE_STEPS} steps per variant) on {card}")
+    path_counts = []
+    for variant, per_step in WIDE_PER_STEP.items():
+        cfg = get_config("celeba128").override(
+            **{**WIDE_TRAIN, "model.softmax_variant": variant})
+        state = init_state(cfg, "cuda")
+        step = make_train_step(cfg, loss=make_loss(cfg))
+        images = torch.from_numpy(random_images(cfg.train.batch_size, cfg,
+                                                24)).cuda()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(WIDE_STEPS):
+            state, metrics = step(state, images)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        path_counts.append(counts)
+        losses = torch.stack(losses).cpu().numpy()
+        print(f"{variant}: {WIDE_STEPS} steps in {wall:.2f}s (the first "
+              f"includes cuDNN's set-up), losses {losses}; launches "
+              f"{counts}", flush=True)
+        check(bool(np.isfinite(losses).all()), f"{variant}: losses {losses}")
+        check(all(p.dtype == torch.float32 for p in state.model.parameters()),
+              f"{variant}: parameters are not float32 after bf16 steps")
+        for name in KERNELS:
+            want = per_step.get(name, 0) * WIDE_STEPS
+            check(counts[name] == want, f"{variant}: {name} launched "
+                  f"{counts[name]} times in {WIDE_STEPS} steps ({want} "
+                  f"expected)")
+        train_step_times(card, (cfg, state, step, images), steps=5,
+                         label=f"celeba128 stride-1 {variant}")
+        del state, step
+        torch.cuda.empty_cache()
+    return path_counts
+
+
 def main() -> int:
     card = device_phase()
     build_phase()
@@ -1816,6 +2039,9 @@ def main() -> int:
     times.update(banded_times_phase(card))
     with tempfile.TemporaryDirectory() as tmp:
         path_counts.extend(eval_phase(card, tmp))
+    torch.cuda.empty_cache()
+    wide_kernels_phase(card)
+    path_counts.extend(wide_train_phase(card))
 
     errs["spatial_softmax_fwd"] = max(errs["spatial_softmax_fwd"],
                                       served["serve_max_abs_err"])

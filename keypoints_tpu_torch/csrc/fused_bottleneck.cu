@@ -29,8 +29,15 @@
 // threads for Ho*Wo pixels where K2 has one thread a pixel, so the loop is
 // kept short: the output grid's coordinates (axis_coord, two float
 // divisions each) are computed once per block into shared memory, and the
-// pixel's (x, y) advance by 32 without an integer division. H, W 1..64 (the
-// soft-argmax's limit); Ho + Wo up to kMaxOut (the table). The TPU kernel's
+// pixel's (x, y) advance by 32 without an integer division. Ho + Wo up to
+// kMaxOut (the table).
+//
+// H or W above 64: one block of 256 threads per heatmap, as K1's block
+// path. The keypoint comes from the same block functions (softmax.cuh:
+// block_marginal_keypoint, block_joint_keypoint), so it equals K1's to the
+// bit there too; then the block writes the map, thread t at flat pixels t,
+// t + 256, ..., each by gaussian_value from the coordinate table. The TPU
+// kernel's
 // block-row tiling (_block_rows, _flat_spec) and indicator-matrix marginals
 // exist for Mosaic's lack of lane-splitting reshapes and have no
 // counterpart here.
@@ -92,6 +99,54 @@ fused_fwd(const float* __restrict__ in, float* __restrict__ kp,
   }
 }
 
+// H or W above 64: a block per heatmap. Dynamic shared memory: the output
+// coordinates (u of x < wo, then v of y < ho), then, marginal, the column
+// and row sums (w, then h floats).
+template <bool kJoint>
+__global__ void __launch_bounds__(kpsoftmax::kBlock)
+block_fused_fwd(const float* __restrict__ in, float* __restrict__ kp,
+                float* __restrict__ maps, int h, int w, int ho, int wo,
+                float inv_t, float inv_two_s2, bool align) {
+  using kpsoftmax::kBlock;
+  extern __shared__ float smem[];
+  __shared__ float part[kpsoftmax::kPart];
+  __shared__ float scratch[3 * kpsoftmax::kBlockWarps];
+  float* coords = smem;
+  for (int i = threadIdx.x; i < wo + ho; i += kBlock)
+    coords[i] = i < wo ? axis_coord(i, wo, align)
+                       : axis_coord(i - wo, ho, align);
+  // the keypoint functions synchronise before the table is read
+  const size_t row = blockIdx.x;
+  const float* p = in + row * h * w;
+  float ex, ey;
+  if (kJoint) {
+    kpsoftmax::block_joint_keypoint(p, h, w, inv_t, align, scratch, ex, ey);
+  } else {
+    float* sums = smem + wo + ho;
+    kpsoftmax::block_marginal_keypoint(p, h, w, inv_t, align, sums, sums + w,
+                                       part, scratch, ex, ey);
+  }
+  if (threadIdx.x == 0) {
+    kp[2 * row] = ex;
+    kp[2 * row + 1] = ey;
+  }
+  const float* us = coords;
+  const float* vs = coords + wo;
+  const int hw = ho * wo;
+  float* o = maps + row * hw;
+  const int dy = kBlock / wo, dx = kBlock - dy * wo;
+  int y = threadIdx.x / wo, x = threadIdx.x - y * wo;  // of flat pixel t
+  for (int i = threadIdx.x; i < hw; i += kBlock) {
+    o[i] = gaussian_value(us[x], vs[y], ex, ey, inv_two_s2);
+    x += dx;                                 // pixel i + kBlock
+    y += dy;
+    if (x >= wo) {
+      x -= wo;
+      ++y;
+    }
+  }
+}
+
 }  // namespace
 
 // variant: 0 = joint, 1 = marginal. Launches on `stream` and returns
@@ -115,7 +170,15 @@ extern "C" int kp_softargmax_raster_fwd(int variant, int n, int h, int w,
   const float inv_two_s2 = 1.0f / (2.0f * sigma * sigma);
   const bool align = align_corners != 0;
   const size_t table = static_cast<size_t>(ho + wo) * sizeof(float);
-  if (variant == 0)
+  if (kpsoftmax::wide(h, w)) {
+    const size_t dyn = table + kpsoftmax::sums_floats(variant, h, w) * sizeof(float);
+    if (variant == 0)
+      block_fused_fwd<true><<<n, kpsoftmax::kBlock, dyn, s>>>(
+          x, k, m, h, w, ho, wo, inv_t, inv_two_s2, align);
+    else
+      block_fused_fwd<false><<<n, kpsoftmax::kBlock, dyn, s>>>(
+          x, k, m, h, w, ho, wo, inv_t, inv_two_s2, align);
+  } else if (variant == 0)
     fused_fwd<true><<<grid, block, table, s>>>(x, k, m, n, h, w, ho, wo,
                                                inv_t, inv_two_s2, align);
   else

@@ -7,14 +7,16 @@ band of source rows for each block of 8 output rows) on NVIDIA Hopper,
 band for each output row). Both sample a bf16 (B, C, H, W) image at a
 (B, Ho, Wo, 2) f32 grid with ``grid_sample``'s bilinear rule
 (``padding_mode`` zeros or border, explicit ``align_corners``); a corner
-row outside its band reads as 0. Each block of threads takes
-:data:`BLOCK_OUTPUT_ROWS` output rows (several bands), stages the source
-rows its bands read in shared memory one channel at a time, and samples
-from there; a block whose bands read more rows than it reserves, or every
-block when the reserve passes what the card lets a block hold
-(:func:`smem_limit`), reads them in place, with the same result. The
-corner math is K4's, so where the window holds the result equals
-``warp_cuda.warp_bilinear_cuda`` bit for bit.
+row outside its band reads as 0. The band is only a mask: a band's threads
+read its grid once into shared memory, take the band's start from a
+warp-level minimum combined across the band's warps, and then gather each
+pixel's corners straight from device memory, skipping rows outside the
+band. K7's band (8 output rows) is one block of 256 threads; K8's band (one
+row) a slot of whole warps, several rows a block. Nothing of the image is
+staged, so nothing limits the band's height and a violated window runs the
+same code as a held one; a band's grid must fit in shared memory
+(:data:`MAX_BAND_BYTES`). The corner math is K4's, so where the window
+holds the result equals ``warp_cuda.warp_bilinear_cuda`` bit for bit.
 
 The band heights come from the caller's ``y_window`` as the JAX entries
 compute them (``ops.experimental.tree_window`` and ``rowwin_window``); the
@@ -36,9 +38,9 @@ from keypoints_tpu_torch.ops.experimental import (BLOCK_ROWS, CHUNK,
                                                   tree_window)
 
 PADDING = {"zeros": 0, "border": 1}
-#: output rows one block of threads takes (2 K7 bands, 16 K8 bands): 16
-#: beat 32 at 256² and tied it at 128² on the H100 (PERF.md)
-BLOCK_OUTPUT_ROWS = 16
+#: a band's grid points (8 bytes a pixel) in one block's shared memory:
+#: Wo up to 3,584 for K7, 28,672 for K8
+MAX_BAND_BYTES = 224 * 1024
 
 #: K7 launches so far; the wrapper adds one per launch and nowhere else
 tree_launches = 0
@@ -46,15 +48,6 @@ tree_launches = 0
 rowwin_launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-
-
-def smem_limit() -> int:
-    """The most shared memory, in bytes, a block takes for its staged rows
-    on the current device (min(H, win + 2 * BLOCK_OUTPUT_ROWS) rows of W
-    bf16 values); a larger reserve is read in place."""
-    fn = _build.load().kp_warp_band_smem_limit
-    fn.argtypes, fn.restype = [], ctypes.c_longlong
-    return int(fn())
 
 
 def _band(name: str, image: torch.Tensor, grid: torch.Tensor,
@@ -73,15 +66,17 @@ def _band(name: str, image: torch.Tensor, grid: torch.Tensor,
         raise ValueError(f"{name} takes H*W < 2**31 and B <= 65535, got "
                          f"{b}x{h}x{w}")
     ho, wo = grid.shape[1:3]
+    if 8 * unit * wo > MAX_BAND_BYTES:
+        raise ValueError(f"{name} takes Wo <= {MAX_BAND_BYTES // (8 * unit)} "
+                         f"(a band's grid in shared memory), got {wo}")
     out = torch.empty((b, c, ho, wo), dtype=image.dtype, device=image.device)
     if out.numel() == 0:
         return out
-    fn = _build.entry("kp_warp_band", _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+    fn = _build.entry("kp_warp_band", _I, _I, _I, _I, _I, _I, _I, _I, _I,
                       _I, _P, _P, _P, _P)
     _build.launch(fn, image, f"{name} ({b}x{c}x{h}x{w} -> {ho}x{wo}, "
-                  f"band {win})", unit, BLOCK_OUTPUT_ROWS,
-                  PADDING[padding_mode], int(bool(align_corners)), b, c, h, w,
-                  ho, wo, win,
+                  f"band {win})", unit, PADDING[padding_mode],
+                  int(bool(align_corners)), b, c, h, w, ho, wo, win,
                   image.data_ptr(), grid.data_ptr(), out.data_ptr())
     return out
 

@@ -49,10 +49,10 @@ def softargmax_raster_cuda(heatmaps: torch.Tensor, out_height: int,
     2)`` ``(x, y)`` and maps ``(B, K, Ho, Wo)``, both f32.
 
     Launches on the current stream of the tensor's device and does not
-    synchronise. Raises on anything the kernel does not take: a tensor that
-    is not a contiguous float32 CUDA tensor, H or W outside 1..64, an
-    unknown variant, sigma not positive, or an output size below 1 or with
-    Ho + Wo above 4096. The outputs carry no gradient:
+    synchronise. Heatmaps of up to 64 a side take a warp per heatmap,
+    larger ones a block. Raises on anything the kernel does not take: what
+    ``spatial_softmax_cuda.check_heatmaps`` rejects, sigma not positive, or
+    an output size below 1 or with Ho + Wo above 4096. The outputs carry no gradient:
     :class:`SoftargmaxRasterFused` does.
     """
     global launches

@@ -23,7 +23,12 @@ from keypoints_tpu_torch.coords import DEFAULT_ALIGN_CORNERS
 from keypoints_tpu_torch.kernels import _build
 
 VARIANTS = {"joint": 0, "marginal": 1}
-MAX_SIDE = 64          # H and W: each lane of the row's warp holds two columns
+#: H and W at or below this take the warp-per-row kernels (each lane holds
+#: two columns); a larger H or W takes the block-per-row kernels
+WARP_MAX_SIDE = 64
+#: H + W of a marginal heatmap above WARP_MAX_SIDE a side: the block kernel
+#: keeps its column and row sums in shared memory
+MAX_MARGINAL_SUMS = 4096
 
 #: forward kernel launches so far; the wrapper adds one per launch, nowhere else
 launches = 0
@@ -34,15 +39,23 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def check_heatmaps(heatmaps: torch.Tensor, variant: str, what: str) -> None:
-    """Raise unless ``heatmaps`` is what a warp-per-row soft-argmax kernel
-    takes: a contiguous 4-D float32 CUDA tensor, H and W in 1..64, and a
-    known variant."""
+    """Raise unless ``heatmaps`` is what the soft-argmax kernels take: a
+    contiguous 4-D float32 CUDA tensor with H, W >= 1 and H*W < 2**31, and
+    a known variant; a marginal heatmap above 64 a side also needs
+    H + W <= 4096 (its sums in shared memory)."""
     _build.require(heatmaps, what, (torch.float32,), 4)
-    h, w = heatmaps.shape[2:]
-    if not (1 <= h <= MAX_SIDE and 1 <= w <= MAX_SIDE):
-        raise ValueError(f"{what} takes H, W in 1..{MAX_SIDE}, got {h}x{w}")
     if variant not in VARIANTS:
         raise ValueError(f"unknown spatial softmax variant: {variant!r}")
+    h, w = heatmaps.shape[2:]
+    if h < 1 or w < 1 or h * w >= 2 ** 31:
+        raise ValueError(f"{what} takes H, W >= 1 with H*W < 2**31, got "
+                         f"{h}x{w}")
+    if (variant == "marginal" and max(h, w) > WARP_MAX_SIDE
+            and h + w > MAX_MARGINAL_SUMS):
+        raise ValueError(f"{what} takes H + W <= {MAX_MARGINAL_SUMS} for a "
+                         f"marginal heatmap above {WARP_MAX_SIDE} a side "
+                         f"(its row and column sums live in shared memory), "
+                         f"got {h}x{w}")
 
 
 def spatial_softmax_cuda(heatmaps: torch.Tensor, temperature: float = 1.0,
@@ -52,10 +65,11 @@ def spatial_softmax_cuda(heatmaps: torch.Tensor, temperature: float = 1.0,
     """Forward kernel: ``(B, K, H, W)`` f32 CUDA → ``(B, K, 2)`` f32, ``(x, y)``.
 
     Launches on the current stream of the tensor's device and does not
-    synchronise. Raises on anything the kernel does not take: a tensor that
-    is not a contiguous float32 CUDA tensor, H or W outside 1..64, or an
-    unknown variant. The output carries no gradient: :class:`SpatialSoftmax`
-    does.
+    synchronise. Heatmaps of up to 64 a side take the warp-per-row kernel,
+    larger ones the block-per-row kernel. Raises on anything the kernels do
+    not take (:func:`check_heatmaps`): a tensor that is not a contiguous
+    float32 CUDA tensor, an empty side, or an unknown variant. The output
+    carries no gradient: :class:`SpatialSoftmax` does.
     """
     global launches
     check_heatmaps(heatmaps, variant, "spatial_softmax_cuda")

@@ -142,14 +142,25 @@ def fused_map_tolerance(sigma: float, kp_tol: float = 2e-5) -> float:
     return 2 * np.sqrt(2) * kp_tol * np.exp(-0.5) / sigma
 
 
+def softmax_grad_tolerance(height: int, width: int) -> float:
+    """How far the soft-argmax backward kernel's dL/dheatmaps may be from
+    the plain autograd, for an incoming keypoint gradient of order 1: 1e-5
+    up to 64 a side (the warp-per-row kernels), growing in proportion to the
+    longer side above it, since the softmax's inputs are sums over a side
+    (marginal) or over the map (joint) and their rounding grows with the
+    number of terms."""
+    return 1e-5 * max(1.0, max(height, width) / 64)
+
+
 def fused_grad_tolerance(x: torch.Tensor, out_height: int, out_width: int,
                          temperature: float, sigma: float, align: bool,
                          variant: str, g_kp: torch.Tensor,
                          g_maps: torch.Tensor) -> torch.Tensor:
     """Elementwise bound on the fused bottleneck's composed backward
     (dL/dheatmaps for dL/dkeypoints ``g_kp`` and dL/dmaps ``g_maps``)
-    against the plain autograd. The soft-argmax backward's own 1e-5, for an
-    incoming keypoint gradient of order 1, scaled by the size of the one it
+    against the plain autograd. The soft-argmax backward's own bar
+    (:func:`softmax_grad_tolerance`, 1e-5 up to 64 a side) for an incoming
+    keypoint gradient of order 1, scaled by the size of the one it
     gets here (the raster backward's output, ~50 at the train shapes: a
     linear map's rounding scales with its input); plus the raster
     backward's 1e-4 of its largest keypoint gradient (its sums over Ho*Wo
@@ -165,7 +176,8 @@ def fused_grad_tolerance(x: torch.Tensor, out_height: int, out_width: int,
                                                 sigma, align)
                                   * g_maps).sum(), kp)
     scale = max(1.0, (dkp + g_kp).abs().max().item())
-    return 1e-5 * scale + 1e-4 * dkp.abs().max() * (jx.abs() + jy.abs())
+    return (softmax_grad_tolerance(*x.shape[2:]) * scale
+            + 1e-4 * dkp.abs().max() * (jx.abs() + jy.abs()))
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:

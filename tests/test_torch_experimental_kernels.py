@@ -116,6 +116,49 @@ def test_violated_window_zero_fills_as_jax(kernel):
     assert bool((got[:, :, ::2, ::2] > 0.05).all())
 
 
+def _edge_grid(b, ho, wo, span, seed):
+    """A rotated, jittered grid whose output rows step through source y in
+    [-span, span] (reaching past the image in x), so a band's window holds
+    and some corners fall outside the image."""
+    rs = np.random.RandomState(seed)
+    ys, xs = np.meshgrid(np.linspace(-span, span, ho),
+                         np.linspace(-1.05, 1.05, wo), indexing="ij")
+    c, s = np.cos(0.1), np.sin(0.1)
+    g = np.stack([c * xs - s * ys, s * xs + c * ys], -1)
+    return (g + 0.005 * rs.randn(b, ho, wo, 2)).astype(np.float32)
+
+
+# (image shape, Ho, Wo, y span, y_window): the CUDA kernels' launch geometry
+# changes at these edges (one pixel a thread at odd Wo, a band of fewer than
+# 32 pixel pairs, a single band, a single image)
+EDGES = [((1, 3, 64, 48), 8, 21, 0.2, 16),
+         ((2, 2, 48, 40), 16, 20, 0.3, 16),
+         ((1, 3, 64, 64), 8, 36, 0.1, 8)]
+
+
+@pytest.mark.parametrize("padding", ["zeros", "border"])
+@pytest.mark.parametrize("kernel", ["tree", "rowwin"])
+@pytest.mark.parametrize("case", EDGES,
+                         ids=["odd-wo-ho8-b1", "wo20-b2", "one-band-b1"])
+def test_edge_geometry_matches_jax(case, kernel, padding):
+    """The plain K7/K8 at odd Wo, Wo < 32, Ho = 8 and B = 1 against the
+    Pallas kernel in interpret mode within one bf16 ulp, and against jnp
+    ``grid_sample`` at 2e-2 (the window holds)."""
+    shape, ho, wo, span, y_window = case
+    img = np.random.RandomState(41).rand(*shape).astype(np.float32)
+    g = _edge_grid(shape[0], ho, wo, span, 42)
+    port, jax_kernel = KERNELS[kernel]
+    got = port(_bf16(img), torch.from_numpy(g), padding, True,
+               y_window=y_window)
+    assert got.shape == (shape[0], shape[1], ho, wo)
+    _within_ulp(got, jax_kernel(jnp.asarray(img).astype(jnp.bfloat16),
+                                jnp.asarray(g), padding, True,
+                                y_window=y_window, interpret=True))
+    want = grid_sample(jnp.asarray(img), jnp.asarray(g), padding, True)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want),
+                               atol=2e-2)
+
+
 BAD = [("tree", torch.float32, 64, 8, "zeros", "bf16"),
        ("tree", torch.bfloat16, 63, 8, "zeros", "multiple of 2"),
        ("rowwin", torch.bfloat16, 40, 8, "zeros", "multiple of 16"),

@@ -41,7 +41,8 @@ from keypoints_tpu_torch.ops.spatial_softmax import spatial_softmax as plain
 from keypoints_tpu_torch.ops.warp import grid_sample as plain_warp
 from keypoints_tpu_torch.ops.warp import upsample_field_aligned
 from keypoints_tpu_torch.testing import (bf16_ulp, fused_grad_tolerance,
-                                         fused_map_tolerance, random_images)
+                                         fused_map_tolerance, random_images,
+                                         softmax_grad_tolerance)
 from keypoints_tpu_torch.train import make_loss
 from keypoints_tpu_torch.training import build_model
 
@@ -120,10 +121,50 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         ssc.spatial_softmax_cuda(x.to(torch.bfloat16))
     with pytest.raises(ValueError, match="contiguous"):
         ssc.spatial_softmax_cuda(x.transpose(2, 3))
-    with pytest.raises(ValueError, match="1..64"):
-        ssc.spatial_softmax_cuda(_heatmaps(1, 1, 65, 8, cuda))
+    # a side above 64 computes (the block-per-row kernel); only a marginal
+    # heatmap whose H + W passes the shared-memory sums raises
+    wide = _heatmaps(1, 1, 65, 8, cuda)
+    for variant in ("marginal", "joint"):
+        got = ssc.spatial_softmax_cuda(wide, 1.0, variant)
+        torch.cuda.synchronize()
+        assert (got - plain(wide, 1.0, variant)).abs().max().item() <= TOL
+    with pytest.raises(ValueError, match="H \\+ W <= 4096"):
+        ssc.spatial_softmax_cuda(_heatmaps(1, 1, 65, 4032, cuda))
     with pytest.raises(ValueError, match="variant"):
         ssc.spatial_softmax_cuda(x, variant="mean")
+
+
+# heatmaps above 64 a side: the block-per-row kernels
+WIDE = [(2, 3, 65, 65), (2, 3, 96, 96), (2, 3, 128, 128), (2, 3, 65, 200),
+        (1, 2, 300, 7)]
+WIDE_IDS = ["65x65", "96x96", "128x128", "65x200", "300x7"]
+
+
+@pytest.mark.parametrize("align", [True, False])
+@pytest.mark.parametrize("variant", ["marginal", "joint"])
+@pytest.mark.parametrize("shape", WIDE, ids=WIDE_IDS)
+def test_wide_heatmaps_forward_and_backward_match_plain(cuda, shape, variant,
+                                                        align):
+    """K1 and K1b above 64 a side, through the dispatcher: one forward and
+    one backward launch, the keypoints within TOL and dL/dheatmaps within
+    ``testing.softmax_grad_tolerance`` of the plain version and its
+    autograd; the backward twice gives the same bits (no float atomics)."""
+    x = _heatmaps(*shape, cuda, seed=21).requires_grad_(True)
+    g = torch.from_numpy(np.random.RandomState(22).randn(
+        *shape[:2], 2).astype(np.float32)).to(cuda)
+    fwd, bwd = ssc.launches, ssc.bwd_launches
+    kp = spatial_softmax(x, 0.7, variant, align)
+    (kp * g).sum().backward()
+    torch.cuda.synchronize()
+    assert (ssc.launches, ssc.bwd_launches) == (fwd + 1, bwd + 1)
+    assert (kp - plain(x.detach(), 0.7, variant, align)).abs().max().item() \
+        <= TOL
+    want = _plain_grad(x.detach(), g, 0.7, variant, align)
+    assert (x.grad - want).abs().max().item() <= \
+        softmax_grad_tolerance(*shape[2:])
+    again = ssc.spatial_softmax_bwd_cuda(x.detach(), kp.detach(), g, 0.7,
+                                         variant, align)
+    assert torch.equal(again, x.grad)
 
 
 # --- soft-argmax backward (K1b) ----------------------------------------------
@@ -517,6 +558,75 @@ def test_fused_bottleneck_backward_matches_plain_autograd(cuda, case,
     assert bool(((x.grad - xr.grad).abs() <= tol).all())
 
 
+WIDE_BOTTLENECK = [((2, 3, 65, 65), (65, 65), 0.1),
+                   ((2, 3, 96, 96), (48, 48), 0.1),
+                   ((4, 5, 128, 128), (128, 128), 0.05),
+                   ((2, 3, 65, 200), (33, 100), 0.1)]
+
+
+@pytest.mark.parametrize("align", [True, False])
+@pytest.mark.parametrize("variant", ["marginal", "joint"])
+@pytest.mark.parametrize("case", WIDE_BOTTLENECK,
+                         ids=["65x65", "96x96", "128x128", "65x200"])
+def test_wide_fused_bottleneck_matches_plain_and_the_unfused_kernels(
+        cuda, case, variant, align):
+    """K3 above 64 a side (the block-per-heatmap kernel): keypoints within
+    TOL and maps within ``testing.fused_map_tolerance`` of plain, both
+    equal to K1 then K2 bit for bit; its composed backward (K2 bwd then
+    K1b) within ``testing.fused_grad_tolerance`` of the plain autograd."""
+    shape, (ho, wo), sigma = case
+    x = _heatmaps(*shape, cuda, seed=23)
+    kp, maps = fbc.softargmax_raster_cuda(x, ho, wo, 0.7, sigma, align,
+                                          variant)
+    torch.cuda.synchronize()
+    kp_p, maps_p = plain_bottleneck(x, ho, wo, 0.7, sigma, align, variant)
+    assert (kp - kp_p).abs().max().item() <= TOL
+    assert (maps - maps_p).abs().max().item() <= fused_map_tolerance(sigma)
+    kp1 = ssc.spatial_softmax_cuda(x, 0.7, variant, align)
+    maps2 = gc.gaussian_fwd_cuda(kp1.reshape(-1, 2), ho, wo, sigma, align)
+    assert torch.equal(kp, kp1)
+    assert torch.equal(maps, maps2.reshape(maps.shape))
+
+    rs = np.random.RandomState(24)
+    g_kp = torch.from_numpy(rs.randn(*shape[:2], 2).astype(np.float32))
+    g_maps = torch.from_numpy(rs.randn(*shape[:2], ho, wo).astype(np.float32))
+    g_kp, g_maps = g_kp.to(cuda), g_maps.to(cuda)
+    xk = x.clone().requires_grad_(True)
+    torch.autograd.backward(fbc.softargmax_raster_autograd(
+        xk, ho, wo, 0.7, sigma, align, variant), (g_kp, g_maps))
+    xr = x.clone().requires_grad_(True)
+    torch.autograd.backward(plain_bottleneck(xr, ho, wo, 0.7, sigma, align,
+                                             variant), (g_kp, g_maps))
+    tol = fused_grad_tolerance(x, ho, wo, 0.7, sigma, align, variant, g_kp,
+                               g_maps)
+    assert bool(((xk.grad - xr.grad).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("variant", ["marginal", "joint"])
+def test_autoencoder_with_128_heatmaps_trains_through_the_kernels(cuda,
+                                                                  variant):
+    """celeba128 at stride 1 (128² heatmaps), narrow, bf16 compute: a
+    forward and backward at b2 through the wide kernels (joint: K3;
+    marginal: K1 then K2), and K1b; every parameter gets a finite
+    gradient."""
+    cfg = get_config("celeba128").override(**{
+        "model.encoder_filters": (8, 8), "model.encoder_strides": (1, 1),
+        "model.decoder_filters": (8, 8),
+        "model.decoder_upsample": (False, False), "model.groups": 4,
+        "model.softmax_variant": variant})
+    model = build_model(cfg, cuda)
+    x = torch.rand((2, 3, 128, 128), device=cuda)
+    before = (fbc.launches, ssc.launches, ssc.bwd_launches)
+    recon, _ = model(x, x)
+    ((recon - x) ** 2).mean().backward()
+    torch.cuda.synchronize()
+    got = tuple(a - b for a, b in zip((fbc.launches, ssc.launches,
+                                       ssc.bwd_launches), before))
+    assert got == ((1, 0, 1) if variant == "joint" else (0, 1, 1))
+    for name, p in model.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
+
+
 @pytest.mark.parametrize("variant", ["marginal", "joint"])
 def test_extract_and_render_routes_joint_to_the_fused_kernel(cuda, variant):
     """On CUDA the joint variant takes K3 alone, the marginal variant K1
@@ -542,15 +652,22 @@ def test_fused_bottleneck_rejects_what_it_does_not_take(cuda):
         fbc.softargmax_raster_cuda(x.transpose(2, 3), 16, 16)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fbc.softargmax_raster_cuda(x.cpu(), 16, 16)
-    with pytest.raises(ValueError, match="1..64"):
-        fbc.softargmax_raster_cuda(_heatmaps(1, 1, 65, 8, cuda), 16, 16)
+    wide = _heatmaps(1, 1, 65, 8, cuda)      # computes: the block kernel
+    kp, maps = fbc.softargmax_raster_cuda(wide, 16, 16)
+    torch.cuda.synchronize()
+    kp_p, maps_p = plain_bottleneck(wide, 16, 16)
+    assert (kp - kp_p).abs().max().item() <= TOL
+    assert (maps - maps_p).abs().max().item() <= fused_map_tolerance(0.1)
+    with pytest.raises(ValueError, match="H \\+ W <= 4096"):
+        fbc.softargmax_raster_cuda(_heatmaps(1, 1, 65, 4032, cuda), 16, 16,
+                                   variant="marginal")
     with pytest.raises(ValueError, match="variant"):
         fbc.softargmax_raster_cuda(x, 16, 16, variant="mean")
     with pytest.raises(ValueError, match="sigma"):
         fbc.softargmax_raster_cuda(x, 16, 16, sigma=0.0)
     with pytest.raises(ValueError, match="output size"):
         fbc.softargmax_raster_cuda(x, 0, 16)
-    assert fbc.launches == before
+    assert fbc.launches == before + 1
 
 
 @pytest.mark.parametrize("variant", ["marginal", "joint"])
@@ -650,4 +767,62 @@ def test_banded_warp_rejects(cuda):
         ecu.warp_bilinear_rowwin_cuda(img.cpu(), grid.cpu())
     with pytest.raises(ValueError, match="multiple of 8"):
         ecu.warp_bilinear_tree_cuda(img, grid[:, :7].contiguous())
-    assert ecu.smem_limit() > 3 * 80 * 128 * 2
+    with pytest.raises(ValueError, match="Wo <= 3584"):
+        ecu.warp_bilinear_tree_cuda(img, torch.zeros((1, 8, 3585, 2),
+                                                     device=cuda))
+
+
+def _smooth_grid(b, ho, wo, span, seed, angle=0.1):
+    """A grid whose output rows step evenly through source y in [-span,
+    span], rotated by ``angle`` and jittered: the windows of the cases below
+    hold, with bands narrower than the image."""
+    rs = np.random.RandomState(seed)
+    ys, xs = np.meshgrid(np.linspace(-span, span, ho),
+                         np.linspace(-0.9, 0.9, wo), indexing="ij")
+    c, s_ = np.cos(angle), np.sin(angle)
+    g = np.stack([c * xs - s_ * ys, s_ * xs + c * ys], -1)
+    g = g + 0.005 * rs.randn(b, ho, wo, 2)
+    return torch.from_numpy(np.clip(g, -0.98, 0.98).astype(np.float32))
+
+
+# (image shape, output Ho x Wo, y span, y_window, what the case exercises)
+BANDED_EDGES = [((1, 3, 128, 64), (8, 21), 0.2, 40, "odd Wo, Ho = 8, B = 1"),
+                ((2, 3, 96, 80), (16, 20), 0.3, 24, "Wo < 32"),
+                ((2, 3, 128, 1024), (64, 256), 0.9, 40, "1,024-wide image"),
+                ((1, 2, 64, 64), (8, 600), 0.1, 16, "Wo = 600, 38 KB band"),
+                ((3, 3, 128, 128), (128, 128), 0.9, 40,
+                 "8-byte aligned grid")]
+
+
+@pytest.mark.parametrize("kernel", ["tree", "rowwin"])
+@pytest.mark.parametrize("padding", ["zeros", "border"])
+@pytest.mark.parametrize("case", BANDED_EDGES,
+                         ids=["odd-wo", "narrow-wo", "wide-image",
+                              "wide-band", "unaligned-grid"])
+def test_banded_warp_edge_geometry(cuda, case, padding, kernel):
+    """K7 and K8 where the launch geometry changes: one pixel a thread (odd
+    Wo; a grid 8 but not 16 bytes aligned), few pixels a band, a wide image,
+    a wide band (K7's grid of 38 KB in shared memory, 19 items a thread).
+    Within one bf16 ulp of the plain version, and equal to K4 bit for bit
+    (every case's window holds)."""
+    shape, (ho, wo), span, y_window, what = case
+    entry, plain, counter = BANDED[kernel]
+    img = torch.from_numpy(np.random.RandomState(7).rand(*shape)
+                           .astype(np.float32)).to(cuda).to(torch.bfloat16)
+    grid = _smooth_grid(shape[0], ho, wo, span, 8).to(cuda)
+    if what == "8-byte aligned grid":
+        buf = torch.empty(grid.numel() + 2, device=cuda)
+        grid = buf[2:].view(grid.shape).copy_(grid)
+        assert grid.data_ptr() % 16 == 8
+    before = getattr(ecu, counter)
+    got = entry(img, grid, padding, True, y_window)
+    torch.cuda.synchronize()
+    assert getattr(ecu, counter) == before + 1
+    want = plain(img, grid, padding, True, y_window)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert bool(((got.float() - want.float()).abs() <= bf16_ulp(want)).all())
+    assert torch.equal(want, plain(img, grid, padding, True, None)
+                       if kernel == "tree" else
+                       plain(img, grid, padding, True, shape[2]))
+    assert torch.equal(got, warp_cuda.warp_bilinear_cuda(img, grid, padding,
+                                                         True))
