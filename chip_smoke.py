@@ -24,8 +24,10 @@ keypoints_tpu_torch.eval``) of celeba128, pose256 and transporter_atari
                 both variants, both align_corners, T in {1.0, 0.7}
    4. kernels   the training slice's kernels against their plain versions:
                 soft-argmax backward (both variants), Gaussian raster
-                forward and backward, bilinear warp (f32 and bf16, zeros and
-                border, both align_corners, b128 3x128^2 and a ragged case)
+                forward and backward (celeba128's, pose256's and
+                transporter_atari's shapes, ragged ones; the backward twice,
+                equal bits), bilinear warp (f32 and bf16, zeros and border,
+                both align_corners, b128 3x128^2 and a ragged case)
    5. parity    full-width KeyNet in float32 (TF32 off) against the JAX
                 keypoints committed in tests/data/torch_port_celeba128_extract.json
    6. serve     ``make_server`` (celeba128, bf16, buckets 1 8 64 256) on a free
@@ -39,14 +41,18 @@ keypoints_tpu_torch.eval``) of celeba128, pose256 and transporter_atari
                 port's own draws: finite losses, float32 parameters, launch
                 counts of the run
    9. times     CUDA-event medians: each kernel at the main paths' shapes
-                against its plain version (and F.grid_sample for the warp),
-                with its bound; extract images/s; train ms/step, frames/s
+                against its plain version (and F.grid_sample for the dense
+                warp), with its bound, the field warp at 3x128^2; extract
+                images/s; train ms/step, frames/s
   10. profile   torch.profiler over the extract (b256, b1024, live n=1 and
                 n=8) and over 5 train steps: device time against wall time,
                 the ops that take the device time, each kernel's share
   11. kernels   the pose256 slice's kernels against their plain versions:
                 the field warp (f32 and bf16, zeros and border, b128
-                3x256^2 and ragged cases), the 2x2 max pool forward and
+                3x256^2 and 3x128^2 at the augmentations' fields, ragged
+                cases, F = 2 and F = 512, a zoom that overflows the staging
+                budget; bit for bit equal to upsample + K4, staged and with
+                direct gathers), the 2x2 max pool forward and
                 backward, bit-exact (f32 and bf16, smooth and tied inputs,
                 at the VGG pools' shapes); the soft-argmax and raster
                 kernels, forward and backward, at N = 2,048, sigma 0.05
@@ -57,9 +63,10 @@ keypoints_tpu_torch.eval``) of celeba128, pose256 and transporter_atari
                 own draws: finite losses, float32 parameters, launch counts
                 of the run, peak device memory
   14. times     the field warp and the pool against bound, plain and
-                library; the field warp against upsample + dense warp at
-                256^2 and 128^2; the bottleneck kernels at N = 2,048; the
-                perceptual loss alone; train ms/step and frames/s
+                library; the field warp's two designs (staged, direct
+                gathers) against upsample + dense warp at 256^2 and 128^2;
+                the bottleneck kernels at N = 2,048; the perceptual loss
+                alone; train ms/step and frames/s
   15. profile   torch.profiler over 2 pose256 train steps: idle share, ops,
                 each kernel's share
   16. kernel    the fused bottleneck (K3) against its plain version and its
@@ -75,7 +82,8 @@ keypoints_tpu_torch.eval``) of celeba128, pose256 and transporter_atari
                 scripted-Pong pairs drawn on the card, joint then marginal:
                 finite, falling losses, float32 parameters, launches per step
   19. times     K3 against K1 + K2 back to back, the plain version and the
-                bound at the three shapes, both variants; the transporter
+                bound at the three shapes, both variants; K2 alone at N =
+                256 16^2 and its launch floor at N = 1, 1x1; the transporter
                 step's ms/step and pairs/s per variant; torch.profiler over
                 its steps: idle share, ops, each kernel's share
   20. kernels   the banded warps K7 and K8 against their plain versions
@@ -106,6 +114,10 @@ keypoints_tpu_torch.eval``) of celeba128, pose256 and transporter_atari
      train      heatmaps), b32, bf16, 5 steps per variant (joint: K3;
                 marginal: K1 then K2): finite losses, float32 parameters,
                 exact launches per step
+  25. route     celeba128's b128 bf16 step with its field warps through K5
+     A/B        and through upsample + K4, in turns (new, old, old, new);
+                make_pair alone both ways, the two pairs equal; the dense
+                route (make_pair of 32^2 images) counted: K4's launches
 
 Run from a checkout:  python3 chip_smoke.py
 The card's ``nvidia-smi`` line, then a JSON object of the kernels
@@ -222,9 +234,9 @@ KERNELS = {
     "gaussian_bwd": (gcu, "bwd_launches", "gaussian.cu",
                      "gaussian_pallas.py:40", (1, 1, 1, 1)),
     "warp_bilinear": (wcu, "launches", "warp.cu", "warp_pallas.py:93",
-                      (2, 0, 0, 0)),
+                      (0, 0, 0, 0)),
     "warp_field": (wcu, "field_launches", "warp.cu", "warp_pallas.py:237",
-                   (0, 2, 0, 0)),
+                   (2, 2, 0, 0)),
     "max_pool_fwd": (pcu, "launches", "pool.cu", "pool_pallas.py:92",
                      (0, 4, 0, 0)),
     "max_pool_bwd": (pcu, "bwd_launches", "pool.cu", "pool_pallas.py:102",
@@ -238,6 +250,10 @@ KERNELS = {
 }
 PATHS = ("celeba128", "pose256", "transporter_atari joint",
          "transporter_atari marginal")
+# the Gaussian raster's shapes (N, H, W, sigma): celeba128's, pose256's and
+# transporter_atari's train steps, then ragged ones
+RASTER_CASES = [(1280, 32, 32, 0.1), (2048, 32, 32, 0.05), (256, 16, 16, 0.1),
+                (6, 13, 29, 0.1), (1, 13, 29, 0.1)]
 
 
 class SmokeFailure(Exception):
@@ -392,30 +408,37 @@ def training_kernels_phase() -> dict:
           f"{errs['spatial_softmax_bwd']:.3e} (tolerance {GRAD_TOL})",
           flush=True)
 
-    # Gaussian raster forward and backward (K2)
-    for n, h, w in [(1280, 32, 32), (6, 13, 29)]:
+    # Gaussian raster forward and backward (K2): celeba128's, pose256's and
+    # transporter_atari's rasters, ragged ones (W % 4 != 0, N = 1); the
+    # backward twice, for equal bits
+    for n, h, w, sigma in RASTER_CASES:
         kp = torch.from_numpy((rs.rand(n, 2) * 2.2 - 1.1).astype(np.float32))
         kp = kp.cuda()
         g = torch.from_numpy(rs.randn(n, h, w).astype(np.float32)).cuda()
         for align in (True, False):
-            maps = gcu.gaussian_fwd_cuda(kp, h, w, 0.1, align)
-            dkp = gcu.gaussian_bwd_cuda(kp, g, 0.1, align)
+            maps = gcu.gaussian_fwd_cuda(kp, h, w, sigma, align)
+            dkp = gcu.gaussian_bwd_cuda(kp, g, sigma, align)
+            again = gcu.gaussian_bwd_cuda(kp, g, sigma, align)
             torch.cuda.synchronize()
+            what = f"N={n} {h}x{w} sigma {sigma} align={align}"
+            check(torch.equal(dkp, again), f"gaussian_bwd {what}: two calls "
+                  f"differ")
 
             def plain(t):
-                return plain_gaussian(t[None], h, w, 0.1, align)[0]
+                return plain_gaussian(t[None], h, w, sigma, align)[0]
             record("gaussian_fwd", (maps - plain(kp)).abs().max().item(),
-                   GRAD_TOL, f"N={n} {h}x{w} align={align}")
+                   GRAD_TOL, what)
             want = _plain_grad(plain, kp, g)
             err = (dkp - want).abs().max().item()
             errs["gaussian_bwd"] = max(errs.get("gaussian_bwd", 0.0), err)
             scale = want.abs().max().item()
             check(err <= RASTER_GRAD_RTOL * scale,
-                  f"gaussian_bwd N={n} {h}x{w} align={align}: {err} > "
-                  f"{RASTER_GRAD_RTOL} x {scale}")
-    print(f"Gaussian raster: forward max|d| {errs['gaussian_fwd']:.3e} "
-          f"(tolerance {GRAD_TOL}), backward max|d| {errs['gaussian_bwd']:.3e}"
-          f" (tolerance {RASTER_GRAD_RTOL} of the gradient's max)", flush=True)
+                  f"gaussian_bwd {what}: {err} > {RASTER_GRAD_RTOL} x {scale}")
+    print(f"Gaussian raster: {2 * len(RASTER_CASES)} cases, forward max|d| "
+          f"{errs['gaussian_fwd']:.3e} (tolerance {GRAD_TOL}), backward max|d|"
+          f" {errs['gaussian_bwd']:.3e} (tolerance {RASTER_GRAD_RTOL} of the "
+          f"gradient's max), two backward calls equal bit for bit",
+          flush=True)
 
     # bilinear warp (K4)
     for shape, out_hw in [((TRAIN_BATCH, 3, 128, 128), (128, 128)),
@@ -765,12 +788,8 @@ def _bottleneck_cases(b: int, k: int, sigma: float, seed: int) -> dict:
     x = x.cuda()
     kp = ssc.spatial_softmax_cuda(x)
     g_kp = torch.from_numpy(rs.randn(b, k, 2).astype(np.float32)).cuda()
-    g_maps = torch.from_numpy(rs.randn(n, 32, 32).astype(np.float32)).cuda()
-    kp_flat = kp.reshape(n, 2)
     x_req = x.clone().requires_grad_(True)
     kp_plain = plain_softmax(x_req)
-    kp_req = kp.clone().requires_grad_(True)
-    maps_plain = plain_gaussian(kp_req, 32, 32, sigma, True)
     heat_bytes = n * hw * 4
     return {
         "spatial_softmax_fwd": (
@@ -782,17 +801,29 @@ def _bottleneck_cases(b: int, k: int, sigma: float, seed: int) -> dict:
             lambda: torch.autograd.grad(kp_plain, x_req, g_kp,
                                         retain_graph=True), None,
             _bound(2 * heat_bytes + 2 * n * 8, 4 * n * hw)),
+        **_raster_cases(n, 32, 32, sigma, seed)}
+
+
+def _raster_cases(n: int, h: int, w: int, sigma: float, seed: int) -> dict:
+    """The raster kernels (K2) alone at N maps of h x w: name -> (kernel
+    call, plain call, library call or None, bound), as _bottleneck_cases."""
+    rs = np.random.RandomState(seed)
+    kp = torch.from_numpy((rs.rand(n, 2) * 2.2 - 1.1).astype(np.float32))
+    kp = kp.cuda()
+    g = torch.from_numpy(rs.randn(n, h, w).astype(np.float32)).cuda()
+    kp_req = kp.clone().requires_grad_(True)
+    maps_plain = plain_gaussian(kp_req[None], h, w, sigma, True)
+    heat_bytes = n * h * w * 4
+    return {
         "gaussian_fwd": (
-            lambda: gcu.gaussian_fwd_cuda(kp_flat, 32, 32, sigma),
-            lambda: plain_gaussian(kp, 32, 32, sigma, True), None,
-            _bound(heat_bytes + n * 8, 10 * n * hw)),
+            lambda: gcu.gaussian_fwd_cuda(kp, h, w, sigma),
+            lambda: plain_gaussian(kp[None], h, w, sigma, True), None,
+            _bound(heat_bytes + n * 8, 10 * n * h * w)),
         "gaussian_bwd": (
-            lambda: gcu.gaussian_bwd_cuda(kp_flat, g_maps, sigma),
-            lambda: torch.autograd.grad(maps_plain, kp_req,
-                                        g_maps.reshape(b, k, 32, 32),
+            lambda: gcu.gaussian_bwd_cuda(kp, g, sigma),
+            lambda: torch.autograd.grad(maps_plain, kp_req, g[None],
                                         retain_graph=True), None,
-            _bound(heat_bytes + 2 * n * 8, 14 * n * hw)),
-    }
+            _bound(heat_bytes + 2 * n * 8, 14 * n * h * w))}
 
 
 def _time_cases(cases: dict, card: str, reps: int = 20,
@@ -818,9 +849,10 @@ def _time_cases(cases: dict, card: str, reps: int = 20,
 
 def kernel_times_phase(card: str, trainer) -> dict:
     """Each kernel at the train step's shapes (b128, K=10, 32^2 heatmaps,
-    3x128^2 bf16 images): device time by CUDA events with the calls queued
-    behind a sleep (inputs L2-warm), the plain version's time, the library
-    call's where there is one, and the bound."""
+    3x128^2 bf16 images, the field warp at the augmentation's F = 33 field,
+    K4 at the same field upsampled): device time by CUDA events with the
+    calls queued behind a sleep (inputs L2-warm), the plain version's time,
+    the library call's where there is one, and the bound."""
     phase(f"9 times on {card}")
     cfg, *_ = trainer
     b = TRAIN_BATCH
@@ -829,7 +861,7 @@ def kernel_times_phase(card: str, trainer) -> dict:
     img = torch.from_numpy(rs.rand(b, 3, 128, 128).astype(np.float32)).cuda()
     img = img.to(torch.bfloat16)
     field = random_warp_field(step_generator(0, 0, "cuda"), b,
-                              warp_config(cfg))
+                              warp_config(cfg)).contiguous()
     grid = upsample_field_aligned(field, 128, 128).contiguous()
     grid_bf16 = grid.to(torch.bfloat16)
     cases["warp_bilinear"] = (
@@ -838,6 +870,13 @@ def kernel_times_phase(card: str, trainer) -> dict:
         lambda: F.grid_sample(img, grid_bf16, "bilinear", "border", True),
         _bound(2 * img.nelement() * img.element_size()
                + grid.nelement() * 4, 30 * b * 128 * 128
+               + 8 * img.nelement()))
+    cases["warp_field"] = (
+        lambda: wcu.warp_field_cuda(img, field, 128, 128, "border", True),
+        lambda: plain_warp(img, upsample_field_aligned(field, 128, 128),
+                           "border", True), None,
+        _bound(2 * img.nelement() * img.element_size()
+               + field.nelement() * 4, 50 * b * 128 * 128
                + 8 * img.nelement()))
     out = _time_cases(cases, card)
     print("warp library call: F.grid_sample on the bf16 image takes only a "
@@ -1033,14 +1072,15 @@ def profile_phase(card: str, trainer, step_ms: float) -> None:
               "soft-argmax bwd": ("marginal_bwd",),
               "raster fwd": ("gaussian_fwd",),
               "raster bwd": ("gaussian_bwd",),
-              "warp": ("warp_bilinear",)})
+              "field warp": ("warp_field",)})
 
 
 def pose_kernels_phase() -> dict:
     """The pose256 slice's kernels against their plain versions: the field
-    warp at the augmentation's shape and at ragged ones, the max pool
-    forward and backward at the VGG pools' shapes, bit for bit; the
-    soft-argmax and raster kernels at the path's 2,048 heatmaps."""
+    warp at both augmentations' shapes and at ragged ones (and against
+    upsample + K4 bit for bit), the max pool forward and backward at the
+    VGG pools' shapes, bit for bit; the soft-argmax and raster kernels at
+    the path's 2,048 heatmaps."""
     phase("11 pose256-slice kernels vs plain")
     gen = torch.Generator(device="cuda").manual_seed(11)
     errs = {"warp_field": 0.0, "max_pool_fwd": 0.0, "max_pool_bwd": 0.0}
@@ -1048,44 +1088,68 @@ def pose_kernels_phase() -> dict:
     def uniform(*shape, lo=-1.2, hi=1.2):
         return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
 
-    # field warp (K5): the augmentation's fields, then fields spanning
-    # [-1.2, 1.2] (points outside the image) at ragged shapes, F above and
-    # below the output size
-    aug_field = random_warp_field(step_generator(0, 1, "cuda"), TRAIN_BATCH,
-                                  warp_config(get_config("pose256")))
-    aug_field = aug_field.contiguous()
-    cases = [((TRAIN_BATCH, 3, 256, 256), aug_field, (256, 256)),
+    # field warp (K5): the augmentations' fields (pose256's, celeba128's),
+    # then fields spanning [-1.2, 1.2] (points outside the image) at ragged
+    # shapes, F above and below the output size, Ho != H, odd Wo, F = 2 and
+    # F at its limit, and a strong zoom with shear whose tiles overflow the
+    # staging budget; against the plain version, and bit for bit against
+    # upsample + the dense-grid kernel (K4), staged (the default) and with
+    # direct gathers (stage_bytes=0)
+    def augment_field(preset, size):
+        field = random_warp_field(step_generator(0, 1, "cuda"), TRAIN_BATCH,
+                                  warp_config(get_config(preset)))
+        return ((TRAIN_BATCH, 3, size, size), field.contiguous(), (size, size))
+
+    def zoom_shear(b, f):
+        axis = torch.linspace(-1, 1, f, device="cuda")
+        y, x = torch.meshgrid(axis, axis, indexing="ij")
+        return torch.stack([4 * x + 1.5 * y, 4 * y], -1).expand(
+            b, f, f, 2).contiguous()
+    cases = [augment_field("pose256", 256), augment_field("celeba128", 128),
              ((2, 3, 45, 61), uniform(2, 9, 9, 2), (37, 53)),
-             ((3, 3, 20, 30), uniform(3, 33, 33, 2), (19, 23))]
-    n_cases = 0
+             ((3, 3, 20, 30), uniform(3, 33, 33, 2), (19, 23)),
+             ((2, 3, 64, 48), uniform(2, 33, 33, 2), (80, 36)),
+             ((2, 3, 64, 64), uniform(2, 33, 33, 2), (64, 63)),
+             ((2, 3, 40, 40), uniform(2, 2, 2, 2), (40, 40)),
+             ((1, 3, 40, 40), uniform(1, wcu.MAX_FIELD, wcu.MAX_FIELD, 2),
+              (50, 70)),
+             ((2, 3, 256, 256), zoom_shear(2, 33), (256, 256))]
+    n_cases = same = 0
     for shape, field, out_hw in cases:
         img32 = torch.rand(shape, generator=gen, device="cuda")
         for dtype in (torch.float32, torch.bfloat16):
             img = img32.to(dtype)
             for padding in ("zeros", "border"):
                 for align in (True, False):
-                    got = wcu.warp_field_cuda(img, field, *out_hw, padding,
-                                              align)
-                    torch.cuda.synchronize()
+                    k4 = wcu.warp_bilinear_cuda(img, upsample_field_aligned(
+                        field, *out_hw).contiguous(), padding, align)
                     want = plain_warp(img, upsample_field_aligned(
                         field, *out_hw), padding, align)
-                    what = (f"{shape} F={field.shape[1]} -> {out_hw} {dtype} "
-                            f"{padding} align={align}")
-                    check(got.dtype == dtype and got.shape == want.shape,
-                          f"warp_field {what}: {got.dtype} {got.shape}")
-                    diff = (got.float() - want.float()).abs()
-                    errs["warp_field"] = max(errs["warp_field"],
-                                             diff.max().item())
-                    if dtype == torch.float32:
-                        check(diff.max().item() <= FIELD_WARP_TOL,
-                              f"warp_field {what}: {diff.max().item()}")
-                    else:
-                        check(bool((diff <= bf16_ulp(want)).all()),
-                              f"warp_field {what}: more than one bf16 ulp")
-                    n_cases += 1
-    print(f"field warp: {n_cases} cases, max|d| {errs['warp_field']:.3e} "
-          f"(f32 tolerance {FIELD_WARP_TOL}, bf16 within one bf16 ulp of "
-          f"plain)", flush=True)
+                    for stage in (None, 0):
+                        got = wcu.warp_field_cuda(img, field, *out_hw,
+                                                  padding, align,
+                                                  stage_bytes=stage)
+                        torch.cuda.synchronize()
+                        what = (f"{shape} F={field.shape[1]} -> {out_hw} "
+                                f"{dtype} {padding} align={align} "
+                                f"stage_bytes={stage}")
+                        check(got.dtype == dtype and got.shape == want.shape,
+                              f"warp_field {what}: {got.dtype} {got.shape}")
+                        check(torch.equal(got, k4), f"warp_field {what}: "
+                              f"not upsample + K4 bit for bit")
+                        diff = (got.float() - want.float()).abs()
+                        errs["warp_field"] = max(errs["warp_field"],
+                                                 diff.max().item())
+                        if dtype == torch.float32:
+                            check(diff.max().item() <= FIELD_WARP_TOL,
+                                  f"warp_field {what}: {diff.max().item()}")
+                        else:
+                            check(bool((diff <= bf16_ulp(want)).all()),
+                                  f"warp_field {what}: more than one bf16 ulp")
+                        n_cases += 1
+    print(f"field warp: {n_cases} cases, each equal to upsample + K4 bit for "
+          f"bit; max|d| vs plain {errs['warp_field']:.3e} (f32 tolerance "
+          f"{FIELD_WARP_TOL}, bf16 within one bf16 ulp of plain)", flush=True)
 
     # max pool (K6), forward and backward: equal to the plain version and
     # to F.max_pool2d, on smooth values and on quantised values with ReLU
@@ -1175,7 +1239,9 @@ def pose_times_phase(card: str) -> dict:
         x_req = x.clone().requires_grad_(True)
         pool_inputs[label] = (x, g, x_req, plain_pool(x_req),
                               F.max_pool2d(x_req, 2, 2))
-    out = _time_cases(cases, card)
+    out = _time_cases(cases, card, label=" 3x256^2")
+    # the kernels' line reports the field warp at celeba128's 3x128^2 (phase 9)
+    del out["warp_field"]
     for label, (x, g, x_req, y_plain, y_lib) in pool_inputs.items():
         nx, ny = x.nelement() * 2, x.nelement() // 2
         pool = _time_cases({
@@ -1197,19 +1263,29 @@ def pose_times_phase(card: str) -> dict:
           "(max_pool2d_with_indices_backward); the kernels' line reports "
           "pool1, the larger call", flush=True)
 
-    # the field kernel against the path it replaces, upsample + dense warp
+    # the field kernel's two designs, in turns: tiles staged in shared
+    # memory (the kept one) and direct gathers (stage_bytes=0, the branch a
+    # tile over the budget takes), and the path it replaces, upsample +
+    # dense warp, at pose256's 3x256^2 and celeba128's 3x128^2
     for size in (256, 128):
+        cfg_s = get_config("pose256" if size == 256 else "celeba128")
+        fld = random_warp_field(step_generator(0, 3, "cuda"), b,
+                                warp_config(cfg_s)).contiguous()
         im = img if size == 256 else img[:, :, :128, :128].contiguous()
-        k5 = cuda_median_ms(lambda: wcu.warp_field_cuda(
-            im, field, size, size, "border", True), reps=20)
-        k4 = cuda_median_ms(lambda: wcu.warp_bilinear_cuda(
-            im, upsample_field_aligned(field, size, size), "border", True),
-            reps=20)
-        k5_again = cuda_median_ms(lambda: wcu.warp_field_cuda(
-            im, field, size, size, "border", True), reps=20)
-        print(f"field warp b{b} 3x{size}^2 bf16: field kernel "
-              f"{k5 * 1e3:.2f} us (again {k5_again * 1e3:.2f}), upsample + "
-              f"dense-grid kernel {k4 * 1e3:.2f} us  [{card}]", flush=True)
+        runs = {
+            "staged": lambda: wcu.warp_field_cuda(im, fld, size, size,
+                                                  "border", True),
+            "direct": lambda: wcu.warp_field_cuda(im, fld, size, size,
+                                                  "border", True,
+                                                  stage_bytes=0),
+            "upsample + K4": lambda: wcu.warp_bilinear_cuda(
+                im, upsample_field_aligned(fld, size, size), "border", True)}
+        order = ("staged", "direct", "upsample + K4", "direct", "staged")
+        t = [cuda_median_ms(runs[name], reps=20) for name in order]
+        print(f"field warp b{b} 3x{size}^2 bf16 ({cfg_s.name}'s field), us: "
+              f"staged {t[0] * 1e3:.2f} / {t[4] * 1e3:.2f}, direct gathers "
+              f"{t[1] * 1e3:.2f} / {t[3] * 1e3:.2f}, upsample + dense-grid "
+              f"kernel {t[2] * 1e3:.2f}  [{card}]", flush=True)
 
     _time_cases(_bottleneck_cases(b, cfg.model.num_keypoints,
                                   cfg.model.sigma, 5), card,
@@ -1453,8 +1529,9 @@ def _fused_cases(shape, out_hw, sigma: float, variant: str, seed: int):
 def transporter_times_phase(card: str, trainers: dict) -> dict:
     """K3 at the three bottleneck shapes, both variants: device time
     (calls queued behind a sleep, inputs L2-warm) against K1 + K2 back to
-    back, the plain version and the byte bound; then each variant's train
-    step and a torch.profiler breakdown of it."""
+    back, the plain version and the byte bound; K2 alone at N = 256 16^2
+    and its launch floor at N = 1, 1x1; then each variant's train step and
+    a torch.profiler breakdown of it."""
     phase(f"19 transporter times on {card}")
     out = {}
     for label in ("atari b64", "celeba128 b128", "pose256 b128"):
@@ -1472,6 +1549,16 @@ def transporter_times_phase(card: str, trainers: dict) -> dict:
                   f"[{card}]", flush=True)
             if label == "atari b64" and variant == "joint":
                 out.update(timed)         # the main path's shape and variant
+    # the raster alone at transporter_atari's shape (the joint step's
+    # backward, the marginal step's forward and backward, the Pong ball),
+    # then at N = 1, 1x1: the launch floor
+    _time_cases(_raster_cases(256, 16, 16, 0.1, 19), card,
+                label=" N=256 16x16 sigma 0.1 (transporter_atari)")
+    floor = {name: cuda_median_ms(kernel, reps=20) for name, (kernel, *_)
+             in _raster_cases(1, 1, 1, 0.1, 19).items()}
+    print(f"launch floor (N = 1, 1x1): gaussian_fwd "
+          f"{floor['gaussian_fwd'] * 1e3:.2f} us, gaussian_bwd "
+          f"{floor['gaussian_bwd'] * 1e3:.2f} us  [{card}]", flush=True)
     profiled = {"fused bottleneck": ("fused_fwd",),
                 "soft-argmax fwd": ("joint_fwd", "marginal_fwd"),
                 "soft-argmax bwd": ("joint_bwd", "marginal_bwd"),
@@ -1678,7 +1765,7 @@ EVAL_RECORD_KEYS = {"preset", "step", "metrics", "source", "held_out", "rows",
 # (celeba128's warps, pose256's field warps, the Pong frames' raster), the
 # bottleneck, pose256's VGG pools on the reconstruction and the target
 EVAL_CASES = {
-    "celeba128": ([], {"warp_bilinear": 2, "spatial_softmax_fwd": 1,
+    "celeba128": ([], {"warp_field": 2, "spatial_softmax_fwd": 1,
                        "gaussian_fwd": 1}),
     "pose256": ([], {"warp_field": 2, "spatial_softmax_fwd": 1,
                      "gaussian_fwd": 1, "max_pool_fwd": 4}),
@@ -1800,9 +1887,9 @@ WIDE_STEPS = 5
 # launches a step of WIDE_TRAIN, by variant
 WIDE_PER_STEP = {
     "joint": {"softargmax_raster_fwd": 1, "spatial_softmax_bwd": 1,
-              "gaussian_bwd": 1, "warp_bilinear": 2},
+              "gaussian_bwd": 1, "warp_field": 2},
     "marginal": {"spatial_softmax_fwd": 1, "spatial_softmax_bwd": 1,
-                 "gaussian_fwd": 1, "gaussian_bwd": 1, "warp_bilinear": 2},
+                 "gaussian_fwd": 1, "gaussian_bwd": 1, "warp_field": 2},
 }
 
 
@@ -1989,6 +2076,82 @@ def wide_train_phase(card: str) -> list:
     return path_counts
 
 
+def route_phase(card: str) -> list:
+    """celeba128's field warps by route: the b128 bf16 train step (a user's
+    ``make_train_step``) with them through the field kernel K5, the
+    package's route, and through upsample + the dense-grid kernel K4, the
+    JAX package's route at 128 wide (reproduced here, and only here, by
+    patching ``data.augment.warp_sample_field``), in turns new, old, old,
+    new; ``make_pair`` alone both ways, and both routes' pairs equal bit for
+    bit; then the route that still reaches K4, ``make_pair`` of 32^2 images
+    (F = 33 is not below 32, so the exact TPS grid), counted."""
+    phase(f"25 route A/B: celeba128's field warps through K5 or upsample + "
+          f"K4, b{TRAIN_BATCH} bf16, on {card}")
+    from keypoints_tpu_torch.data import augment
+    from keypoints_tpu_torch.data.augment import make_pair
+    from keypoints_tpu_torch.kernels import warp_sample
+    package_route = augment.warp_sample_field
+
+    def old_route(image, field, out_height, out_width, padding_mode="zeros",
+                  align_corners=True):
+        return warp_sample(image, upsample_field_aligned(
+            field.float(), out_height, out_width), padding_mode,
+            align_corners)
+
+    routes = {"K5": package_route, "upsample + K4": old_route}
+
+    def on(route, fn):
+        augment.warp_sample_field = routes[route]
+        try:
+            return fn()
+        finally:
+            augment.warp_sample_field = package_route
+
+    trainer = _train_setup("celeba128")
+    cfg = trainer[0]
+    wcfg = warp_config(cfg)
+    images = trainer[3].to(torch.bfloat16)
+    pairs = {route: on(route, lambda: make_pair(
+        step_generator(0, 25, "cuda"), images, wcfg)) for route in routes}
+    check(all(torch.equal(a, b) for a, b in zip(*pairs.values())),
+          "the two routes' pairs differ")
+    order = ("K5", "upsample + K4", "upsample + K4", "K5")
+    step_ms = {route: [] for route in routes}
+    pair_ms = {route: [] for route in routes}
+    for route in order:
+        step_ms[route].append(on(route, lambda: train_step_times(
+            card, trainer, steps=20, label=f"celeba128, field warps through "
+            f"{route},")))
+    for route in order:
+        pair_ms[route].append(on(route, lambda: cuda_median_ms(
+            lambda: make_pair(step_generator(0, 25, "cuda"), images, wcfg),
+            runs=20, queue_behind_sleep=False)))
+    print(f"route A/B, ms (new, old, old, new): train step K5 "
+          f"{step_ms['K5'][0]:.3f} / {step_ms['K5'][1]:.3f}, upsample + K4 "
+          f"{step_ms['upsample + K4'][0]:.3f} / "
+          f"{step_ms['upsample + K4'][1]:.3f}; make_pair b{TRAIN_BATCH} "
+          f"3x128^2 bf16 K5 {pair_ms['K5'][0]:.4f} / {pair_ms['K5'][1]:.4f}, "
+          f"upsample + K4 {pair_ms['upsample + K4'][0]:.4f} / "
+          f"{pair_ms['upsample + K4'][1]:.4f}  [{card}]", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+
+    small = torch.rand((TRAIN_BATCH, 3, 32, 32), device="cuda",
+                       dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    reset_counts()
+    make_pair(step_generator(0, 26, "cuda"), small, wcfg)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"make_pair b{TRAIN_BATCH} 3x32^2 (the dense TPS grid): launches "
+          f"{counts}", flush=True)
+    for name in KERNELS:
+        want = 2 if name == "warp_bilinear" else 0
+        check(counts[name] == want, f"{name} launched {counts[name]} times by "
+              f"the dense route ({want} expected)")
+    return [counts]
+
+
 def main() -> int:
     card = device_phase()
     build_phase()
@@ -2042,6 +2205,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     wide_kernels_phase(card)
     path_counts.extend(wide_train_phase(card))
+    path_counts.extend(route_phase(card))
 
     errs["spatial_softmax_fwd"] = max(errs["spatial_softmax_fwd"],
                                       served["serve_max_abs_err"])

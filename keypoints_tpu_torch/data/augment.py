@@ -10,9 +10,11 @@ device, each followed by per-example color jitter:
 * the backward sampling grid is evaluated (a coarse ``field_res`` field
   when ``field_res`` is below the image size, else the exact dense TPS)
   and the image is bilinearly sampled at it with border padding: the field
-  through ``kernels.warp_sample_field`` (on CUDA the field kernel above
-  128 wide, else the upsample and the dense-grid kernel), the dense grid
-  through ``kernels.warp_sample``,
+  through ``kernels.warp_sample_field`` (on CUDA the field kernel K5 at
+  every size; the JAX package sends warps at most 128 wide to the upsample
+  and its dense warp, a rule timed on a TPU that the H100's timings
+  overturn: ``warp_sample_field``'s docstring), the dense grid through
+  ``kernels.warp_sample``,
 * then ``ops.color`` jitter.
 
 Every random function is split in two: a draw step that takes a

@@ -32,12 +32,6 @@ from keypoints_tpu_torch.ops.spatial_softmax import spatial_softmax as _plain
 from keypoints_tpu_torch.ops.warp import grid_sample as _plain_grid_sample
 from keypoints_tpu_torch.ops.warp import upsample_field_aligned
 
-# ``warp_sample_field`` on CUDA takes the field kernel (K5) above this output
-# width and the upsample + dense-grid kernel (K4) at or below it, which keeps
-# celeba128's 128-wide warps on K4 (the JAX package's TPU threshold, not yet
-# chosen by H100 timings)
-_FIELD_KERNEL_MIN_WIDTH = 128
-
 
 def _on_cuda(t: torch.Tensor, what: str) -> bool:
     if t.device.type == "cuda":
@@ -96,17 +90,23 @@ def warp_sample_field(image: torch.Tensor, field: torch.Tensor,
     """Warp from a coarse (B, F, F, 2) field (data path, no gradient):
     ``upsample_field_aligned(field, Ho, Wo)`` then the bilinear sample.
 
-    On CUDA the field kernel when ``out_width`` exceeds 128 (the dense grid
-    never exists), else the upsample and the dense-grid kernel; on the CPU
-    the upsample and ``ops.warp.grid_sample``. Output in the image's dtype.
+    On CUDA the field kernel (K5) at every output size: the dense grid never
+    exists, and the result equals the upsample then the dense-grid kernel
+    bit for bit. On the CPU the upsample and ``ops.warp.grid_sample``.
+    Output in the image's dtype. The JAX package sends warps at most 128
+    wide to the upsample and its dense warp instead
+    (``keypoints_tpu/kernels/__init__.py``), a rule timed on a TPU, where
+    XLA overlapped the upsample with the sibling warp; here the eager
+    upsample runs alone on the stream, and at celeba128's b128 3×128² it
+    and K4 take ~14× K5's time on the H100 (PERF.md).
     """
     ho, wo = int(out_height), int(out_width)
     field = field.float()
-    if _on_cuda(image, "warp") and wo > _FIELD_KERNEL_MIN_WIDTH:
+    if _on_cuda(image, "warp"):
         return warp_cuda.warp_field_cuda(image.contiguous(), field.contiguous(),
                                          ho, wo, padding_mode, align_corners)
-    return warp_sample(image, upsample_field_aligned(field, ho, wo),
-                       padding_mode, align_corners)
+    return _plain_grid_sample(image, upsample_field_aligned(field, ho, wo),
+                              padding_mode, align_corners)
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:

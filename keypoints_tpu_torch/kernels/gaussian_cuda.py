@@ -25,11 +25,23 @@ launches = 0
 bwd_launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+MAX_TABLE = 227 * 1024 // 4   # floats of a block's coordinate tables
 
 
 def check_sigma(sigma: float) -> None:
     if not sigma > 0:
         raise ValueError(f"sigma must be positive, got {sigma}")
+
+
+def check_size(n: int, height: int, width: int, table: int,
+               what: str) -> None:
+    """The kernels' limits: N*H*W < 2**31, and a block's coordinate
+    tables in shared memory (``table`` floats: W + 768 forward, W + H
+    backward) within 227 KB."""
+    if n * height * width >= 2 ** 31 or table > MAX_TABLE:
+        raise ValueError(f"{what} takes N*H*W < 2**31 and coordinate "
+                         f"tables of at most {MAX_TABLE} floats, got N={n}, "
+                         f"{height}x{width}")
 
 
 def gaussian_fwd_cuda(keypoints: torch.Tensor, height: int, width: int,
@@ -45,6 +57,7 @@ def gaussian_fwd_cuda(keypoints: torch.Tensor, height: int, width: int,
                          f"{height}x{width}")
     check_sigma(sigma)
     n = keypoints.shape[0]
+    check_size(n, height, width, width + 768, "gaussian_fwd_cuda")
     out = torch.empty((n, height, width), dtype=torch.float32,
                       device=keypoints.device)
     if n == 0:
@@ -75,6 +88,7 @@ def gaussian_bwd_cuda(keypoints: torch.Tensor, grad: torch.Tensor,
                          f"{grad.device}, got {tuple(keypoints.shape)} on "
                          f"{keypoints.device}")
     check_sigma(sigma)
+    check_size(n, h, w, w + h, "gaussian_bwd_cuda")
     out = torch.empty((n, 2), dtype=torch.float32, device=grad.device)
     if n == 0:
         return out

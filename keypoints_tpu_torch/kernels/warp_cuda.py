@@ -41,7 +41,12 @@ from keypoints_tpu_torch.kernels import _build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PADDING = {"zeros": 0, "border": 1}
 
-MAX_FIELD = 78     # the field of one image sits in 48 KB of shared memory
+MAX_FIELD = 512    # a tile's field rows lerped along H: <= 128 KB of shared memory
+#: shared memory a field-warp tile's source footprint may be staged in, by
+#: image dtype (the faster budget of those timed on an H100, PERF.md); a
+#: larger footprint gathers from device memory
+STAGE_BYTES = {torch.float32: 48 * 1024, torch.bfloat16: 32 * 1024}
+MAX_STAGE_BYTES = 96 * 1024
 
 #: dense-grid kernel launches so far; the wrapper adds one per launch and
 #: nowhere else
@@ -96,15 +101,19 @@ def warp_bilinear_cuda(image: torch.Tensor, grid: torch.Tensor,
 def warp_field_cuda(image: torch.Tensor, field: torch.Tensor,
                     out_height: int, out_width: int,
                     padding_mode: str = "zeros",
-                    align_corners: bool = DEFAULT_ALIGN_CORNERS
-                    ) -> torch.Tensor:
+                    align_corners: bool = DEFAULT_ALIGN_CORNERS,
+                    stage_bytes: int | None = None) -> torch.Tensor:
     """Sample ``image`` (B, C, H, W) at ``upsample_field_aligned(field,
     out_height, out_width)`` for a coarse ``field`` (B, F, F, 2 as (x, y))
     → (B, C, Ho, Wo) in the image's dtype.
 
     Both tensors contiguous on one CUDA device; image f32 or bf16, field
-    f32 with 2 <= F <= ``MAX_FIELD``. Launches on the current stream and
-    does not synchronise.
+    f32 with 2 <= F <= ``MAX_FIELD``. ``stage_bytes`` (0 to
+    ``MAX_STAGE_BYTES``; default ``STAGE_BYTES`` of the image's dtype)
+    bounds the shared memory a tile's source footprint may be staged in; a
+    tile whose footprint is larger, and every tile at 0, gathers from
+    device memory instead, with the same result. Launches on the current
+    stream and does not synchronise.
     """
     global field_launches
     _build.require(image, "warp_field_cuda image", tuple(DTYPES), 4)
@@ -122,15 +131,21 @@ def warp_field_cuda(image: torch.Tensor, field: torch.Tensor,
     if h * w >= 2 ** 31 or ho * wo >= 2 ** 31 or b > 65535:
         raise ValueError(f"warp_field_cuda takes H*W, Ho*Wo < 2**31 and "
                          f"B <= 65535, got {b}x{h}x{w} -> {ho}x{wo}")
+    if stage_bytes is None:
+        stage_bytes = STAGE_BYTES[image.dtype]
+    if not 0 <= stage_bytes <= MAX_STAGE_BYTES:
+        raise ValueError(f"warp_field_cuda takes 0 <= stage_bytes <= "
+                         f"{MAX_STAGE_BYTES}, got {stage_bytes}")
     out = torch.empty((b, c, ho, wo), dtype=image.dtype, device=image.device)
     if out.numel() == 0:
         return out
     fn = _build.entry("kp_warp_field", _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                      _I, _P, _P, _P, _P)
+                      _I, _I, _P, _P, _P, _P)
     _build.launch(fn, image, f"warp_field ({b}x{c}x{h}x{w}, F={f} -> "
                   f"{ho}x{wo})", DTYPES[image.dtype], PADDING[padding_mode],
                   int(bool(align_corners)), b, c, h, w, f, ho, wo,
-                  image.data_ptr(), field.data_ptr(), out.data_ptr())
+                  int(stage_bytes), image.data_ptr(), field.data_ptr(),
+                  out.data_ptr())
     with _build.lock:
         field_launches += 1
     return out

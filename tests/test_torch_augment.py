@@ -170,11 +170,11 @@ def test_color_jitter_with_jax_factors_matches_jax(channels):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
-@pytest.mark.parametrize("size", [32, 64, 256],
-                         ids=["32-dense", "64-field", "256-field"])
+@pytest.mark.parametrize("size", [32, 64, 256, 128],
+                         ids=["32-dense", "64-field", "256-field", "128-field"])
 def test_pair_from_jax_draws_matches_jax_make_pair_f32(size):
-    """256²: pose256's pair, whose warps go through ``warp_sample_field``
-    (on CUDA the field kernel)."""
+    """256² and 128²: pose256's and celeba128's pairs, whose warps go
+    through ``warp_sample_field`` (on CUDA the field kernel at both)."""
     img = _images(2, size, seed=6)
     key = jax.random.PRNGKey(6)
     src_j, tgt_j = jaug.make_pair(key, jnp.asarray(img), CFG)

@@ -210,29 +210,42 @@ def test_dispatcher_keypoints_carry_the_kernel_gradient(cuda, variant):
 
 # --- Gaussian raster (K2) -------------------------------------------------------
 
+# sigma by shape: pose256's 16 keypoints at 0.05, the others at 0.1
+RASTER_SIGMA = {(128, 16, 32, 32): 0.05}
+
+
 @pytest.mark.parametrize("align", [True, False])
-@pytest.mark.parametrize("shape", [(128, 10, 32, 32), (2, 3, 13, 29)],
+@pytest.mark.parametrize("shape", [(128, 10, 32, 32), (2, 3, 13, 29),
+                                   (128, 16, 32, 32), (64, 4, 16, 16),
+                                   (1, 1, 13, 29)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_gaussian_forward_and_backward_match_plain(cuda, shape, align):
+    """celeba128's, pose256's and transporter_atari's rasters and ragged
+    ones (W % 4 != 0, N = 1): forward and backward against the plain
+    version through the dispatcher; the backward kernel twice, equal bits."""
     b, k, h, w = shape
+    sigma = RASTER_SIGMA.get(shape, 0.1)
     rs = np.random.RandomState(6)
     kp = torch.from_numpy((rs.rand(b, k, 2) * 2.2 - 1.1).astype(
         np.float32)).to(cuda)
     g = torch.from_numpy(rs.randn(b, k, h, w).astype(np.float32)).to(cuda)
     fwd, bwd = gc.launches, gc.bwd_launches
     x = kp.clone().requires_grad_(True)
-    maps = gaussian_maps(x, h, w, 0.1, align)
+    maps = gaussian_maps(x, h, w, sigma, align)
     assert maps.grad_fn is not None
     (maps * g).sum().backward()
     torch.cuda.synchronize()
     assert (gc.launches, gc.bwd_launches) == (fwd + 1, bwd + 1)
     ref = kp.clone().requires_grad_(True)
-    want = plain_gaussian(ref, h, w, 0.1, align)
+    want = plain_gaussian(ref, h, w, sigma, align)
     (want * g).sum().backward()
     assert (maps - want).abs().max().item() <= 1e-5
     # the sums over H*W run in another order: 1e-4 of the gradient's scale
     scale = ref.grad.abs().max().item()
     assert (x.grad - ref.grad).abs().max().item() <= 1e-4 * scale
+    flat, gflat = kp.reshape(-1, 2), g.reshape(-1, h, w)
+    assert torch.equal(gc.gaussian_bwd_cuda(flat, gflat, sigma, align),
+                       gc.gaussian_bwd_cuda(flat, gflat, sigma, align))
 
 
 # --- bilinear warp (K4) ----------------------------------------------------------
@@ -331,50 +344,78 @@ def test_backward_through_forward_reaches_every_parameter(cuda):
 
 # --- field warp (K5) ---------------------------------------------------------------
 
+def _zoom_shear(b, f, device):
+    """A strong zoom with shear: each tile's source footprint is several
+    times the tile, over the staging budget."""
+    axis = torch.linspace(-1, 1, f, device=device)
+    y, x = torch.meshgrid(axis, axis, indexing="ij")
+    return torch.stack([4 * x + 1.5 * y, 4 * y], -1).expand(
+        b, f, f, 2).contiguous()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("align", [True, False])
 @pytest.mark.parametrize("padding", ["zeros", "border"])
 @pytest.mark.parametrize("case", [((16, 3, 256, 256), 33, (256, 256)),
                                   ((2, 3, 45, 61), 9, (37, 53)),
-                                  ((3, 3, 20, 30), 33, (19, 23))],
-                         ids=["b16-256", "ragged-F9", "ragged-F33"])
+                                  ((3, 3, 20, 30), 33, (19, 23)),
+                                  ((128, 3, 128, 128), 33, (128, 128)),
+                                  ((2, 3, 64, 48), 33, (80, 36)),
+                                  ((2, 3, 64, 64), 33, (64, 63)),
+                                  ((2, 3, 40, 40), 2, (40, 40)),
+                                  ((1, 3, 40, 40), warp_cuda.MAX_FIELD,
+                                   (50, 70)),
+                                  ((2, 3, 256, 256), "zoom", (256, 256))],
+                         ids=["b16-256", "ragged-F9", "ragged-F33", "b128-128",
+                              "Ho-not-H", "Wo-odd", "F2", "F-max",
+                              "zoom-shear"])
 def test_field_warp_matches_upsample_and_plain_warp(cuda, case, padding,
                                                      align, dtype):
-    """The field kernel against ``upsample_field_aligned`` + the plain warp:
-    f32 within 1e-4 (JAX's bar for its field kernel; the upsample is
-    rebuilt to the bit, so only the corner sum's order differs), bf16
-    within one bf16 ulp."""
+    """The field kernel equals ``upsample_field_aligned`` + the dense-grid
+    kernel (K4) bit for bit, its tiles staged in shared memory (the
+    default) and with direct gathers (``stage_bytes=0``, the branch a tile
+    over the budget takes; the zoom's tiles take it by default); and it is
+    within the plain version's bars: f32 1e-4 (JAX's bar for its field
+    kernel), bf16 one bf16 ulp."""
     shape, f, out_hw = case
     rs = np.random.RandomState(8)
     img = torch.from_numpy(rs.rand(*shape).astype(np.float32)).to(cuda)
     img = img.to(dtype)
-    field = torch.from_numpy((rs.rand(shape[0], f, f, 2) * 2.4 - 1.2)
-                             .astype(np.float32)).to(cuda)
-    before = warp_cuda.field_launches
-    got = warp_cuda.warp_field_cuda(img, field, *out_hw, padding, align)
-    torch.cuda.synchronize()
-    assert warp_cuda.field_launches == before + 1
-    assert got.dtype == dtype and got.shape == (shape[0], 3, *out_hw)
-    want = plain_warp(img, upsample_field_aligned(field, *out_hw), padding,
-                      align)
-    err = (got.float() - want.float()).abs()
-    if dtype == torch.float32:
-        assert err.max().item() <= 1e-4
+    if f == "zoom":
+        field = _zoom_shear(shape[0], 33, cuda)
     else:
-        assert bool((err <= bf16_ulp(want)).all())
+        field = torch.from_numpy((rs.rand(shape[0], f, f, 2) * 2.4 - 1.2)
+                                 .astype(np.float32)).to(cuda)
+    grid = upsample_field_aligned(field, *out_hw).contiguous()
+    k4 = warp_cuda.warp_bilinear_cuda(img, grid, padding, align)
+    want = plain_warp(img, grid, padding, align)
+    for stage in (None, 0):
+        before = warp_cuda.field_launches
+        got = warp_cuda.warp_field_cuda(img, field, *out_hw, padding, align,
+                                        stage_bytes=stage)
+        torch.cuda.synchronize()
+        assert warp_cuda.field_launches == before + 1
+        assert got.dtype == dtype and got.shape == (shape[0], 3, *out_hw)
+        assert torch.equal(got, k4)
+        err = (got.float() - want.float()).abs()
+        if dtype == torch.float32:
+            assert err.max().item() <= 1e-4
+        else:
+            assert bool((err <= bf16_ulp(want)).all())
 
 
-@pytest.mark.parametrize("width,kernel", [(256, "field"), (128, "dense")])
-def test_warp_sample_field_routes_by_output_width(cuda, width, kernel):
+@pytest.mark.parametrize("width", [256, 128, 34])
+def test_warp_sample_field_routes_by_output_width(cuda, width):
+    """Every CUDA field warp takes the field kernel, at celeba128's 128 and
+    pose256's 256 wide as at any other width."""
     img = torch.rand((2, 3, width, width), device=cuda)
     field = torch.rand((2, 33, 33, 2), device=cuda) * 2 - 1
     before = (warp_cuda.field_launches, warp_cuda.launches)
     got = warp_sample_field(img, field, width, width, "border", True)
     torch.cuda.synchronize()
-    after = (warp_cuda.field_launches, warp_cuda.launches)
-    assert after == ((before[0] + 1, before[1]) if kernel == "field"
-                     else (before[0], before[1] + 1))
+    assert (warp_cuda.field_launches, warp_cuda.launches) == (before[0] + 1,
+                                                              before[1])
     want = plain_warp(img, upsample_field_aligned(field, width, width),
                       "border", True)
     assert (got - want).abs().max().item() <= 1e-4
@@ -458,6 +499,13 @@ def test_pool_and_field_wrappers_reject_what_they_do_not_take(cuda):
                                   8, 8)
     with pytest.raises(ValueError, match="padding_mode"):
         warp_cuda.warp_field_cuda(x, field, 8, 8, "reflection")
+    big = torch.zeros((2, warp_cuda.MAX_FIELD + 1, warp_cuda.MAX_FIELD + 1, 2),
+                      device=cuda)
+    with pytest.raises(ValueError, match="field"):
+        warp_cuda.warp_field_cuda(x, big, 8, 8)
+    with pytest.raises(ValueError, match="stage_bytes"):
+        warp_cuda.warp_field_cuda(x, field, 8, 8,
+                                  stage_bytes=warp_cuda.MAX_STAGE_BYTES + 1)
 
 
 # --- the VGG perceptual loss on the card -----------------------------------------

@@ -168,24 +168,38 @@ def test_plain_warp_keeps_bf16_and_rounds_once():
                                rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("align", [True, False])
-def test_plain_gaussian_and_grad_match_pallas(align):
+# ((B, K, H, W, sigma), align, gradient tolerance in units of its largest
+# component or None for ATOL): a ragged raster, then pose256's raster (b2 of
+# its 16 keypoints at 32², sigma 0.05) and transporter_atari's (4 at 16²,
+# 0.1), whose gradients (up to ~15) sum 1,024 and 256 products in another
+# order than JAX's, so they are held to ATOL of their scale
+GAUSSIAN_CASES = [((2, 5, 16, 12, 0.15), True, None),
+                  ((2, 5, 16, 12, 0.15), False, None),
+                  ((2, 16, 32, 32, 0.05), True, ATOL),
+                  ((2, 4, 16, 16, 0.1), True, ATOL)]
+
+
+@pytest.mark.parametrize("case,align,grad_rtol", GAUSSIAN_CASES,
+                         ids=["True", "False", "pose256", "transporter_atari"])
+def test_plain_gaussian_and_grad_match_pallas(case, align, grad_rtol):
+    b, k, h, w, sigma = case
     rs = np.random.RandomState(14)
-    kp = (rs.rand(2, 5, 2) * 2.2 - 1.1).astype(np.float32)
-    g = rs.randn(2, 5, 16, 12).astype(np.float32)
+    kp = (rs.rand(b, k, 2) * 2.2 - 1.1).astype(np.float32)
+    g = rs.randn(b, k, h, w).astype(np.float32)
     x = torch.from_numpy(kp).requires_grad_(True)
-    maps = gaussian_maps(x, 16, 12, 0.15, align)
+    maps = gaussian_maps(x, h, w, sigma, align)
     (maps * torch.from_numpy(g)).sum().backward()
-    pallas, vjp = jax.vjp(lambda k: gaussian_maps_pallas(
-        k, 16, 12, 0.15, align, interpret=True), jnp.asarray(kp))
+    pallas, vjp = jax.vjp(lambda kk: gaussian_maps_pallas(
+        kk, h, w, sigma, align, interpret=True), jnp.asarray(kp))
     np.testing.assert_allclose(maps.detach().numpy(), np.asarray(pallas),
                                atol=ATOL)
     np.testing.assert_allclose(
         maps.detach().numpy(),
-        np.asarray(jax_gaussian(jnp.asarray(kp), 16, 12, 0.15, align)),
+        np.asarray(jax_gaussian(jnp.asarray(kp), h, w, sigma, align)),
         atol=ATOL)
-    np.testing.assert_allclose(x.grad.numpy(),
-                               np.asarray(vjp(jnp.asarray(g))[0]), atol=ATOL)
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    atol = ATOL if grad_rtol is None else grad_rtol * np.abs(want).max()
+    np.testing.assert_allclose(x.grad.numpy(), want, atol=atol)
 
 
 @pytest.mark.parametrize("align", [True, False])
