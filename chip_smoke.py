@@ -9,10 +9,10 @@ step (``init_state`` + ``make_train_step(cfg, loss=make_loss(cfg))``, b128,
 bf16: 256² augmentation through the field warp, the VGG-16 perceptual loss
 with its max pools), and transporter_atari's training step (``init_state``
 + ``make_train_step`` in temporal mode, the preset's b64, bf16, on
-scripted-Pong pairs drawn on the card), with the joint soft-argmax (the
-fused bottleneck kernel) and with the preset's marginal one; the banded
-warps K7 and K8 through their entry points (``kernels.experimental``) at
-celeba128's and pose256's b128 warps; and the eval CLI (``python -m
+scripted-Pong pairs drawn on the card), with the joint soft-argmax and
+with the preset's marginal one (the fused bottleneck kernel in both); the
+banded warps K7 and K8 through their entry points (``kernels.experimental``)
+at celeba128's and pose256's b128 warps; and the eval CLI (``python -m
 keypoints_tpu_torch.eval``) of celeba128, pose256 and transporter_atari
 (joint) at b64.
 
@@ -21,9 +21,13 @@ keypoints_tpu_torch.eval``) of celeba128, pose256 and transporter_atari
                 (one process per source, in parallel), with ptxas's
                 register counts
    3. kernel    the CUDA soft-argmax forward against its plain version:
-                both variants, both align_corners, T in {1.0, 0.7}
+                both variants, both align_corners, T in {1.0, 0.7}, at
+                the presets' N and the warp path's other layouts (H != W,
+                1x64, 64x1, ragged widths, an unaligned base)
    4. kernels   the training slice's kernels against their plain versions:
-                soft-argmax backward (both variants), Gaussian raster
+                soft-argmax backward (both variants, both align_corners,
+                T in {1.0, 0.7}, the same layouts; two calls, equal bits),
+                Gaussian raster
                 forward and backward (celeba128's, pose256's and
                 transporter_atari's shapes, ragged ones; the backward twice,
                 equal bits), bilinear warp (f32 and bf16, zeros and border,
@@ -42,8 +46,11 @@ keypoints_tpu_torch.eval``) of celeba128, pose256 and transporter_atari
                 counts of the run
    9. times     CUDA-event medians: each kernel at the main paths' shapes
                 against its plain version (and F.grid_sample for the dense
-                warp), with its bound, the field warp at 3x128^2; extract
-                images/s; train ms/step, frames/s
+                warp), with its bound, the field warp at 3x128^2; K1 and
+                K1b, both variants, at N = 256 16^2, 1,280, 2,048 and
+                10,240 32^2 and 1,280 64^2 against bound, plain and their
+                launch floor (N = 1, 1x1); extract images/s; train ms/step,
+                frames/s
   10. profile   torch.profiler over the extract (b256, b1024, live n=1 and
                 n=8) and over 5 train steps: device time against wall time,
                 the ops that take the device time, each kernel's share
@@ -70,10 +77,13 @@ keypoints_tpu_torch.eval``) of celeba128, pose256 and transporter_atari
   15. profile   torch.profiler over 2 pose256 train steps: idle share, ops,
                 each kernel's share
   16. kernel    the fused bottleneck (K3) against its plain version and its
-                autograd: both variants, both align_corners, at
-                transporter_atari's b64 16^2, a ragged shape, and the joint
-                celeba128 and pose256 shapes; its keypoints and maps against
-                K1 then K2 on the same heatmaps, bit for bit
+                autograd: both variants, both align_corners, T in {1.0,
+                0.7}, at transporter_atari's b64 16^2, a ragged shape, the
+                joint celeba128 and pose256 shapes, 64^2, phase 3's other
+                layouts, an unaligned base, and maps of 8x4100, 4x13000
+                and 3x12400 (tables past 48 KB of shared memory, the
+                last from 65x8 heatmaps); its keypoints and maps
+                against K1 then K2 on the same heatmaps, bit for bit
   17. train     full-width transporter_atari in float32 (TF32 off), 3 train
      parity     steps per variant (marginal, joint) on seeded temporal pairs,
                 card and CPU, against
@@ -109,15 +119,18 @@ keypoints_tpu_torch.eval``) of celeba128, pose256 and transporter_atari
                 dispatchers (spatial_softmax, extract_and_render) at 65^2,
                 96^2 and 128^2, forward and backward, counted; then the
                 times of K1, K1b and K3 at b128 K=10 96^2 and 128^2 against
-                the bound and the plain version
+                the bound and the plain version, K3 against K1 then K2
   24. wide      celeba128's widths with stride-1 encoders (128^2
-     train      heatmaps), b32, bf16, 5 steps per variant (joint: K3;
-                marginal: K1 then K2): finite losses, float32 parameters,
-                exact launches per step
+     train      heatmaps), b32, bf16, 5 steps per variant (K3 in both):
+                finite losses, float32 parameters, exact launches per step
   25. route     celeba128's b128 bf16 step with its field warps through K5
      A/B        and through upsample + K4, in turns (new, old, old, new);
                 make_pair alone both ways, the two pairs equal; the dense
                 route (make_pair of 32^2 images) counted: K4's launches
+  26. route     celeba128's b128 bf16 step with its marginal bottleneck
+     A/B        through K1 then K2 (patched in here) and through the
+                package's K3, in turns (old, new, new, old); one step of
+                each route counted, only K3's toward the kernels line
 
 Run from a checkout:  python3 chip_smoke.py
 The card's ``nvidia-smi`` line, then a JSON object of the kernels
@@ -129,6 +142,7 @@ rest of the repository.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -155,6 +169,7 @@ from keypoints_tpu_torch import eval as peval  # noqa: E402
 from keypoints_tpu_torch.eval import float32_precision  # noqa: E402
 from keypoints_tpu_torch.kernels import _build  # noqa: E402
 from keypoints_tpu_torch.kernels import extract_and_render  # noqa: E402
+from keypoints_tpu_torch.kernels import gaussian_maps  # noqa: E402
 from keypoints_tpu_torch.kernels import spatial_softmax  # noqa: E402
 from keypoints_tpu_torch.kernels import experimental as banded  # noqa: E402
 from keypoints_tpu_torch.kernels import experimental_cuda as ecu  # noqa: E402
@@ -226,11 +241,11 @@ F32_FLOPS = 67e12           # H100 SXM data sheet, float32 outside tensor cores
 # on each of PATHS)
 KERNELS = {
     "spatial_softmax_fwd": (ssc, "launches", "spatial_softmax.cu",
-                            "spatial_softmax_pallas.py:151", (1, 1, 0, 2)),
+                            "spatial_softmax_pallas.py:151", (0, 0, 0, 0)),
     "spatial_softmax_bwd": (ssc, "bwd_launches", "spatial_softmax.cu",
                             "spatial_softmax_pallas.py:157", (1, 1, 1, 1)),
     "gaussian_fwd": (gcu, "launches", "gaussian.cu", "gaussian_pallas.py:32",
-                     (1, 1, 0, 2)),
+                     (0, 0, 0, 0)),
     "gaussian_bwd": (gcu, "bwd_launches", "gaussian.cu",
                      "gaussian_pallas.py:40", (1, 1, 1, 1)),
     "warp_bilinear": (wcu, "launches", "warp.cu", "warp_pallas.py:93",
@@ -242,7 +257,7 @@ KERNELS = {
     "max_pool_bwd": (pcu, "bwd_launches", "pool.cu", "pool_pallas.py:102",
                      (0, 2, 0, 0)),
     "softargmax_raster_fwd": (fbc, "launches", "fused_bottleneck.cu",
-                              "fused_bottleneck.py:44", (0, 0, 2, 0)),
+                              "fused_bottleneck.py:44", (1, 1, 2, 2)),
     "warp_band": (ecu, "tree_launches", "warp_experimental.cu",
                   "experimental.py:70", (0, 0, 0, 0)),
     "warp_rowwin": (ecu, "rowwin_launches", "warp_experimental.cu",
@@ -334,15 +349,35 @@ def build_phase() -> None:
             print(line.strip(), flush=True)
 
 
+# the warp path's layouts beyond the presets' (N, H, W): H != W on both
+# sides of 32 rows, one row, one column, ragged widths of several chunks
+LAYOUT_SHAPES = [(3, 64, 16), (3, 16, 64), (2, 1, 64), (2, 64, 1), (5, 31, 33)]
+
+
+def _unaligned(shape, rs) -> torch.Tensor:
+    """Seeded heatmaps of ``shape`` in a contiguous slice 4 bytes off a
+    16-byte boundary: the warp path's scalar-load layout."""
+    n = int(np.prod(shape))
+    flat = torch.from_numpy((3 * rs.randn(n + 1)).astype(np.float32)).cuda()
+    x = flat[1:].view(shape)
+    check(x.is_contiguous() and x.data_ptr() % 16 == 4, "unaligned slice")
+    return x
+
+
 def kernel_phase() -> float:
     phase("3 kernel vs plain (CUDA soft-argmax forward, f32)")
     rs = np.random.RandomState(0)
     worst = 0.0
     shapes = [(10, 32, 32), (2560, 32, 32), (10240, 32, 32), (40, 16, 16),
-              (7, 13, 29)]
-    for n, h, w in shapes:
-        x = torch.from_numpy((3 * rs.randn(1, n, h, w)).astype(np.float32))
-        x = x.cuda()
+              (7, 13, 29), (256, 16, 16), (2048, 32, 32), *LAYOUT_SHAPES,
+              "unaligned"]
+    for shape in shapes:
+        if shape == "unaligned":
+            x = _unaligned((1, 40, 32, 32), rs)
+        else:
+            n, h, w = shape
+            x = torch.from_numpy((3 * rs.randn(1, n, h, w)).astype(np.float32))
+            x = x.cuda()
         for variant in ("marginal", "joint"):
             for align in (True, False):
                 for t in (1.0, 0.7):
@@ -352,10 +387,9 @@ def kernel_phase() -> float:
                     err = (got - want).abs().max().item()
                     worst = max(worst, err)
                     check(err <= KERNEL_TOL, f"kernel vs plain {err} > "
-                          f"{KERNEL_TOL} at N={n} {h}x{w} {variant} "
+                          f"{KERNEL_TOL} at {shape} {variant} "
                           f"align={align} T={t}")
-        print(f"N={n:5d} {h}x{w}: 8 cases, max|d| so far {worst:.3e}",
-              flush=True)
+        print(f"{shape}: 8 cases, max|d| so far {worst:.3e}", flush=True)
     # a flat heatmap centres; a sharp corner peak lands on the corner
     flat = torch.zeros((1, 1, 8, 8), device="cuda")
     peak = torch.full((1, 1, 16, 16), -30.0, device="cuda")
@@ -388,25 +422,39 @@ def training_kernels_phase() -> dict:
         errs[name] = max(errs.get(name, 0.0), err)
         check(err <= tol, f"{name} {what}: {err} > {tol}")
 
-    # soft-argmax backward (K1b)
-    for b, k, h, w in [(128, 10, 32, 32), (1, 7, 13, 29), (2, 3, 64, 64),
-                       (3, 2, 1, 5)]:
-        x = torch.from_numpy((3 * rs.randn(b, k, h, w)).astype(np.float32))
-        x = x.cuda()
-        g = torch.from_numpy(rs.randn(b, k, 2).astype(np.float32)).cuda()
+    # soft-argmax backward (K1b): both variants, both align_corners, T in
+    # {1.0, 0.7}; a second call gives the same bits
+    cases = 0
+    for shape in [(128, 10, 32, 32), (1, 7, 13, 29), (2, 3, 64, 64),
+                  (3, 2, 1, 5), (64, 4, 16, 16), (128, 16, 32, 32),
+                  *((1, *s) for s in LAYOUT_SHAPES), "unaligned"]:
+        if shape == "unaligned":
+            x = _unaligned((4, 10, 32, 32), rs)
+            shape = tuple(x.shape)
+        else:
+            x = torch.from_numpy((3 * rs.randn(*shape)).astype(np.float32))
+            x = x.cuda()
+        g = torch.from_numpy(rs.randn(*shape[:2], 2).astype(np.float32)).cuda()
         for variant in ("marginal", "joint"):
             for align in (True, False):
-                kp = ssc.spatial_softmax_cuda(x, 0.7, variant, align)
-                got = ssc.spatial_softmax_bwd_cuda(x, kp, g, 0.7, variant,
-                                                   align)
-                torch.cuda.synchronize()
-                want = _plain_grad(lambda t: plain_softmax(
-                    t, 0.7, variant, align), x, g)
-                record("spatial_softmax_bwd", (got - want).abs().max().item(),
-                       GRAD_TOL, f"{b}x{k}x{h}x{w} {variant} align={align}")
-    print(f"soft-argmax backward: 16 cases, max|d| "
-          f"{errs['spatial_softmax_bwd']:.3e} (tolerance {GRAD_TOL})",
-          flush=True)
+                for t in (1.0, 0.7):
+                    kp = ssc.spatial_softmax_cuda(x, t, variant, align)
+                    got = ssc.spatial_softmax_bwd_cuda(x, kp, g, t, variant,
+                                                       align)
+                    again = ssc.spatial_softmax_bwd_cuda(x, kp, g, t,
+                                                         variant, align)
+                    torch.cuda.synchronize()
+                    what = f"{shape} {variant} align={align} T={t}"
+                    check(torch.equal(got, again), f"spatial_softmax_bwd "
+                          f"{what}: two calls differ")
+                    want = _plain_grad(lambda u: plain_softmax(
+                        u, t, variant, align), x, g)
+                    record("spatial_softmax_bwd",
+                           (got - want).abs().max().item(), GRAD_TOL, what)
+                    cases += 1
+    print(f"soft-argmax backward: {cases} cases, max|d| "
+          f"{errs['spatial_softmax_bwd']:.3e} (tolerance {GRAD_TOL}), two "
+          f"calls equal bit for bit", flush=True)
 
     # Gaussian raster forward and backward (K2): celeba128's, pose256's and
     # transporter_atari's rasters, ragged ones (W % 4 != 0, N = 1); the
@@ -892,26 +940,63 @@ def kernel_times_phase(card: str, trainer) -> dict:
     return out
 
 
+# K1 and K1b's timed shapes (B, K, H, W): transporter_atari b64,
+# celeba128 b128, pose256 b128, extract b1024, and 64^2 (several chunks)
+SOFTMAX_TIMES = {"transporter_atari b64": (64, 4, 16, 16),
+                 "celeba128 b128": (128, 10, 32, 32),
+                 "pose256 b128": (128, 16, 32, 32),
+                 "extract b1024": (1024, 10, 32, 32),
+                 "64^2 b128": (128, 10, 64, 64)}
+
+
 def softmax_and_extract_times(card: str) -> None:
+    """K1 and K1b, both variants, at SOFTMAX_TIMES against the bound, the
+    plain version and their launch floor (N = 1, 1x1); K1's marginal
+    forward also as one call with its launch; then the extract's
+    images/s."""
     rs = np.random.RandomState(3)
-    for n in (10, 2560, 10240):
-        x = torch.from_numpy(rs.randn(n // 10, 10, 32, 32).astype(np.float32))
+    one = torch.zeros((1, 1, 1, 1), device="cuda")
+    g_one = torch.zeros((1, 1, 2), device="cuda")
+    floor = {}
+    for variant in ("marginal", "joint"):
+        kp_one = ssc.spatial_softmax_cuda(one, 1.0, variant)
+        floor[variant] = (
+            cuda_median_ms(lambda: ssc.spatial_softmax_cuda(one, 1.0, variant),
+                           reps=20),
+            cuda_median_ms(lambda: ssc.spatial_softmax_bwd_cuda(
+                one, kp_one, g_one, 1.0, variant), reps=20))
+        print(f"soft-argmax {variant} launch floor (N = 1, 1x1): K1 "
+              f"{floor[variant][0] * 1e3:.2f} us, K1b "
+              f"{floor[variant][1] * 1e3:.2f} us  [{card}]", flush=True)
+    for label, (b, k, h, w) in SOFTMAX_TIMES.items():
+        n, hw = b * k, h * w
+        x = torch.from_numpy((3 * rs.randn(b, k, h, w)).astype(np.float32))
         x = x.cuda()
-
-        def kernel():
-            ssc.spatial_softmax_cuda(x, 1.0, "marginal", True)
-
-        def plain():
-            plain_softmax(x, 1.0, "marginal", True)
-
-        kernel_ms = cuda_median_ms(kernel, reps=20)
-        plain_ms = cuda_median_ms(plain, reps=20)
-        kernel_call = cuda_median_ms(kernel, queue_behind_sleep=False)
-        print(f"soft-argmax marginal N={n} 32x32: device time kernel "
-              f"{kernel_ms * 1e3:.2f} us "
-              f"({n * 32 * 32 * 4 / kernel_ms / 1e6:.0f} GB/s read), plain "
-              f"{plain_ms * 1e3:.2f} us; one call with launch: kernel "
-              f"{kernel_call * 1e3:.1f} us  [{card}]", flush=True)
+        g = torch.from_numpy(rs.randn(b, k, 2).astype(np.float32)).cuda()
+        heat = n * hw * 4
+        for variant in ("marginal", "joint"):
+            kp = ssc.spatial_softmax_cuda(x, 1.0, variant)
+            x_req = x.clone().requires_grad_(True)
+            kp_plain = plain_softmax(x_req, 1.0, variant)
+            timed = _time_cases({
+                "K1": (lambda: ssc.spatial_softmax_cuda(x, 1.0, variant),
+                       lambda: plain_softmax(x, 1.0, variant), None,
+                       _bound(heat + n * 8, 3 * n * hw)),
+                "K1b": (lambda: ssc.spatial_softmax_bwd_cuda(x, kp, g, 1.0,
+                                                             variant),
+                        lambda: torch.autograd.grad(kp_plain, x_req, g,
+                                                    retain_graph=True),
+                        None, _bound(2 * heat + 2 * n * 8, 4 * n * hw))},
+                card, label=f" {label} {variant} (N={n}, {h}x{w})")
+            print(f"  over the launch floor: K1 "
+                  f"{(timed['K1']['ms'] - floor[variant][0]) * 1e3:.2f} us, "
+                  f"K1b {(timed['K1b']['ms'] - floor[variant][1]) * 1e3:.2f} "
+                  f"us  [{card}]", flush=True)
+        if label == "extract b1024":
+            call = cuda_median_ms(lambda: ssc.spatial_softmax_cuda(
+                x, 1.0, "marginal", True), queue_behind_sleep=False)
+            print(f"  one K1 marginal call with its launch: "
+                  f"{call * 1e3:.1f} us  [{card}]", flush=True)
 
     cfg = get_config("celeba128")
     model = build_model(cfg, "cuda")
@@ -1068,9 +1153,8 @@ def profile_phase(card: str, trainer, step_ms: float) -> None:
 
     _profile(f"train step b{TRAIN_BATCH} bf16 (wall = CUDA-event ms/step)",
              train_step, 5, card, step_ms,
-             {"soft-argmax fwd": ("marginal_fwd",),
+             {"fused bottleneck": ("fused_fwd",),
               "soft-argmax bwd": ("marginal_bwd",),
-              "raster fwd": ("gaussian_fwd",),
               "raster bwd": ("gaussian_bwd",),
               "field warp": ("warp_field",)})
 
@@ -1313,9 +1397,8 @@ def pose_profile_phase(card: str, trainer, step_ms: float) -> None:
 
     _profile(f"pose256 train step b{TRAIN_BATCH} bf16 (wall = CUDA-event "
              f"ms/step)", train_step, 2, card, step_ms,
-             {"soft-argmax fwd": ("marginal_fwd",),
+             {"fused bottleneck": ("fused_fwd",),
               "soft-argmax bwd": ("marginal_bwd",),
-              "raster fwd": ("gaussian_fwd",),
               "raster bwd": ("gaussian_bwd",),
               "field warp": ("warp_field",),
               "pool fwd": ("max_pool_fwd",),
@@ -1323,70 +1406,86 @@ def pose_profile_phase(card: str, trainer, step_ms: float) -> None:
 
 
 # the fused bottleneck's shapes: transporter_atari's b64 (the main path), a
-# ragged one, and the joint celeba128 and pose256 bottlenecks at b128
+# ragged one, and the joint celeba128 and pose256 bottlenecks at b128; then
+# the warp path's other layouts (several chunks at 64^2, LAYOUT_SHAPES), an
+# unaligned base, and maps whose coordinate table passes K3's old 4,096
+# limit of Ho + Wo or the default 48 KB of shared memory (warp and block path)
 BOTTLENECK_CASES = {"atari b64": ((64, 4, 16, 16), (16, 16), 0.1),
                     "ragged": ((1, 7, 13, 29), (11, 17), 0.1),
                     "celeba128 b128": ((128, 10, 32, 32), (32, 32), 0.1),
-                    "pose256 b128": ((128, 16, 32, 32), (32, 32), 0.05)}
+                    "pose256 b128": ((128, 16, 32, 32), (32, 32), 0.05),
+                    "64x64": ((2, 3, 64, 64), (64, 64), 0.1),
+                    **{"x".join(map(str, s[1:])): ((1, *s), s[1:], 0.1)
+                       for s in LAYOUT_SHAPES},
+                    "unaligned": ((4, 10, 32, 32), (32, 32), 0.1),
+                    "8x4100 maps": ((2, 3, 32, 32), (8, 4100), 0.1),
+                    "4x13000 maps": ((1, 2, 16, 16), (4, 13000), 0.1),
+                    "65x8 to 3x12400": ((1, 2, 65, 8), (3, 12400), 0.1)}
 
 
 def fused_kernel_phase() -> dict:
     """K3 against its plain version (forward) and its autograd (the
-    composed backward), and against K1 then K2 on the same heatmaps."""
+    composed backward), and against K1 then K2 on the same heatmaps, bit
+    for bit; both variants, both align_corners, T in {1.0, 0.7}."""
     phase("16 fused bottleneck (K3) vs plain")
     rs = np.random.RandomState(16)
     worst = {"kp": 0.0, "maps": 0.0, "dh": 0.0, "dh_share": 0.0}
-    cases = same = 0
+    cases = 0
     for label, (shape, (ho, wo), sigma) in BOTTLENECK_CASES.items():
-        x = torch.from_numpy((3 * rs.randn(*shape)).astype(np.float32)).cuda()
+        if label == "unaligned":
+            x = _unaligned(shape, rs)
+        else:
+            x = torch.from_numpy((3 * rs.randn(*shape)).astype(np.float32))
+            x = x.cuda()
         g_kp = torch.from_numpy(rs.randn(*shape[:2], 2).astype(np.float32))
         g_maps = torch.from_numpy(rs.randn(*shape[:2], ho, wo)
                                   .astype(np.float32))
         g_kp, g_maps = g_kp.cuda(), g_maps.cuda()
-        for variant in ("joint", "marginal"):
-            for align in (True, False):
-                what = f"{label} {variant} align={align}"
-                kp, maps = fbc.softargmax_raster_cuda(x, ho, wo, 0.7, sigma,
-                                                      align, variant)
-                torch.cuda.synchronize()
-                kp_p, maps_p = plain_bottleneck(x, ho, wo, 0.7, sigma, align,
-                                                variant)
-                e_kp = (kp - kp_p).abs().max().item()
-                e_maps = (maps - maps_p).abs().max().item()
-                check(e_kp <= KERNEL_TOL, f"K3 keypoints {what}: {e_kp}")
-                check(e_maps <= fused_map_tolerance(sigma),
-                      f"K3 maps {what}: {e_maps}")
-                kp1 = ssc.spatial_softmax_cuda(x, 0.7, variant, align)
-                maps2 = gcu.gaussian_fwd_cuda(kp1.reshape(-1, 2), ho, wo,
-                                              sigma, align)
-                same += int(torch.equal(kp, kp1)
-                            and torch.equal(maps, maps2.reshape(maps.shape)))
+        for variant, align, t in itertools.product(
+                ("joint", "marginal"), (True, False), (1.0, 0.7)):
+            what = f"{label} {variant} align={align} T={t}"
+            kp, maps = fbc.softargmax_raster_cuda(x, ho, wo, t, sigma, align,
+                                                  variant)
+            torch.cuda.synchronize()
+            kp_p, maps_p = plain_bottleneck(x, ho, wo, t, sigma, align,
+                                            variant)
+            e_kp = (kp - kp_p).abs().max().item()
+            e_maps = (maps - maps_p).abs().max().item()
+            check(e_kp <= KERNEL_TOL, f"K3 keypoints {what}: {e_kp}")
+            check(e_maps <= fused_map_tolerance(sigma),
+                  f"K3 maps {what}: {e_maps}")
+            kp1 = ssc.spatial_softmax_cuda(x, t, variant, align)
+            maps2 = gcu.gaussian_fwd_cuda(kp1.reshape(-1, 2), ho, wo, sigma,
+                                          align)
+            check(torch.equal(kp, kp1)
+                  and torch.equal(maps, maps2.reshape(maps.shape)),
+                  f"K3 {what}: not K1 then K2 bit for bit")
 
-                xk = x.clone().requires_grad_(True)
-                torch.autograd.backward(fbc.softargmax_raster_autograd(
-                    xk, ho, wo, 0.7, sigma, align, variant), (g_kp, g_maps))
-                xr = x.clone().requires_grad_(True)
-                torch.autograd.backward(plain_bottleneck(
-                    xr, ho, wo, 0.7, sigma, align, variant), (g_kp, g_maps))
-                torch.cuda.synchronize()
-                diff = (xk.grad - xr.grad).abs()
-                tol = fused_grad_tolerance(x, ho, wo, 0.7, sigma, align,
-                                           variant, g_kp, g_maps)
-                check(bool((diff <= tol).all()),
-                      f"K3 dheatmaps {what}: {diff.max().item()}")
-                worst["kp"] = max(worst["kp"], e_kp)
-                worst["maps"] = max(worst["maps"], e_maps)
-                worst["dh"] = max(worst["dh"], diff.max().item())
-                worst["dh_share"] = max(worst["dh_share"],
-                                        (diff / tol).max().item())
-                cases += 1
+            xk = x.clone().requires_grad_(True)
+            torch.autograd.backward(fbc.softargmax_raster_autograd(
+                xk, ho, wo, t, sigma, align, variant), (g_kp, g_maps))
+            xr = x.clone().requires_grad_(True)
+            torch.autograd.backward(plain_bottleneck(
+                xr, ho, wo, t, sigma, align, variant), (g_kp, g_maps))
+            torch.cuda.synchronize()
+            diff = (xk.grad - xr.grad).abs()
+            tol = fused_grad_tolerance(x, ho, wo, t, sigma, align, variant,
+                                       g_kp, g_maps)
+            check(bool((diff <= tol).all()),
+                  f"K3 dheatmaps {what}: {diff.max().item()}")
+            worst["kp"] = max(worst["kp"], e_kp)
+            worst["maps"] = max(worst["maps"], e_maps)
+            worst["dh"] = max(worst["dh"], diff.max().item())
+            worst["dh_share"] = max(worst["dh_share"],
+                                    (diff / tol).max().item())
+            cases += 1
     print(f"K3: {cases} cases; keypoints max|d| {worst['kp']:.3e} (tolerance "
           f"{KERNEL_TOL}), maps max|d| {worst['maps']:.3e} (tolerance "
           f"{fused_map_tolerance(0.1):.2e} at sigma 0.1, "
           f"{fused_map_tolerance(0.05):.2e} at 0.05), "
           f"dheatmaps max|d| {worst['dh']:.3e} (at {worst['dh_share']:.3f} of "
           f"its elementwise tolerance); keypoints and maps equal to K1 then "
-          f"K2 bit for bit in {same} of {cases} cases", flush=True)
+          f"K2 bit for bit in all {cases} cases", flush=True)
     return {"softargmax_raster_fwd": max(worst["kp"], worst["maps"])}
 
 
@@ -1526,13 +1625,11 @@ def _fused_cases(shape, out_hw, sigma: float, variant: str, seed: int):
     return case, unfused
 
 
-def transporter_times_phase(card: str, trainers: dict) -> dict:
-    """K3 at the three bottleneck shapes, both variants: device time
-    (calls queued behind a sleep, inputs L2-warm) against K1 + K2 back to
-    back, the plain version and the byte bound; K2 alone at N = 256 16^2
-    and its launch floor at N = 1, 1x1; then each variant's train step and
-    a torch.profiler breakdown of it."""
-    phase(f"19 transporter times on {card}")
+def fused_times(card: str) -> dict:
+    """K3 at the three presets' bottleneck shapes, both variants: device
+    time (calls queued behind a sleep, inputs L2-warm) against K1 + K2 back
+    to back, the plain version and the byte bound. Returns transporter_atari
+    b64 joint's entry, the kernels line's."""
     out = {}
     for label in ("atari b64", "celeba128 b128", "pose256 b128"):
         shape, out_hw, sigma = BOTTLENECK_CASES[label]
@@ -1549,6 +1646,15 @@ def transporter_times_phase(card: str, trainers: dict) -> dict:
                   f"[{card}]", flush=True)
             if label == "atari b64" and variant == "joint":
                 out.update(timed)         # the main path's shape and variant
+    return out
+
+
+def transporter_times_phase(card: str, trainers: dict) -> dict:
+    """K3 against K1 + K2 (``fused_times``); K2 alone at N = 256 16^2 and
+    its launch floor at N = 1, 1x1; then each variant's train step and a
+    torch.profiler breakdown of it."""
+    phase(f"19 transporter times on {card}")
+    out = fused_times(card)
     # the raster alone at transporter_atari's shape (the joint step's
     # backward, the marginal step's forward and backward, the Pong ball),
     # then at N = 1, 1x1: the launch floor
@@ -1765,10 +1871,9 @@ EVAL_RECORD_KEYS = {"preset", "step", "metrics", "source", "held_out", "rows",
 # (celeba128's warps, pose256's field warps, the Pong frames' raster), the
 # bottleneck, pose256's VGG pools on the reconstruction and the target
 EVAL_CASES = {
-    "celeba128": ([], {"warp_field": 2, "spatial_softmax_fwd": 1,
-                       "gaussian_fwd": 1}),
-    "pose256": ([], {"warp_field": 2, "spatial_softmax_fwd": 1,
-                     "gaussian_fwd": 1, "max_pool_fwd": 4}),
+    "celeba128": ([], {"warp_field": 2, "softargmax_raster_fwd": 1}),
+    "pose256": ([], {"warp_field": 2, "softargmax_raster_fwd": 1,
+                     "max_pool_fwd": 4}),
     "transporter_atari": (["model.softmax_variant=joint"],
                           {"gaussian_fwd": 2, "softargmax_raster_fwd": 2}),
 }
@@ -1886,11 +1991,9 @@ WIDE_TRAIN = {"model.encoder_strides": (1, 1, 1, 1, 1),
 WIDE_STEPS = 5
 # launches a step of WIDE_TRAIN, by variant
 WIDE_PER_STEP = {
-    "joint": {"softargmax_raster_fwd": 1, "spatial_softmax_bwd": 1,
-              "gaussian_bwd": 1, "warp_field": 2},
-    "marginal": {"spatial_softmax_fwd": 1, "spatial_softmax_bwd": 1,
-                 "gaussian_fwd": 1, "gaussian_bwd": 1, "warp_field": 2},
-}
+    variant: {"softargmax_raster_fwd": 1, "spatial_softmax_bwd": 1,
+              "gaussian_bwd": 1, "warp_field": 2}
+    for variant in ("joint", "marginal")}
 
 
 def wide_kernels_phase(card: str) -> None:
@@ -1980,10 +2083,9 @@ def wide_kernels_phase(card: str) -> None:
             (kp_e.sum() + maps_e.sum()).backward()
             torch.cuda.synchronize()
             counts = read_counts()
-            fused = variant == "joint"
-            want = {"spatial_softmax_fwd": 1 + (not fused),
-                    "spatial_softmax_bwd": 2, "gaussian_fwd": int(not fused),
-                    "gaussian_bwd": 1, "softargmax_raster_fwd": int(fused)}
+            want = {"spatial_softmax_fwd": 1, "spatial_softmax_bwd": 2,
+                    "gaussian_fwd": 0, "gaussian_bwd": 1,
+                    "softargmax_raster_fwd": 1}
             got = {k: counts[k] for k in want}
             check(got == want, f"dispatchers {side}^2 {variant}: {got}")
             check(bool(torch.isfinite(xs.grad).all()
@@ -2026,8 +2128,14 @@ def wide_kernels_phase(card: str) -> None:
                                                        0.1, True, v), None,
                     _bound(2 * heat + n * 8, 6 * n * hw + 10 * n * hw)),
             }
-            _time_cases(cases, card, plain_reps=2,
-                        label=f" {variant} (N={n}, {side}x{side})")
+            timed = _time_cases(cases, card, plain_reps=2,
+                                label=f" {variant} (N={n}, {side}x{side})")
+            k1k2 = cuda_median_ms(lambda v=variant: gcu.gaussian_fwd_cuda(
+                ssc.spatial_softmax_cuda(x, 1.0, v).reshape(n, 2), side, side,
+                0.1), reps=20)
+            print(f"  K1 then K2 on the same heatmaps: {k1k2 * 1e3:.2f} us "
+                  f"(K3 {timed['softargmax_raster_fwd']['ms'] * 1e3:.2f})  "
+                  f"[{card}]", flush=True)
 
 
 def wide_train_phase(card: str) -> list:
@@ -2152,6 +2260,68 @@ def route_phase(card: str) -> list:
     return [counts]
 
 
+def bottleneck_route_phase(card: str) -> list:
+    """ROADMAP B.1: celeba128's b128 bf16 step (a user's
+    ``make_train_step``) with its marginal bottleneck through the package's
+    route (K3) and through K1 then K2, the latter reached by patching
+    ``models.autoencoder.extract_and_render`` here only, in turns (K1 then
+    K2, K3, K3, K1 then K2); one step of each route counted and checked.
+    Returns the package route's counts only: the patched route is no path
+    of the package. Phase 19 times the kernels alone at the three presets'
+    bottlenecks, both variants."""
+    phase(f"26 route A/B: celeba128's marginal bottleneck through K1 then K2 "
+          f"or K3, b{TRAIN_BATCH} bf16, on {card}")
+    from keypoints_tpu_torch.models import autoencoder
+    package_route = autoencoder.extract_and_render
+
+    def unfused(heatmaps, out_height, out_width, temperature, sigma, variant,
+                align_corners):
+        kp = spatial_softmax(heatmaps, temperature, variant, align_corners)
+        return kp, gaussian_maps(kp, out_height, out_width, sigma,
+                                 align_corners)
+
+    routes = {"K1 then K2": (unfused, {"spatial_softmax_fwd": 1,
+                                       "gaussian_fwd": 1}),
+              "K3": (package_route, {"softargmax_raster_fwd": 1})}
+
+    def on(route, fn):
+        autoencoder.extract_and_render = routes[route][0]
+        try:
+            return fn()
+        finally:
+            autoencoder.extract_and_render = package_route
+
+    trainer = _train_setup("celeba128")
+    cfg, state, step, images = trainer
+    check(cfg.model.softmax_variant == "marginal", "celeba128 is marginal")
+    route_counts = {}
+    for route, (_, fwd) in routes.items():
+        on(route, lambda: step(state, images))
+        torch.cuda.synchronize()
+        reset_counts()
+        on(route, lambda: step(state, images))
+        torch.cuda.synchronize()
+        counts = route_counts[route] = read_counts()
+        want = {**fwd, "spatial_softmax_bwd": 1, "gaussian_bwd": 1,
+                "warp_field": 2}
+        for name in KERNELS:
+            check(counts[name] == want.get(name, 0), f"route {route}: {name} "
+                  f"launched {counts[name]} times in a step")
+    order = ("K1 then K2", "K3", "K3", "K1 then K2")
+    step_ms = {route: [] for route in routes}
+    for route in order:
+        step_ms[route].append(on(route, lambda: train_step_times(
+            card, trainer, steps=20, label=f"celeba128, marginal bottleneck "
+            f"through {route},")))
+    print(f"route A/B, ms (old, new, new, old): train step K1 then K2 "
+          f"{step_ms['K1 then K2'][0]:.3f} / {step_ms['K1 then K2'][1]:.3f}, "
+          f"K3 {step_ms['K3'][0]:.3f} / {step_ms['K3'][1]:.3f}  [{card}]",
+          flush=True)
+    del trainer, state, step
+    torch.cuda.empty_cache()
+    return [route_counts["K3"]]
+
+
 def main() -> int:
     card = device_phase()
     build_phase()
@@ -2206,6 +2376,7 @@ def main() -> int:
     wide_kernels_phase(card)
     path_counts.extend(wide_train_phase(card))
     path_counts.extend(route_phase(card))
+    path_counts.extend(bottleneck_route_phase(card))
 
     errs["spatial_softmax_fwd"] = max(errs["spatial_softmax_fwd"],
                                       served["serve_max_abs_err"])

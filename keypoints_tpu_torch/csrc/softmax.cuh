@@ -2,13 +2,29 @@
 // (spatial_softmax.cu, K1 and K1b) and the fused bottleneck
 // (fused_bottleneck.cu, K3), so that K3's keypoints are K1's to the bit.
 // Two paths, chosen by the heatmap's size:
-//  * warp per row, H and W at most 64: one warp holds one (h, w) heatmap,
-//    lane x reads columns x and x + 32, and every loop over y is uniform
-//    across the warp;
+//  * warp per heatmap, H and W at most 64: one warp holds one (h, w)
+//    heatmap in registers. A row is ceil(w / 4) quads of 4 columns; lane l
+//    takes quad l % seg of its row (seg, the row's lanes: the power of 2 at
+//    or above its quads) and rows l / seg, l / seg + 32 / seg, ... A 32-wide
+//    row is 8 lanes, so one warp load covers 4 rows: a 32^2 heatmap is 8
+//    loads a lane, a 16^2 one 2. Where w % 4 == 0 and the map is 16-byte
+//    aligned (every preset), a quad is one float4 load, else four scalar
+//    loads of the same columns. A lane issues its loads in chunks of 2 or 8
+//    (a template parameter), all before any reduction; a heatmap of more
+//    than 8 loads a lane (e.g. 64^2: 32) takes several chunks and one pass
+//    over the map for each of the softmax's steps (the later ones hit L1).
+//    A row's sum is a butterfly within its segment of lanes, a column's the
+//    lane's partials over its rows, then a butterfly across the row slots;
+//    the 1-D softmaxes then run on sums held 4 (columns) or a chunk's worth
+//    (rows) a lane. Instructions, not bytes, set the pace at the presets'
+//    sizes, so an exp is the exp2 unit on one fused multiply-add, a
+//    coordinate is a + b i (one division an axis), maxima are trees and
+//    masked entries are selected, not branched round;
 //  * block per heatmap, H or W above 64: one block of kBlock threads strides
 //    over the heatmap (block_* below), with block-level reductions through
-//    shared memory in a fixed order, so the result does not change from run
-//    to run.
+//    shared memory in a fixed order.
+// Every reduction has a fixed order and none uses float atomics, so every
+// lane gets the same bits and two calls give equal bits.
 // Header only; every .cu that includes it gets its own internal copy.
 #pragma once
 
@@ -24,108 +40,370 @@ namespace kpsoftmax {
 using kpcommon::axis_coord;
 using kpcommon::kFull;
 using kpcommon::kWarp;
-using kpcommon::warp_max;
 using kpcommon::warp_sum;
 
-constexpr int kMaxSide = 2 * kWarp;        // each lane holds index i and i + 32
+// ---- warp per heatmap: H and W at most 64 --------------------------------
 
-// Softmax over n <= 64 logits held two per lane (index lane and lane + 32),
-// then the expectation of axis_coord under it. Every lane gets the result.
-__device__ __forceinline__ float softmax_expectation(float v0, float v1, int n,
-                                                     bool align, int lane) {
-  const bool ok0 = lane < n, ok1 = lane + kWarp < n;
-  const float m = warp_max(fmaxf(ok0 ? v0 : -CUDART_INF_F,
-                                 ok1 ? v1 : -CUDART_INF_F));
-  const float e0 = ok0 ? expf(v0 - m) : 0.0f;
-  const float e1 = ok1 ? expf(v1 - m) : 0.0f;
-  const float s = warp_sum(e0 + e1);
-  const float c = warp_sum(e0 * axis_coord(lane, n, align) +
-                           e1 * axis_coord(lane + kWarp, n, align));
-  return c / s;
+constexpr int kMaxSide = 2 * kWarp;        // the warp path's largest H and W
+// Loads a lane makes a chunk: kSmallChunk for a heatmap of at most that many
+// loads a lane (16^2 and smaller), kChunk for the rest
+constexpr int kSmallChunk = 2;
+constexpr int kChunk = 8;
+// Warps (heatmaps) a block of the warp-path kernels: 2 gives N = 256 (the
+// Transporter's bottleneck) 128 blocks over the H100's 132 SMs. Of 1, 2, 4
+// and 8, none was fastest at every preset's heatmaps (PERF.md).
+constexpr int kWarpsPerBlock = 2;
+
+// Lanes a row of w columns takes: the power of 2 at or above its ceil(w / 4)
+// quads of 4 columns (at most 16 up to 64 columns).
+__host__ __device__ __forceinline__ int row_lanes(int w) {
+  int seg = 1;
+  while (4 * seg < w) seg <<= 1;
+  return seg;
 }
 
-// The same softmax, returning the probabilities of index lane and lane + 32.
-__device__ __forceinline__ void softmax_probs(float v0, float v1, int n,
-                                              int lane, float& p0, float& p1) {
-  const bool ok0 = lane < n, ok1 = lane + kWarp < n;
-  const float m = warp_max(fmaxf(ok0 ? v0 : -CUDART_INF_F,
-                                 ok1 ? v1 : -CUDART_INF_F));
-  const float e0 = ok0 ? expf(v0 - m) : 0.0f;
-  const float e1 = ok1 ? expf(v1 - m) : 0.0f;
-  const float inv = 1.0f / warp_sum(e0 + e1);
-  p0 = e0 * inv;
-  p1 = e1 * inv;
+// Loads a lane makes for one (h, w) heatmap on the warp path.
+__host__ __device__ __forceinline__ int warp_loads(int h, int w) {
+  const int step = kWarp / row_lanes(w);
+  return (h + step - 1) / step;
 }
 
-// Column sums (x = lane, lane + 32) and row sums (y = lane, lane + 32) of one
-// (h, w) heatmap, one coalesced pass.
-__device__ __forceinline__ void marginal_sums(const float* __restrict__ p,
-                                              int h, int w, int lane,
-                                              float& col0, float& col1,
-                                              float& row0, float& row1) {
-  const bool ok0 = lane < w, ok1 = lane + kWarp < w;
-  col0 = col1 = row0 = row1 = 0.0f;
-  for (int y = 0; y < h; ++y) {
-    const float* r = p + static_cast<size_t>(y) * w;
-    const float a = ok0 ? __ldg(r + lane) : 0.0f;
-    const float b = ok1 ? __ldg(r + lane + kWarp) : 0.0f;
-    col0 += a;
-    col1 += b;
-    const float t = warp_sum(a + b);
-    if (y == lane) row0 = t;
-    if (y == lane + kWarp) row1 = t;
+// The chunk a warp-path kernel instantiates for an (h, w) heatmap.
+inline int warp_chunk(int h, int w) {
+  return warp_loads(h, w) <= kSmallChunk ? kSmallChunk : kChunk;
+}
+
+// Where a lane of the warp sits in the heatmap: columns 4 quad .. 4 quad + 3
+// of rows slot, slot + step, ...
+struct WarpRows {
+  int seg;   // lanes a row (row_lanes)
+  int step;  // rows one warp load covers: kWarp / seg
+  int quad;  // lane % seg
+  int slot;  // lane / seg
+};
+
+__device__ __forceinline__ WarpRows warp_rows(int w, int lane) {
+  const int seg = row_lanes(w);
+  return {seg, kWarp / seg, lane % seg, lane / seg};
+}
+
+// The heatmap of this thread's warp in a block of warps, one heatmap each,
+// or -1 past the last of n (uniform across the warp).
+__device__ __forceinline__ long long warp_heatmap(int n) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (blockDim.x / kWarp) +
+      threadIdx.x / kWarp;
+  return row < n ? row : -1;
+}
+
+__device__ __forceinline__ float component(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// The coordinates of an axis of n pixels as a + b i: axis_coord's values
+// (to within a rounding) for one division an axis instead of one a pixel.
+struct Axis {
+  float a, b;
+  __device__ __forceinline__ float operator()(int i) const {
+    return fmaf(b, static_cast<float>(i), a);
+  }
+};
+
+__device__ __forceinline__ Axis axis(int n, bool align) {
+  if (align)
+    return n > 1 ? Axis{-1.0f, 2.0f / static_cast<float>(n - 1)}
+                 : Axis{0.0f, 0.0f};
+  const float inv = 1.0f / static_cast<float>(n);
+  return {inv - 1.0f, 2.0f * inv};
+}
+
+// exp(a * inv_t - m) as exp2(a * inv_t log2(e) - m log2(e)): one fused
+// multiply-add and the exp2 unit.
+__device__ __forceinline__ float softmax_exp(float a, float inv_t, float m) {
+  constexpr float kLog2e = 1.44269504088896341f;
+  return exp2f(fmaf(a, inv_t * kLog2e, -m * kLog2e));
+}
+
+// softmax_exp where `in`, else 0: computed either way, then selected, so
+// that no branch goes round it.
+__device__ __forceinline__ float softmax_exp_if(bool in, float a, float inv_t,
+                                                float m) {
+  const float e = softmax_exp(a, inv_t, m);
+  return in ? e : 0.0f;
+}
+
+// The max of v[0..N) as a tree, so the comparisons do not wait on each
+// other in a chain.
+template <int N>
+__device__ __forceinline__ float tree_max(float (&v)[N]) {
+#pragma unroll
+  for (int s = 1; s < N; s <<= 1)
+#pragma unroll
+    for (int i = 0; i + s < N; i += 2 * s) v[i] = fmaxf(v[i], v[i + s]);
+  return v[0];
+}
+
+// Butterflies over the lanes whose indices differ only in the bits from lo
+// up to hi: (1, seg) within a segment of a row's lanes, (seg, kWarp) across
+// the row slots, (1, kWarp) over the warp. All N values shuffle at each
+// level together; the order is fixed, so every lane gets the same bits.
+template <int N>
+__device__ __forceinline__ void lanes_sum(float (&v)[N], int lo, int hi) {
+  for (int o = lo; o < hi; o <<= 1)
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(kFull, v[i], o);
+}
+
+__device__ __forceinline__ float lanes_max(float v, int lo, int hi) {
+  for (int o = lo; o < hi; o <<= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+// One chunk of a heatmap: load r of the lane reads its quad of row
+// y0 + slot + r * step. All R loads are issued before any use; entries
+// outside the heatmap read as 0. kQuad: one float4 (w % 4 == 0 and the map
+// 16-byte aligned); else four scalar loads of the same columns.
+template <int R, bool kQuad>
+__device__ __forceinline__ void load_chunk(const float* __restrict__ p, int h,
+                                           int w, int y0, const WarpRows& L,
+                                           float4 (&v)[R]) {
+  const int x = 4 * L.quad;
+  if (kQuad) {
+    const int w4 = w / 4;
+    const float4* q = reinterpret_cast<const float4*>(p) + L.quad;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int y = y0 + L.slot + r * L.step;
+      v[r] = y < h && x < w ? __ldg(q + y * w4)
+                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int y = y0 + L.slot + r * L.step;
+      const float* q = p + y * w + x;
+      const bool ok = y < h;
+      v[r].x = ok && x < w ? __ldg(q) : 0.0f;
+      v[r].y = ok && x + 1 < w ? __ldg(q + 1) : 0.0f;
+      v[r].z = ok && x + 2 < w ? __ldg(q + 2) : 0.0f;
+      v[r].w = ok && x + 3 < w ? __ldg(q + 3) : 0.0f;
+    }
   }
 }
 
-// Max of h/T over one (h, w) heatmap, on every lane.
-__device__ __forceinline__ float joint_max(const float* __restrict__ p, int h,
-                                           int w, float inv_t, int lane) {
-  const bool ok0 = lane < w, ok1 = lane + kWarp < w;
+// Marginal: adds the chunk to the lane's 4 column partials c and puts its
+// rows' sums in rs (rs[r]: row y0 + slot + r * step, on every lane of the
+// row's segment).
+template <int R>
+__device__ __forceinline__ void chunk_sums(const float4 (&v)[R], int seg,
+                                           float (&c)[4], float (&rs)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    c[0] += v[r].x;
+    c[1] += v[r].y;
+    c[2] += v[r].z;
+    c[3] += v[r].w;
+    rs[r] = (v[r].x + v[r].y) + (v[r].z + v[r].w);
+  }
+  lanes_sum(rs, 1, seg);
+}
+
+// Max of m and inv_t * rs over the chunk's rows below h.
+template <int R>
+__device__ __forceinline__ float rows_max(const float (&rs)[R], int y0, int h,
+                                          const WarpRows& L, float inv_t,
+                                          float m) {
+  float v[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    v[r] = y0 + L.slot + r * L.step < h ? rs[r] * inv_t : -CUDART_INF_F;
+  return fmaxf(m, tree_max(v));
+}
+
+// Adds exp(inv_t * rs - m) (t[0]) and that times the row's coordinate (t[1])
+// over the chunk's rows below h.
+template <int R>
+__device__ __forceinline__ void rows_exp(const float (&rs)[R], int y0, int h,
+                                         const WarpRows& L, float inv_t,
+                                         float m, bool align, float (&t)[2]) {
+  const Axis ys = axis(h, align);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int y = y0 + L.slot + r * L.step;
+    const float e = softmax_exp_if(y < h, rs[r], inv_t, m);
+    t[0] += e;
+    t[1] += e * ys(y);
+  }
+}
+
+// The softmax of inv_t * c over the columns 4 quad + i < w, held 4 a lane
+// on the lanes of each segment (every segment holds the same): e[i] =
+// exp(inv_t c[i] - max), 0 past w; on every lane the sum s of e and the sum
+// sc of e times the column's coordinate.
+__device__ __forceinline__ void column_softmax(const float (&c)[4], int w,
+                                               const WarpRows& L, float inv_t,
+                                               bool align, float (&e)[4],
+                                               float& s, float& sc) {
   float m = -CUDART_INF_F;
-  for (int y = 0; y < h; ++y) {
-    const float* r = p + static_cast<size_t>(y) * w;
-    if (ok0) m = fmaxf(m, __ldg(r + lane) * inv_t);
-    if (ok1) m = fmaxf(m, __ldg(r + lane + kWarp) * inv_t);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (4 * L.quad + i < w) m = fmaxf(m, c[i] * inv_t);
+  m = lanes_max(m, 1, L.seg);
+  const Axis xs = axis(w, align);
+  float t[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int x = 4 * L.quad + i;
+    e[i] = softmax_exp_if(x < w, c[i], inv_t, m);
+    t[0] += e[i];
+    t[1] += e[i] * xs(x);
   }
-  return warp_max(m);
+  lanes_sum(t, 1, L.seg);
+  s = t[0];
+  sc = t[1];
+}
+
+// The marginal softmax statistics of one heatmap, on every lane: the column
+// sums c (the lane's 4 columns), the column softmax (e, s, sc as
+// column_softmax), and the row softmax's max m and sums t (t[0] of exp,
+// t[1] of exp times the row's coordinate). The rows of a heatmap of one
+// chunk stay in rs; above one chunk, the rows are summed again in a second
+// pass (it hits L1).
+template <int R, bool kQuad>
+__device__ __forceinline__ void marginal_stats(
+    const float* __restrict__ p, int h, int w, float inv_t, bool align,
+    const WarpRows& L, float (&rs)[R], float (&e)[4], float& s, float& sc,
+    float& m, float (&t)[2]) {
+  const int rows = R * L.step;               // rows a chunk
+  float4 v[R];
+  float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  m = -CUDART_INF_F;
+  for (int y0 = 0; y0 < h; y0 += rows) {     // uniform across the warp
+    load_chunk<R, kQuad>(p, h, w, y0, L, v);
+    chunk_sums(v, L.seg, c, rs);
+    m = rows_max(rs, y0, h, L, inv_t, m);
+  }
+  lanes_sum(c, L.seg, kWarp);
+  column_softmax(c, w, L, inv_t, align, e, s, sc);
+  m = lanes_max(m, L.seg, kWarp);
+  t[0] = t[1] = 0.0f;
+  if (h <= rows) {
+    rows_exp(rs, 0, h, L, inv_t, m, align, t);
+  } else {
+    for (int y0 = 0; y0 < h; y0 += rows) {
+      float unused[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      load_chunk<R, kQuad>(p, h, w, y0, L, v);
+      chunk_sums(v, L.seg, unused, rs);
+      rows_exp(rs, y0, h, L, inv_t, m, align, t);
+    }
+  }
+  lanes_sum(t, L.seg, kWarp);
 }
 
 // Marginal soft-argmax (x, y) of one heatmap, on every lane: the softmaxes
-// of the column and row sums and their expectations. One read.
+// of the column and row sums and their expectations.
+template <int R, bool kQuad>
 __device__ __forceinline__ void marginal_keypoint(const float* __restrict__ p,
                                                   int h, int w, float inv_t,
                                                   bool align, int lane,
                                                   float& ex, float& ey) {
-  float col0, col1, row0, row1;
-  marginal_sums(p, h, w, lane, col0, col1, row0, row1);
-  ex = softmax_expectation(col0 * inv_t, col1 * inv_t, w, align, lane);
-  ey = softmax_expectation(row0 * inv_t, row1 * inv_t, h, align, lane);
+  const WarpRows L = warp_rows(w, lane);
+  float rs[R], e[4], s, sc, m, t[2];
+  marginal_stats<R, kQuad>(p, h, w, inv_t, align, L, rs, e, s, sc, m, t);
+  ex = sc / s;
+  ey = t[1] / t[0];
 }
 
-// Joint soft-argmax (x, y) of one heatmap, on every lane: pass 1 takes the
-// max of h/T, pass 2 sums exp(h/T - max) and its x- and y-weighted sums (the
-// second read mostly hits L1).
+// Joint: max of m and inv_t * v over the chunk's entries inside the heatmap.
+template <int R>
+__device__ __forceinline__ float chunk_max(const float4 (&v)[R], int y0, int h,
+                                           int w, const WarpRows& L,
+                                           float inv_t, float m) {
+  float mr[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const bool row = y0 + L.slot + r * L.step < h;
+    float q[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      q[i] = row && 4 * L.quad + i < w ? component(v[r], i) * inv_t
+                                       : -CUDART_INF_F;
+    mr[r] = tree_max(q);
+  }
+  return fmaxf(m, tree_max(mr));
+}
+
+// Joint: replaces each entry of the chunk by e = exp(inv_t v - m) (0
+// outside the heatmap), adds e to the lane's column sums cs and e times the
+// row's coordinate to sy.
+template <int R>
+__device__ __forceinline__ void chunk_exp(float4 (&v)[R], int y0, int h, int w,
+                                          const WarpRows& L, float inv_t,
+                                          float m, bool align, float (&cs)[4],
+                                          float& sy) {
+  const Axis ys = axis(h, align);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int y = y0 + L.slot + r * L.step;
+    const bool row = y < h;
+    float e[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      e[i] = softmax_exp_if(row && 4 * L.quad + i < w, component(v[r], i),
+                            inv_t, m);
+      cs[i] += e[i];
+    }
+    v[r] = make_float4(e[0], e[1], e[2], e[3]);
+    sy += ((e[0] + e[1]) + (e[2] + e[3])) * ys(y);   // 0 past the last row
+  }
+}
+
+// The joint softmax of one heatmap: its max m on every lane, and the lane's
+// sums of exp(inv_t h - m) by column (cs) and times the row's coordinate
+// (sy). A heatmap of one chunk is left in v as exp(inv_t h - m); above one
+// chunk the max takes one pass and the sums a second (it hits L1).
+template <int R, bool kQuad>
+__device__ __forceinline__ void joint_stats(const float* __restrict__ p, int h,
+                                            int w, float inv_t, bool align,
+                                            const WarpRows& L, float4 (&v)[R],
+                                            float& m, float (&cs)[4],
+                                            float& sy) {
+  const int rows = R * L.step;
+  m = -CUDART_INF_F;
+  for (int y0 = 0; y0 < h; y0 += rows) {     // uniform across the warp
+    load_chunk<R, kQuad>(p, h, w, y0, L, v);
+    m = chunk_max(v, y0, h, w, L, inv_t, m);
+  }
+  m = lanes_max(m, 1, kWarp);
+  cs[0] = cs[1] = cs[2] = cs[3] = sy = 0.0f;
+  if (h <= rows) {
+    chunk_exp(v, 0, h, w, L, inv_t, m, align, cs, sy);
+  } else {
+    for (int y0 = 0; y0 < h; y0 += rows) {
+      load_chunk<R, kQuad>(p, h, w, y0, L, v);
+      chunk_exp(v, y0, h, w, L, inv_t, m, align, cs, sy);
+    }
+  }
+}
+
+// Joint soft-argmax (x, y) of one heatmap, on every lane: the sums of
+// exp(h/T - max), times x and times y, over the warp.
+template <int R, bool kQuad>
 __device__ __forceinline__ void joint_keypoint(const float* __restrict__ p,
                                                int h, int w, float inv_t,
                                                bool align, int lane,
                                                float& ex, float& ey) {
-  const bool ok0 = lane < w, ok1 = lane + kWarp < w;
-  const float m = joint_max(p, h, w, inv_t, lane);
-  float c0 = 0.0f, c1 = 0.0f;                // sum over y of e, x = lane, +32
-  float sy = 0.0f;                           // sum of e * y-coordinate
-  for (int y = 0; y < h; ++y) {
-    const float* r = p + static_cast<size_t>(y) * w;
-    const float a = ok0 ? expf(__ldg(r + lane) * inv_t - m) : 0.0f;
-    const float b = ok1 ? expf(__ldg(r + lane + kWarp) * inv_t - m) : 0.0f;
-    c0 += a;
-    c1 += b;
-    sy += (a + b) * axis_coord(y, h, align);
-  }
-  const float s = warp_sum(c0 + c1);
-  const float sx = warp_sum(c0 * axis_coord(lane, w, align) +
-                            c1 * axis_coord(lane + kWarp, w, align));
-  ex = sx / s;
-  ey = warp_sum(sy) / s;
+  const WarpRows L = warp_rows(w, lane);
+  float4 v[R];
+  float m, cs[4], sy;
+  joint_stats<R, kQuad>(p, h, w, inv_t, align, L, v, m, cs, sy);
+  const Axis xs = axis(w, align);
+  float t[3] = {(cs[0] + cs[1]) + (cs[2] + cs[3]), 0.0f, sy};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) t[1] += cs[i] * xs(4 * L.quad + i);
+  lanes_sum(t, 1, kWarp);
+  ex = t[1] / t[0];
+  ey = t[2] / t[0];
 }
 
 // ---- block per heatmap: H or W above 64 ---------------------------------
@@ -133,7 +411,7 @@ __device__ __forceinline__ void joint_keypoint(const float* __restrict__ p,
 constexpr int kBlock = 256;                  // threads of a block-path kernel
 constexpr int kBlockWarps = kBlock / kWarp;
 // H + W of a wide marginal heatmap: its column and row sums live in shared
-// memory (16 KB), beside K3's coordinate table (16 KB at most)
+// memory (16 KB), beside K3's coordinate table
 constexpr int kMaxSums = 4096;
 
 // The H, W the block path takes (the warp path takes the rest).
@@ -210,7 +488,7 @@ constexpr int kMaxQuadWidth = 128;
 // block's row slots, at most kBlock * 4 (kBlock slots of W = 4, or 8 of 128)
 constexpr int kPart = 4 * kBlock;
 
-__device__ __forceinline__ bool quad_ok(int w, const void* p) {
+__host__ __device__ __forceinline__ bool quad_ok(int w, const void* p) {
   return w % 4 == 0 && w <= kMaxQuadWidth &&
          reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
 }

@@ -20,20 +20,33 @@
 // byte, so both are memory bound (and at N = 1280, launch bound).
 //
 // Design, H and W at most 64 (every preset: 16^2 and 32^2 heatmaps): one
-// warp per row. Lane x reads column x (and x + 32), so every row of the
-// heatmap is one coalesced load per warp.
-//  * marginal: the lane keeps its column sums over y in registers; each row
-//    sum is a warp reduction whose result parks on lane y % 32. The two
-//    1-D softmaxes and their expectations are then warp reductions over at
-//    most 64 values held two per lane. One read of the heatmap. The
-//    backward recomputes px and py the same way, forms
-//    fx[x] = gx px[x] (xs[x] - ex) / T and fy[y] = gy py[y] (ys[y] - ey) / T
-//    in registers, and writes dh[y, x] = fx[x] + fy[y] row by row (fy[y]
-//    comes from lane y % 32 by a shuffle): one read, one write.
-//  * joint: pass 1 takes the max of h/T over the row, pass 2 sums exp(h/T -
-//    max) and its x- and y-weighted sums (the second read mostly hits L1).
-//    The backward does the max and the sum, then writes
-//    p (gx (u - ex) + gy (v - ey)) / T in a third pass.
+// warp per heatmap, the heatmap in registers (softmax.cuh, warp path). A
+// lane reads 16 bytes a load where W % 4 == 0 and the map is 16-byte
+// aligned (4 scalar loads of the same columns otherwise): a 32^2 heatmap is
+// 8 loads a lane, 4 rows a warp load, a 16^2 one 2 loads, 8 rows; all of a
+// chunk's loads (2 or 8, a template parameter) are issued before any
+// reduction.
+//  * marginal: the row sums are butterflies within each row's 8 (32 wide)
+//    or 4 (16 wide) lanes, all the lane's rows together; the column sums
+//    are the lane's 4 column partials over its rows, then a butterfly
+//    across the row slots. The two 1-D softmaxes run on the sums held 4
+//    columns, or a chunk's rows, a lane. One read. The backward recomputes
+//    px and py the same way, forms fx[x] = gx px[x] (xs[x] - ex) / T for
+//    its 4 columns and fy[y] = gy py[y] (ys[y] - ey) / T for its rows, and
+//    writes dh[y, x] = fx[x] + fy[y] as float4 stores: one read, one write.
+//  * joint: the max of h/T over the registers, then each exp(h/T - max)
+//    once, for the sum and both weighted sums. One read. The backward
+//    keeps the exps in registers and writes p (gx (u - ex) + gy (v - ey)) /
+//    T from them: one read, one write.
+//  A heatmap of more than 8 loads a lane (above 32 rows of 32, e.g. 64^2)
+//  takes chunks of 8 and reads the map once a step of the softmax (two
+//  passes forward, three backward; the later ones hit L1).
+//  Each warp's chain of dependent latencies is short: the loads, a few
+//  butterfly levels, the exps (exp2 of one fused multiply-add) and one
+//  division; coordinates are a + b i, one division an axis, not one a
+//  pixel.
+//  Launch geometry: kWarpsPerBlock (2) warps, one heatmap each, a block
+//  (softmax.cuh), so that N = 256 and N = 1,280 spread over the card's SMs.
 // Design, H or W above 64 (e.g. 128^2 heatmaps from stride-1 encoders or
 // 512^2 images): one block of 256 threads per row, striding over the map
 // (softmax.cuh, block_*). Where W is a multiple of 4 up to 128 and the map
@@ -43,7 +56,7 @@
 // a warp-a-row pass) go to shared memory (H + W floats), then two
 // block-level softmax-expectations over them. Joint: block reductions of
 // max(h/T), then of the sums of exp, exp * u and exp * v. The backward
-// recomputes the softmax as the warp path does, then writes dh: marginal
+// recomputes the softmax, then writes dh: marginal
 // fx[x] + fy[y] from the two vectors in shared memory, joint
 // p (gx (u - ex) + gy (v - ey)) / T. The block reductions combine the
 // warps in a fixed order and nothing uses float atomics, so both are
@@ -52,9 +65,8 @@
 // The TPU kernel's 0/1 indicator-matrix matmuls (:97-121) exist only because
 // Mosaic has no lane-splitting reshape; plain loads and shuffles replace
 // them here. The row functions live in softmax.cuh, which the fused
-// bottleneck (fused_bottleneck.cu, K3) shares. Making it fast (vector
-// loads, several rows per warp, reading bf16 heatmaps directly) is later
-// work.
+// bottleneck (fused_bottleneck.cu, K3) shares. Reading bf16 heatmaps
+// directly is later work.
 
 #include <cuda_runtime.h>
 
@@ -63,112 +75,164 @@
 namespace {
 
 using kpcommon::axis_coord;
-using kpcommon::kFull;
 using kpcommon::kWarp;
-using kpcommon::warp_sum;
+using kpsoftmax::Axis;
+using kpsoftmax::axis;
 using kpsoftmax::bad_shape;
+using kpsoftmax::chunk_exp;
+using kpsoftmax::chunk_sums;
 using kpsoftmax::joint_keypoint;
-using kpsoftmax::joint_max;
+using kpsoftmax::kWarpsPerBlock;
+using kpsoftmax::joint_stats;
+using kpsoftmax::lanes_sum;
+using kpsoftmax::load_chunk;
 using kpsoftmax::marginal_keypoint;
-using kpsoftmax::marginal_sums;
-using kpsoftmax::softmax_probs;
+using kpsoftmax::marginal_stats;
+using kpsoftmax::warp_heatmap;
+using kpsoftmax::warp_rows;
+using kpsoftmax::WarpRows;
 
-constexpr int kWarpsPerBlock = 8;
 
+template <int R, bool kQuad>
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
 marginal_fwd(const float* __restrict__ in, float* __restrict__ out, int n_rows,
              int h, int w, float inv_t, bool align) {
+  const long long row = warp_heatmap(n_rows);
+  if (row < 0) return;
   const int lane = threadIdx.x % kWarp;
-  const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (row >= n_rows) return;                 // uniform across the warp
   float ex, ey;
-  marginal_keypoint(in + static_cast<size_t>(row) * h * w, h, w, inv_t, align,
-                    lane, ex, ey);
+  marginal_keypoint<R, kQuad>(in + row * h * w, h, w, inv_t, align, lane, ex,
+                              ey);
   if (lane == 0) {
-    out[2 * static_cast<size_t>(row)] = ex;
-    out[2 * static_cast<size_t>(row) + 1] = ey;
+    out[2 * row] = ex;
+    out[2 * row + 1] = ey;
   }
 }
 
+template <int R, bool kQuad>
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
 joint_fwd(const float* __restrict__ in, float* __restrict__ out, int n_rows,
           int h, int w, float inv_t, bool align) {
+  const long long row = warp_heatmap(n_rows);
+  if (row < 0) return;
   const int lane = threadIdx.x % kWarp;
-  const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (row >= n_rows) return;                 // uniform across the warp
   float ex, ey;
-  joint_keypoint(in + static_cast<size_t>(row) * h * w, h, w, inv_t, align,
-                 lane, ex, ey);
+  joint_keypoint<R, kQuad>(in + row * h * w, h, w, inv_t, align, lane, ex, ey);
   if (lane == 0) {
-    out[2 * static_cast<size_t>(row)] = ex;
-    out[2 * static_cast<size_t>(row) + 1] = ey;
+    out[2 * row] = ex;
+    out[2 * row + 1] = ey;
   }
 }
 
+// Writes v[r] to the lane's quad of row y0 + slot + r * step, where that
+// lies inside the heatmap: one float4 store where kQuad, else up to four
+// scalar stores.
+template <int R, bool kQuad>
+__device__ __forceinline__ void store_chunk(float* __restrict__ o, int h,
+                                            int w, int y0, const WarpRows& L,
+                                            const float4 (&v)[R]) {
+  const int x = 4 * L.quad;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int y = y0 + L.slot + r * L.step;
+    if (y >= h || x >= w) continue;
+    float* q = o + y * w + x;
+    if (kQuad) {
+      *reinterpret_cast<float4*>(q) = v[r];
+    } else {
+      q[0] = v[r].x;
+      if (x + 1 < w) q[1] = v[r].y;
+      if (x + 2 < w) q[2] = v[r].z;
+      if (x + 3 < w) q[3] = v[r].w;
+    }
+  }
+}
+
+// dh[y, x] = fx[x] + fy[y], fx[x] = gx px[x] (xs[x] - ex) / T and
+// fy[y] = gy py[y] (ys[y] - ey) / T: the column terms stay in registers
+// (4 a lane), the row terms come from the row sums of each chunk.
+template <int R, bool kQuad>
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
 marginal_bwd(const float* __restrict__ in, const float* __restrict__ kp,
              const float* __restrict__ g, float* __restrict__ out, int n_rows,
              int h, int w, float inv_t, bool align) {
-  const int lane = threadIdx.x % kWarp;
-  const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (row >= n_rows) return;                 // uniform across the warp
-  const size_t base = static_cast<size_t>(row) * h * w;
-  float col0, col1, row0, row1;
-  marginal_sums(in + base, h, w, lane, col0, col1, row0, row1);
-  float px0, px1, py0, py1;
-  softmax_probs(col0 * inv_t, col1 * inv_t, w, lane, px0, px1);
-  softmax_probs(row0 * inv_t, row1 * inv_t, h, lane, py0, py1);
-  const float ex = kp[2 * static_cast<size_t>(row)];
-  const float ey = kp[2 * static_cast<size_t>(row) + 1];
-  const float gx = g[2 * static_cast<size_t>(row)] * inv_t;
-  const float gy = g[2 * static_cast<size_t>(row) + 1] * inv_t;
-  const float fx0 = gx * px0 * (axis_coord(lane, w, align) - ex);
-  const float fx1 = gx * px1 * (axis_coord(lane + kWarp, w, align) - ex);
-  const float fy0 = gy * py0 * (axis_coord(lane, h, align) - ey);
-  const float fy1 = gy * py1 * (axis_coord(lane + kWarp, h, align) - ey);
-  const bool ok0 = lane < w, ok1 = lane + kWarp < w;
-  float* o = out + base;
-  for (int y = 0; y < h; ++y) {
-    // y is uniform across the warp, so every lane takes the same branch
-    const float fy = __shfl_sync(kFull, y < kWarp ? fy0 : fy1, y % kWarp);
-    float* r = o + static_cast<size_t>(y) * w;
-    if (ok0) r[lane] = fx0 + fy;
-    if (ok1) r[lane + kWarp] = fx1 + fy;
+  const long long row = warp_heatmap(n_rows);
+  if (row < 0) return;
+  const WarpRows L = warp_rows(w, threadIdx.x % kWarp);
+  const float* p = in + row * h * w;
+  float* o = out + row * h * w;
+  float rs[R], e[4], s, sc, m, t[2];
+  marginal_stats<R, kQuad>(p, h, w, inv_t, align, L, rs, e, s, sc, m, t);
+  const float ex = kp[2 * row], ey = kp[2 * row + 1];
+  const float gx = g[2 * row] * inv_t, gy = g[2 * row + 1] * inv_t;
+  const float inv_x = 1.0f / s, inv_y = 1.0f / t[0];
+  const Axis xs = axis(w, align);
+  const Axis ys = axis(h, align);
+  float fx[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    fx[i] = gx * (e[i] * inv_x) * (xs(4 * L.quad + i) - ex);
+  const int rows = R * L.step;
+  float4 v[R];
+  for (int y0 = 0; y0 < h; y0 += rows) {     // uniform across the warp
+    if (h > rows) {                          // sum the chunk's rows again
+      float unused[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      load_chunk<R, kQuad>(p, h, w, y0, L, v);
+      chunk_sums(v, L.seg, unused, rs);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int y = y0 + L.slot + r * L.step;
+      const float fy = gy * (kpsoftmax::softmax_exp(rs[r], inv_t, m) * inv_y) *
+                       (ys(y) - ey);
+      v[r] = make_float4(fx[0] + fy, fx[1] + fy, fx[2] + fy, fx[3] + fy);
+    }
+    store_chunk<R, kQuad>(o, h, w, y0, L, v);
   }
 }
 
+// dh = p (gx (u - ex) + gy (v - ey)) / T, p = exp(h/T - max) / sum: a
+// heatmap of one chunk is written from the exps joint_stats left in
+// registers; above one chunk a third pass reads it again.
+template <int R, bool kQuad>
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
 joint_bwd(const float* __restrict__ in, const float* __restrict__ kp,
           const float* __restrict__ g, float* __restrict__ out, int n_rows,
           int h, int w, float inv_t, bool align) {
-  const int lane = threadIdx.x % kWarp;
-  const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (row >= n_rows) return;                 // uniform across the warp
-  const size_t base = static_cast<size_t>(row) * h * w;
-  const float* p = in + base;
-  const bool ok0 = lane < w, ok1 = lane + kWarp < w;
-  const float m = joint_max(p, h, w, inv_t, lane);
-  float s = 0.0f;
-  for (int y = 0; y < h; ++y) {
-    const float* r = p + static_cast<size_t>(y) * w;
-    if (ok0) s += expf(__ldg(r + lane) * inv_t - m);
-    if (ok1) s += expf(__ldg(r + lane + kWarp) * inv_t - m);
-  }
-  const float inv_s = 1.0f / warp_sum(s);
-  const float ex = kp[2 * static_cast<size_t>(row)];
-  const float ey = kp[2 * static_cast<size_t>(row) + 1];
-  const float gx = g[2 * static_cast<size_t>(row)] * inv_t;
-  const float gy = g[2 * static_cast<size_t>(row) + 1] * inv_t;
-  const float du0 = gx * (axis_coord(lane, w, align) - ex);
-  const float du1 = gx * (axis_coord(lane + kWarp, w, align) - ex);
-  float* o = out + base;
-  for (int y = 0; y < h; ++y) {
-    const float dv = gy * (axis_coord(y, h, align) - ey);
-    const float* r = p + static_cast<size_t>(y) * w;
-    float* q = o + static_cast<size_t>(y) * w;
-    if (ok0) q[lane] = expf(__ldg(r + lane) * inv_t - m) * inv_s * (du0 + dv);
-    if (ok1)
-      q[lane + kWarp] = expf(__ldg(r + lane + kWarp) * inv_t - m) * inv_s * (du1 + dv);
+  const long long row = warp_heatmap(n_rows);
+  if (row < 0) return;
+  const WarpRows L = warp_rows(w, threadIdx.x % kWarp);
+  const float* p = in + row * h * w;
+  float* o = out + row * h * w;
+  float4 v[R];
+  float m, cs[4], sy;
+  joint_stats<R, kQuad>(p, h, w, inv_t, align, L, v, m, cs, sy);
+  float s[1] = {(cs[0] + cs[1]) + (cs[2] + cs[3])};
+  lanes_sum(s, 1, kWarp);
+  const float inv_s = 1.0f / s[0];
+  const float ex = kp[2 * row], ey = kp[2 * row + 1];
+  const float gx = g[2 * row] * inv_t, gy = g[2 * row + 1] * inv_t;
+  const Axis xs = axis(w, align);
+  const Axis ys = axis(h, align);
+  float du[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) du[i] = gx * (xs(4 * L.quad + i) - ex);
+  const int rows = R * L.step;
+  for (int y0 = 0; y0 < h; y0 += rows) {     // uniform across the warp
+    if (h > rows) {                          // the chunk's exps again
+      float unused[4] = {0.0f, 0.0f, 0.0f, 0.0f}, unused_y = 0.0f;
+      load_chunk<R, kQuad>(p, h, w, y0, L, v);
+      chunk_exp(v, y0, h, w, L, inv_t, m, align, unused, unused_y);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float dv = gy * (ys(y0 + L.slot + r * L.step) - ey);
+      v[r] = make_float4(v[r].x * inv_s * (du[0] + dv),
+                         v[r].y * inv_s * (du[1] + dv),
+                         v[r].z * inv_s * (du[2] + dv),
+                         v[r].w * inv_s * (du[3] + dv));
+    }
+    store_chunk<R, kQuad>(o, h, w, y0, L, v);
   }
 }
 
@@ -315,6 +379,32 @@ block_joint_bwd(const float* __restrict__ in, const float* __restrict__ kp,
   }
 }
 
+// The warp-path kernel of a variant, chunk and load width, launched.
+template <int R, bool kQuad>
+void warp_fwd(int variant, int n, cudaStream_t s, const float* x, float* o,
+              int h, int w, float inv_t, bool align) {
+  const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock),
+      block(kWarpsPerBlock * kWarp);
+  if (variant == 0)
+    joint_fwd<R, kQuad><<<grid, block, 0, s>>>(x, o, n, h, w, inv_t, align);
+  else
+    marginal_fwd<R, kQuad><<<grid, block, 0, s>>>(x, o, n, h, w, inv_t, align);
+}
+
+template <int R, bool kQuad>
+void warp_bwd(int variant, int n, cudaStream_t s, const float* x,
+              const float* k, const float* d, float* o, int h, int w,
+              float inv_t, bool align) {
+  const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock),
+      block(kWarpsPerBlock * kWarp);
+  if (variant == 0)
+    joint_bwd<R, kQuad><<<grid, block, 0, s>>>(x, k, d, o, n, h, w, inv_t,
+                                               align);
+  else
+    marginal_bwd<R, kQuad><<<grid, block, 0, s>>>(x, k, d, o, n, h, w, inv_t,
+                                                  align);
+}
+
 }  // namespace
 
 // variant: 0 = joint, 1 = marginal. Launches on `stream` and returns
@@ -323,10 +413,9 @@ extern "C" int kp_spatial_softmax_fwd(int variant, int n, int h, int w,
                                       float inv_t, int align_corners,
                                       const void* heatmaps, void* out,
                                       void* stream) {
-  if (bad_shape(variant, n, h, w)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(variant, n, h, w))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  const dim3 block(kWarpsPerBlock * kWarp);
-  const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* x = static_cast<const float*>(heatmaps);
   auto* o = static_cast<float*>(out);
@@ -337,10 +426,22 @@ extern "C" int kp_spatial_softmax_fwd(int variant, int n, int h, int w,
       block_fwd<true><<<n, kBlock, sums, s>>>(x, o, h, w, inv_t, align);
     else
       block_fwd<false><<<n, kBlock, sums, s>>>(x, o, h, w, inv_t, align);
-  } else if (variant == 0) {
-    joint_fwd<<<grid, block, 0, s>>>(x, o, n, h, w, inv_t, align);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const bool quad = quad_ok(w, x);
+  if (kpsoftmax::warp_chunk(h, w) == kpsoftmax::kSmallChunk) {
+    if (quad)
+      warp_fwd<kpsoftmax::kSmallChunk, true>(variant, n, s, x, o, h, w,
+                                             inv_t, align);
+    else
+      warp_fwd<kpsoftmax::kSmallChunk, false>(variant, n, s, x, o, h,
+                                              w, inv_t, align);
+  } else if (quad) {
+    warp_fwd<kpsoftmax::kChunk, true>(variant, n, s, x, o, h, w, inv_t,
+                                      align);
   } else {
-    marginal_fwd<<<grid, block, 0, s>>>(x, o, n, h, w, inv_t, align);
+    warp_fwd<kpsoftmax::kChunk, false>(variant, n, s, x, o, h, w, inv_t,
+                                       align);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -350,11 +451,11 @@ extern "C" int kp_spatial_softmax_fwd(int variant, int n, int h, int w,
 extern "C" int kp_spatial_softmax_bwd(int variant, int n, int h, int w,
                                       float inv_t, int align_corners,
                                       const void* heatmaps, const void* kp,
-                                      const void* g, void* out, void* stream) {
-  if (bad_shape(variant, n, h, w)) return static_cast<int>(cudaErrorInvalidValue);
+                                      const void* g, void* out,
+                                      void* stream) {
+  if (bad_shape(variant, n, h, w))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  const dim3 block(kWarpsPerBlock * kWarp);
-  const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* x = static_cast<const float*>(heatmaps);
   const auto* k = static_cast<const float*>(kp);
@@ -367,10 +468,22 @@ extern "C" int kp_spatial_softmax_bwd(int variant, int n, int h, int w,
       block_joint_bwd<<<n, kBlock, 0, s>>>(x, k, d, o, h, w, inv_t, align);
     else
       block_marginal_bwd<<<n, kBlock, sums, s>>>(x, k, d, o, h, w, inv_t, align);
-  } else if (variant == 0) {
-    joint_bwd<<<grid, block, 0, s>>>(x, k, d, o, n, h, w, inv_t, align);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const bool quad = quad_ok(w, x) && quad_ok(w, o);
+  if (kpsoftmax::warp_chunk(h, w) == kpsoftmax::kSmallChunk) {
+    if (quad)
+      warp_bwd<kpsoftmax::kSmallChunk, true>(variant, n, s, x, k, d, o,
+                                             h, w, inv_t, align);
+    else
+      warp_bwd<kpsoftmax::kSmallChunk, false>(variant, n, s, x, k, d,
+                                              o, h, w, inv_t, align);
+  } else if (quad) {
+    warp_bwd<kpsoftmax::kChunk, true>(variant, n, s, x, k, d, o, h, w,
+                                      inv_t, align);
   } else {
-    marginal_bwd<<<grid, block, 0, s>>>(x, k, d, o, n, h, w, inv_t, align);
+    warp_bwd<kpsoftmax::kChunk, false>(variant, n, s, x, k, d, o, h, w,
+                                       inv_t, align);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,12 +10,14 @@ builds the one library they share. The banded warps K7 and K8
 (``experimental`` and ``experimental_cuda``) are submodules too, outside
 this dispatch surface, as the JAX package keeps them out of its own.
 
-``extract_and_render`` routes as ``keypoints_tpu/kernels/__init__.py:158``
-does: the joint variant takes the fused bottleneck kernel (K3), the
-marginal variant the soft-argmax kernel then the raster kernel. The other
-TPU dispatch rules there (the B=1 marginal routing, ``xla_only``, the
-lane-tile width limits) work around XLA:TPU and Mosaic and have no
-counterpart here.
+``extract_and_render`` sends both soft-argmax variants to the fused
+bottleneck kernel (K3) on CUDA. ``keypoints_tpu/kernels/__init__.py:158``
+sends only the joint variant to its fused kernel on the TPU and the
+marginal one to the soft-argmax then the raster; on the H100, K3 beats
+the soft-argmax kernel then the raster kernel in both variants
+(PERF.md). The other TPU dispatch rules there (the B=1 marginal routing,
+``xla_only``, the lane-tile width limits) work around XLA:TPU and Mosaic
+and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -125,14 +127,17 @@ def extract_and_render(heatmaps: torch.Tensor, out_height: int,
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """The keypoint bottleneck: heatmaps → (keypoints, Gaussian maps).
 
-    On CUDA the joint variant is one fused kernel (K3,
-    ``fused_bottleneck_cuda.SoftargmaxRasterFused``), the marginal variant
-    the soft-argmax kernel then the raster kernel, as the JAX package
-    routes them on the TPU; on CPU the plain soft-argmax then the plain
-    raster (``ops.fused_bottleneck`` is that composition). Differentiable
-    in the heatmaps on both.
+    On CUDA one fused kernel (K3,
+    ``fused_bottleneck_cuda.SoftargmaxRasterFused``) in both variants; its
+    keypoints and maps equal the soft-argmax kernel's then the raster
+    kernel's bit for bit. It takes every output size whose coordinate
+    table fits a block's 227 KB of shared memory
+    (``fused_bottleneck_cuda.table_floats``): up to 64 a side, Ho + Wo up
+    to 58,112, as the raster's backward. On CPU the plain soft-argmax then
+    the plain raster (``ops.fused_bottleneck`` is that composition).
+    Differentiable in the heatmaps on both.
     """
-    if variant == "joint" and _on_cuda(heatmaps, "keypoint bottleneck"):
+    if _on_cuda(heatmaps, "keypoint bottleneck"):
         return fused_bottleneck_cuda.softargmax_raster_autograd(
             heatmaps, out_height, out_width, temperature, sigma,
             align_corners, variant)

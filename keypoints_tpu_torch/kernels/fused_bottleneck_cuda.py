@@ -26,17 +26,34 @@ import torch
 
 from keypoints_tpu_torch.coords import DEFAULT_ALIGN_CORNERS
 from keypoints_tpu_torch.kernels import _build
-from keypoints_tpu_torch.kernels.gaussian_cuda import (check_sigma,
+from keypoints_tpu_torch.kernels.gaussian_cuda import (MAX_TABLE,
+                                                       check_sigma,
                                                        gaussian_bwd_cuda)
 from keypoints_tpu_torch.kernels.spatial_softmax_cuda import (
-    VARIANTS, check_heatmaps, spatial_softmax_bwd_cuda)
+    VARIANTS, WARP_MAX_SIDE, check_heatmaps, spatial_softmax_bwd_cuda)
 
-MAX_OUT = 4096         # Ho + Wo: the kernel's coordinate table in shared memory
+#: floats of static shared memory the block path (H or W above 64) keeps
+#: for its reductions (``csrc/fused_bottleneck.cu`` kBlockStatic)
+BLOCK_STATIC = 4 * 256 + 3 * 8
 
 #: kernel launches so far; the wrapper adds one per launch, nowhere else
 launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def table_floats(height: int, width: int, out_height: int, out_width: int,
+                 variant: str) -> int:
+    """Floats of shared memory a block of the kernel needs for one
+    ``height x width`` heatmap and an ``out_height x out_width`` map: the
+    output's coordinate table (Ho + Wo), and on the block path its
+    reduction scratch and, marginal, the column and row sums (H + W). At
+    most :data:`gaussian_cuda.MAX_TABLE` (227 KB), the raster's limit."""
+    floats = out_height + out_width
+    if max(height, width) > WARP_MAX_SIDE:
+        floats += BLOCK_STATIC + (height + width if variant == "marginal"
+                                  else 0)
+    return floats
 
 
 def softargmax_raster_cuda(heatmaps: torch.Tensor, out_height: int,
@@ -49,21 +66,25 @@ def softargmax_raster_cuda(heatmaps: torch.Tensor, out_height: int,
     2)`` ``(x, y)`` and maps ``(B, K, Ho, Wo)``, both f32.
 
     Launches on the current stream of the tensor's device and does not
-    synchronise. Heatmaps of up to 64 a side take a warp per heatmap,
-    larger ones a block. Raises on anything the kernel does not take: what
-    ``spatial_softmax_cuda.check_heatmaps`` rejects, sigma not positive, or
-    an output size below 1 or with Ho + Wo above 4096. The outputs carry no gradient:
-    :class:`SoftargmaxRasterFused` does.
+    synchronise. Heatmaps of up to 64 a side take a warp per heatmap, two
+    a block as the soft-argmax kernel, larger ones a block. Raises on
+    anything the kernel does not take: what
+    ``spatial_softmax_cuda.check_heatmaps`` rejects, sigma not positive, an
+    output side below 1, or a block's shared memory (:func:`table_floats`)
+    above :data:`gaussian_cuda.MAX_TABLE` floats: up to 64 a side, Ho + Wo
+    up to 58,112, the raster backward's own limit. The outputs carry no
+    gradient: :class:`SoftargmaxRasterFused` does.
     """
     global launches
     check_heatmaps(heatmaps, variant, "softargmax_raster_cuda")
     check_sigma(sigma)
     ho, wo = int(out_height), int(out_width)
-    if ho < 1 or wo < 1 or ho + wo > MAX_OUT:
-        raise ValueError(f"softargmax_raster_cuda needs an output size with "
-                         f"Ho, Wo >= 1 and Ho + Wo <= {MAX_OUT}, got "
-                         f"{ho}x{wo}")
     b, k, h, w = heatmaps.shape
+    if ho < 1 or wo < 1 or table_floats(h, w, ho, wo, variant) > MAX_TABLE:
+        raise ValueError(f"softargmax_raster_cuda needs an output size "
+                         f"with Ho, Wo >= 1 and at most {MAX_TABLE} floats "
+                         f"of shared memory a block, got {h}x{w} -> "
+                         f"{ho}x{wo} ({variant})")
     kp = torch.empty((b, k, 2), dtype=torch.float32, device=heatmaps.device)
     maps = torch.empty((b, k, ho, wo), dtype=torch.float32,
                        device=heatmaps.device)

@@ -23,8 +23,9 @@ from keypoints_tpu_torch.coords import DEFAULT_ALIGN_CORNERS
 from keypoints_tpu_torch.kernels import _build
 
 VARIANTS = {"joint": 0, "marginal": 1}
-#: H and W at or below this take the warp-per-row kernels (each lane holds
-#: two columns); a larger H or W takes the block-per-row kernels
+#: H and W at or below this take the warp-per-heatmap kernels (the heatmap
+#: in registers, a lane reading 16-byte quads of a row); a larger H or W
+#: takes the block-per-heatmap kernels
 WARP_MAX_SIDE = 64
 #: H + W of a marginal heatmap above WARP_MAX_SIDE a side: the block kernel
 #: keeps its column and row sums in shared memory
@@ -65,8 +66,9 @@ def spatial_softmax_cuda(heatmaps: torch.Tensor, temperature: float = 1.0,
     """Forward kernel: ``(B, K, H, W)`` f32 CUDA → ``(B, K, 2)`` f32, ``(x, y)``.
 
     Launches on the current stream of the tensor's device and does not
-    synchronise. Heatmaps of up to 64 a side take the warp-per-row kernel,
-    larger ones the block-per-row kernel. Raises on anything the kernels do
+    synchronise. Heatmaps of up to 64 a side take the warp-per-heatmap
+    kernel, two heatmaps a block, larger ones the block-per-heatmap
+    kernel. Raises on anything the kernels do
     not take (:func:`check_heatmaps`): a tensor that is not a contiguous
     float32 CUDA tensor, an empty side, or an unknown variant. The output
     carries no gradient: :class:`SpatialSoftmax` does.

@@ -11,8 +11,8 @@ The source branch (Φ_s and G_s) runs under ``torch.no_grad()``: the JAX
 package stops the gradient of both (``lax.stop_gradient``), so gradients
 flow only through the target branch, and no graph of the source is kept.
 Images are NCHW in [0, 1]; the heatmaps reach the bottleneck as float32
-(``kernels.extract_and_render``: on CUDA the fused kernel K3 for the joint
-variant, the soft-argmax and raster kernels for the marginal one); the
+(``kernels.extract_and_render``: on CUDA the fused kernel K3 in both
+variants); the
 reconstruction comes back as float32. In bf16 eager torch rounds after each
 op of the transport where XLA may fuse, so the port is held to JAX in f32.
 """

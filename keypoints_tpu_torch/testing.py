@@ -145,8 +145,8 @@ def fused_map_tolerance(sigma: float, kp_tol: float = 2e-5) -> float:
 def softmax_grad_tolerance(height: int, width: int) -> float:
     """How far the soft-argmax backward kernel's dL/dheatmaps may be from
     the plain autograd, for an incoming keypoint gradient of order 1: 1e-5
-    up to 64 a side (the warp-per-row kernels), growing in proportion to the
-    longer side above it, since the softmax's inputs are sums over a side
+    up to 64 a side (the warp-per-heatmap kernels), growing in proportion to
+    the longer side above it, since the softmax's inputs are sums over a side
     (marginal) or over the map (joint) and their rounding grows with the
     number of terms."""
     return 1e-5 * max(1.0, max(height, width) / 64)

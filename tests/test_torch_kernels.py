@@ -50,7 +50,15 @@ pytestmark = pytest.mark.cuda
 
 TOL = 2e-5   # f32 on both sides; only the order of the sums differs
 SHAPES = [(10, 32, 32), (2560, 32, 32), (10240, 32, 32), (40, 16, 16),
-          (7, 13, 29)]
+          (7, 13, 29),
+          # the warp path's layouts: transporter_atari's N at 16^2 (2 loads a
+          # lane), pose256's at 32^2 (8), H != W on both sides of 32 rows,
+          # one row and one column, and ragged widths of several chunks
+          (256, 16, 16), (2048, 32, 32), (3, 64, 16), (3, 16, 64), (2, 1, 64),
+          (2, 64, 1), (5, 31, 33)]
+# the same as (B, K, H, W)
+LAYOUTS = [(1, 256, 16, 16), (1, 2048, 32, 32), (1, 3, 64, 16),
+           (1, 3, 16, 64), (1, 2, 1, 64), (1, 2, 64, 1), (1, 5, 31, 33)]
 
 
 @pytest.fixture
@@ -83,7 +91,7 @@ def test_kernel_matches_plain(cuda, shape, variant, align, temperature):
 
 @pytest.mark.parametrize("shape", [(1, 1, 1, 1), (2, 3, 64, 64),
                                    (2, 5, 1, 64), (2, 5, 64, 1),
-                                   (3, 7, 33, 31)],
+                                   (3, 7, 33, 31), *LAYOUTS],
                          ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("variant", ["marginal", "joint"])
 def test_kernel_edge_shapes(cuda, shape, variant):
@@ -178,20 +186,49 @@ def _plain_grad(x, g, temperature, variant, align):
 @pytest.mark.parametrize("align", [True, False])
 @pytest.mark.parametrize("variant", ["marginal", "joint"])
 @pytest.mark.parametrize("shape", [(128, 10, 32, 32), (1, 7, 13, 29),
-                                   (2, 3, 64, 64), (3, 2, 1, 5)],
+                                   (2, 3, 64, 64), (3, 2, 1, 5), *LAYOUTS],
                          ids=lambda s: "x".join(map(str, s)))
 def test_softmax_backward_matches_plain_autograd(cuda, shape, variant, align):
+    """K1b within 1e-5 of the plain autograd; a second call gives the same
+    bits (fixed-order reductions, no float atomics)."""
     x = _heatmaps(*shape, cuda, seed=3)
     g = torch.from_numpy(np.random.RandomState(4).randn(
         *shape[:2], 2).astype(np.float32)).to(cuda)
     kp = ssc.spatial_softmax_cuda(x, 0.7, variant, align)
     before = ssc.bwd_launches
     got = ssc.spatial_softmax_bwd_cuda(x, kp, g, 0.7, variant, align)
+    again = ssc.spatial_softmax_bwd_cuda(x, kp, g, 0.7, variant, align)
     torch.cuda.synchronize()
-    assert ssc.bwd_launches == before + 1
+    assert ssc.bwd_launches == before + 2
     want = _plain_grad(x, g, 0.7, variant, align)
     assert got.shape == x.shape
     assert (got - want).abs().max().item() <= 1e-5
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("shape", [(4, 10, 32, 32), (4, 4, 16, 16)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("variant", ["marginal", "joint"])
+def test_unaligned_heatmaps_take_the_scalar_path(cuda, shape, variant):
+    """A contiguous slice 4 bytes off a 16-byte boundary (the scalar-load
+    layout of the warp path): K1 within TOL and K1b within 1e-5 of plain,
+    two K1b calls equal, K3's keypoints equal to K1's bit for bit."""
+    n = int(np.prod(shape))
+    flat = _heatmaps(1, 1, 1, n + 1, cuda, seed=6).reshape(-1)
+    x = flat[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    kp = ssc.spatial_softmax_cuda(x, 0.7, variant, False)
+    g = torch.from_numpy(np.random.RandomState(7).randn(
+        *shape[:2], 2).astype(np.float32)).to(cuda)
+    got = ssc.spatial_softmax_bwd_cuda(x, kp, g, 0.7, variant, False)
+    again = ssc.spatial_softmax_bwd_cuda(x, kp, g, 0.7, variant, False)
+    kp3, _ = fbc.softargmax_raster_cuda(x, 16, 16, 0.7, 0.1, False, variant)
+    torch.cuda.synchronize()
+    assert (kp - plain(x, 0.7, variant, False)).abs().max().item() <= TOL
+    want = _plain_grad(x, g, 0.7, variant, False)
+    assert (got - want).abs().max().item() <= 1e-5
+    assert torch.equal(got, again)
+    assert torch.equal(kp3, kp)
 
 
 @pytest.mark.parametrize("variant", ["marginal", "joint"])
@@ -325,17 +362,22 @@ def test_new_wrappers_reject_what_they_do_not_take(cuda):
 
 def test_backward_through_forward_reaches_every_parameter(cuda):
     """Full-width celeba128 in bf16 compute: the loss's gradient reaches
-    every (float32) parameter through the kernels and is finite."""
+    every (float32) parameter through the kernels (the marginal bottleneck
+    through K3, its backward through the K2 backward and K1b) and is
+    finite."""
     cfg = get_config("celeba128")
     model = build_model(cfg, cuda)
     x = torch.rand((2, 3, 128, 128), device=cuda)
     y = torch.rand((2, 3, 128, 128), device=cuda)
-    counts = (ssc.launches, ssc.bwd_launches, gc.launches, gc.bwd_launches)
+
+    def counts():
+        return (fbc.launches, ssc.launches, ssc.bwd_launches, gc.launches,
+                gc.bwd_launches)
+    before = counts()
     recon, kp = model(x, y)
     ((recon - y) ** 2).mean().backward()
     torch.cuda.synchronize()
-    assert (ssc.launches, ssc.bwd_launches, gc.launches, gc.bwd_launches) \
-        == tuple(c + 1 for c in counts)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 0, 1, 0, 1)
     for name, p in model.named_parameters():
         assert p.dtype == torch.float32, name
         assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
@@ -542,14 +584,19 @@ def test_perceptual_loss_on_the_card_matches_the_cpu(cuda):
 BOTTLENECK = [((64, 4, 16, 16), (16, 16), 0.1),     # transporter_atari b64
               ((1, 7, 13, 29), (11, 17), 0.1),      # ragged, Ho, Wo != H, W
               ((128, 10, 32, 32), (32, 32), 0.1),   # joint celeba128 b128
-              ((128, 16, 32, 32), (32, 32), 0.05)]  # joint pose256 b128
+              ((128, 16, 32, 32), (32, 32), 0.05),  # joint pose256 b128
+              # the warp path's other layouts: several chunks (64^2), ragged
+              # widths of several chunks, one column of 2 loads a lane
+              ((2, 3, 64, 64), (64, 64), 0.1),
+              ((1, 5, 31, 33), (31, 33), 0.1),
+              ((2, 5, 64, 1), (16, 4), 0.1)]
 
 
 @pytest.mark.parametrize("align", [True, False])
 @pytest.mark.parametrize("variant", ["marginal", "joint"])
 @pytest.mark.parametrize("case", BOTTLENECK,
                          ids=["atari-b64", "ragged", "celeba-b128",
-                              "pose-b128"])
+                              "pose-b128", "64x64", "31x33", "64x1"])
 def test_fused_bottleneck_matches_plain_and_the_unfused_kernels(
         cuda, case, variant, align):
     """K3 against ``ops.fused_bottleneck``: keypoints within TOL, maps
@@ -654,9 +701,8 @@ def test_wide_fused_bottleneck_matches_plain_and_the_unfused_kernels(
 def test_autoencoder_with_128_heatmaps_trains_through_the_kernels(cuda,
                                                                   variant):
     """celeba128 at stride 1 (128² heatmaps), narrow, bf16 compute: a
-    forward and backward at b2 through the wide kernels (joint: K3;
-    marginal: K1 then K2), and K1b; every parameter gets a finite
-    gradient."""
+    forward and backward at b2 through the wide kernels (K3 in both
+    variants), and K1b; every parameter gets a finite gradient."""
     cfg = get_config("celeba128").override(**{
         "model.encoder_filters": (8, 8), "model.encoder_strides": (1, 1),
         "model.decoder_filters": (8, 8),
@@ -670,22 +716,22 @@ def test_autoencoder_with_128_heatmaps_trains_through_the_kernels(cuda,
     torch.cuda.synchronize()
     got = tuple(a - b for a, b in zip((fbc.launches, ssc.launches,
                                        ssc.bwd_launches), before))
-    assert got == ((1, 0, 1) if variant == "joint" else (0, 1, 1))
+    assert got == (1, 0, 1)
     for name, p in model.named_parameters():
         assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
 
 
 @pytest.mark.parametrize("variant", ["marginal", "joint"])
 def test_extract_and_render_routes_joint_to_the_fused_kernel(cuda, variant):
-    """On CUDA the joint variant takes K3 alone, the marginal variant K1
-    then K2 (K3 untouched), as the JAX package routes them on the TPU."""
+    """On CUDA both variants take K3 alone (K1 and K2 untouched): on the
+    H100 K3 beats K1 then K2 in both (PERF.md), where the JAX
+    package sends only the joint variant to its fused kernel."""
     x = _heatmaps(8, 4, 16, 16, cuda, seed=13)
     before = (fbc.launches, ssc.launches, gc.launches)
     kp, maps = extract_and_render(x, 16, 16, 1.0, 0.1, variant, True)
     torch.cuda.synchronize()
     after = (fbc.launches, ssc.launches, gc.launches)
-    want = (1, 0, 0) if variant == "joint" else (0, 1, 1)
-    assert tuple(a - b for a, b in zip(after, before)) == want
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 0, 0)
     kp_p, maps_p = plain_bottleneck(x, 16, 16, 1.0, 0.1, True, variant)
     assert (kp - kp_p).abs().max().item() <= TOL
     assert (maps - maps_p).abs().max().item() <= fused_map_tolerance(0.1)
@@ -715,7 +761,61 @@ def test_fused_bottleneck_rejects_what_it_does_not_take(cuda):
         fbc.softargmax_raster_cuda(x, 16, 16, sigma=0.0)
     with pytest.raises(ValueError, match="output size"):
         fbc.softargmax_raster_cuda(x, 0, 16)
+    # Ho + Wo = gaussian_cuda.MAX_TABLE (227 KB, the raster backward's own
+    # limit) computes on the warp path; one more float raises
+    edge = _heatmaps(1, 2, 16, 16, cuda, seed=27)
+    wo = gc.MAX_TABLE - 2
+    kp, maps = fbc.softargmax_raster_cuda(edge, 2, wo, 1.0, 0.1, True,
+                                          "marginal")
+    torch.cuda.synchronize()
+    kp_p, maps_p = plain_bottleneck(edge, 2, wo, 1.0, 0.1, True, "marginal")
+    assert (kp - kp_p).abs().max().item() <= TOL
+    assert (maps - maps_p).abs().max().item() <= fused_map_tolerance(0.1)
+    with pytest.raises(ValueError, match="output size"):
+        fbc.softargmax_raster_cuda(edge, 2, wo + 1)
+    assert fbc.launches == before + 2
+
+
+# maps past Ho + Wo = 4,096 (the kernel's limit before its table could take
+# a block's 227 KB): just above it, and tables above the default 48 KB of
+# shared memory (the kernel opts in) on the warp and the block path
+BIG_OUT = [((2, 3, 32, 32), (8, 4100)), ((1, 2, 16, 16), (4, 13000)),
+           ((1, 2, 65, 8), (3, 12400))]
+
+
+@pytest.mark.parametrize("variant", ["marginal", "joint"])
+@pytest.mark.parametrize("case", BIG_OUT,
+                         ids=["4108", "13004-warp", "12403-block"])
+def test_fused_bottleneck_takes_the_raster_s_output_sizes(cuda, case,
+                                                          variant):
+    """``extract_and_render`` (K3 in both variants) at output sizes the
+    raster kernel takes: keypoints and maps equal K1 then K2 bit for bit
+    and lie within the tolerances of plain, and the composed backward is
+    within ``testing.fused_grad_tolerance`` of the plain autograd."""
+    shape, (ho, wo) = case
+    x = _heatmaps(*shape, cuda, seed=25)
+    before = fbc.launches
+    xk = x.clone().requires_grad_(True)
+    kp, maps = extract_and_render(xk, ho, wo, 0.7, 0.1, variant, True)
+    torch.cuda.synchronize()
     assert fbc.launches == before + 1
+    kp1 = ssc.spatial_softmax_cuda(x, 0.7, variant, True)
+    maps2 = gc.gaussian_fwd_cuda(kp1.reshape(-1, 2), ho, wo, 0.1, True)
+    assert torch.equal(kp, kp1)
+    assert torch.equal(maps, maps2.reshape(maps.shape))
+    xr = x.clone().requires_grad_(True)
+    kp_p, maps_p = plain_bottleneck(xr, ho, wo, 0.7, 0.1, True, variant)
+    assert (kp - kp_p).abs().max().item() <= TOL
+    assert (maps - maps_p).abs().max().item() <= fused_map_tolerance(0.1)
+    rs = np.random.RandomState(26)
+    g_kp = torch.from_numpy(rs.randn(*shape[:2], 2).astype(np.float32))
+    g_maps = torch.from_numpy(rs.randn(*shape[:2], ho, wo).astype(np.float32))
+    g_kp, g_maps = g_kp.to(cuda), g_maps.to(cuda)
+    torch.autograd.backward((kp, maps), (g_kp, g_maps))
+    torch.autograd.backward((kp_p, maps_p), (g_kp, g_maps))
+    tol = fused_grad_tolerance(x, ho, wo, 0.7, 0.1, True, variant, g_kp,
+                               g_maps)
+    assert bool(((xk.grad - xr.grad).abs() <= tol).all())
 
 
 @pytest.mark.parametrize("variant", ["marginal", "joint"])
@@ -723,8 +823,8 @@ def test_transporter_step_launches_and_reaches_every_parameter(cuda,
                                                               variant):
     """Full-width transporter_atari in bf16 compute, one forward and
     backward at b2: the source branch has no graph, so per pass K3 runs
-    twice (joint) or K1 and K2 twice each (marginal), and K1b and the K2
-    backward once; every (float32) parameter gets a finite gradient."""
+    twice (both variants), and K1b and the K2 backward once; every
+    (float32) parameter gets a finite gradient."""
     cfg = get_config("transporter_atari").override(
         **{"model.softmax_variant": variant})
     model = build_model(cfg, cuda)
@@ -740,10 +840,8 @@ def test_transporter_step_launches_and_reaches_every_parameter(cuda,
     ((recon - y) ** 2).mean().backward()
     torch.cuda.synchronize()
     got = {k: v - before[k] for k, v in counts().items()}
-    want = ({"fbc": 2, "ssc fwd": 0, "ssc bwd": 1, "gc fwd": 0, "gc bwd": 1}
-            if variant == "joint" else
-            {"fbc": 0, "ssc fwd": 2, "ssc bwd": 1, "gc fwd": 2, "gc bwd": 1})
-    assert got == want
+    assert got == {"fbc": 2, "ssc fwd": 0, "ssc bwd": 1, "gc fwd": 0,
+                   "gc bwd": 1}
     assert recon.shape == (2, 1, 64, 64) and kp.shape == (2, 4, 2)
     for name, p in model.named_parameters():
         assert p.dtype == torch.float32, name

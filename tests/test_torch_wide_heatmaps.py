@@ -8,6 +8,8 @@ bottleneck against the Pallas ``softargmax_raster_fused`` in interpret mode
 96² heatmaps, forward and parameter gradients against JAX's. The CUDA
 kernels are held to these plain versions on the card
 (``tests/test_torch_kernels.py``, ``chip_smoke.py`` phases 23 and 24).
+The fused kernel's shared-memory need, computed on the host, is checked
+here for both paths.
 """
 
 import numpy as np
@@ -23,6 +25,8 @@ from keypoints_tpu.training import build_model as jax_build_model
 from keypoints_tpu_torch.checkpoint import (load_model_state,
                                             state_dict_from_flax)
 from keypoints_tpu_torch.configs import get_config
+from keypoints_tpu_torch.kernels import fused_bottleneck_cuda as fbc
+from keypoints_tpu_torch.kernels.gaussian_cuda import MAX_TABLE
 from keypoints_tpu_torch.losses import l2_loss
 from keypoints_tpu_torch.ops.fused_bottleneck import softargmax_raster
 from keypoints_tpu_torch.testing import random_flax_params, random_images
@@ -112,3 +116,19 @@ def test_autoencoder_with_96_heatmaps_matches_jax(variant):
     for name in want:
         np.testing.assert_allclose(got[name], want[name], rtol=0, atol=2e-5,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize(("hw", "out", "variant", "want"), [
+    ((32, 32), (8, 4100), "marginal", 4108),           # warp path: Ho + Wo
+    ((64, 64), (2, MAX_TABLE - 2), "joint", MAX_TABLE),
+    ((65, 8), (16, 16), "joint", 32 + fbc.BLOCK_STATIC),
+    ((65, 8), (16, 16), "marginal", 32 + fbc.BLOCK_STATIC + 73),
+    ((8, 4032), (1, 1), "marginal", 2 + fbc.BLOCK_STATIC + 4040)])
+def test_fused_kernel_shared_memory_is_the_table_and_the_block_scratch(
+        hw, out, variant, want):
+    """``fused_bottleneck_cuda.table_floats``: Ho + Wo up to 64 a side;
+    above it the block path's reduction scratch too, and a marginal map's
+    H + W sums. The wrapper takes up to ``gaussian_cuda.MAX_TABLE`` (227
+    KB), the raster kernel's own limit."""
+    assert fbc.table_floats(*hw, *out, variant) == want
+
