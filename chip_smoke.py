@@ -30,8 +30,10 @@ keypoints_tpu_torch.eval``) of celeba128, pose256 and transporter_atari
                 Gaussian raster
                 forward and backward (celeba128's, pose256's and
                 transporter_atari's shapes, ragged ones; the backward twice,
-                equal bits), bilinear warp (f32 and bf16, zeros and border,
-                both align_corners, b128 3x128^2 and a ragged case)
+                equal bits), bilinear warp K4 (f32 and bf16, zeros and
+                border, both align_corners, b128 3x128^2, a ragged case, the
+                dense route's b128 3x32^2, the tiles' ragged edges, NaN
+                points, points far outside, B = 70,000)
    5. parity    full-width KeyNet in float32 (TF32 off) against the JAX
                 keypoints committed in tests/data/torch_port_celeba128_extract.json
    6. serve     ``make_server`` (celeba128, bf16, buckets 1 8 64 256) on a free
@@ -46,7 +48,8 @@ keypoints_tpu_torch.eval``) of celeba128, pose256 and transporter_atari
                 counts of the run
    9. times     CUDA-event medians: each kernel at the main paths' shapes
                 against its plain version (and F.grid_sample for the dense
-                warp), with its bound, the field warp at 3x128^2; K1 and
+                warp), with its bound, the field warp at 3x128^2, K4 also
+                on the f32 image; K1 and
                 K1b, both variants, at N = 256 16^2, 1,280, 2,048 and
                 10,240 32^2 and 1,280 64^2 against bound, plain and their
                 launch floor (N = 1, 1x1); extract images/s; train ms/step,
@@ -80,10 +83,12 @@ keypoints_tpu_torch.eval``) of celeba128, pose256 and transporter_atari
                 autograd: both variants, both align_corners, T in {1.0,
                 0.7}, at transporter_atari's b64 16^2, a ragged shape, the
                 joint celeba128 and pose256 shapes, 64^2, phase 3's other
-                layouts, an unaligned base, and maps of 8x4100, 4x13000
+                layouts, an unaligned base, maps of 8x4100, 4x13000
                 and 3x12400 (tables past 48 KB of shared memory, the
-                last from 65x8 heatmaps); its keypoints and maps
-                against K1 then K2 on the same heatmaps, bit for bit
+                last from 65x8 heatmaps) and of 7x13, 5x3 and 16x16 (the
+                map writing's branches); its keypoints and maps against
+                K1 then K2 on the same heatmaps, and against its own maps
+                4 bytes past a 16-byte boundary, bit for bit
   17. train     full-width transporter_atari in float32 (TF32 off), 3 train
      parity     steps per variant (marginal, joint) on seeded temporal pairs,
                 card and CPU, against
@@ -114,8 +119,9 @@ keypoints_tpu_torch.eval``) of celeba128, pose256 and transporter_atari
                 bulk extraction (b1024 x 8) against one batch
   23. wide      heatmaps above 64 a side (the block-per-heatmap kernels): K1,
      heatmaps   K1b and K3 forward and backward against their plain versions
-                at 65^2, 96^2, 128^2 and 65x200, both variants, both
-                align_corners; K3 against K1 then K2 bit for bit; the
+                at 65^2, 96^2, 128^2 and 65x200 (and maps of 7x13 and
+                5x3), both variants, both align_corners; K3 against K1
+                then K2 and its unaligned maps bit for bit; the
                 dispatchers (spatial_softmax, extract_and_render) at 65^2,
                 96^2 and 128^2, forward and backward, counted; then the
                 times of K1, K1b and K3 at b128 K=10 96^2 and 128^2 against
@@ -126,7 +132,9 @@ keypoints_tpu_torch.eval``) of celeba128, pose256 and transporter_atari
   25. route     celeba128's b128 bf16 step with its field warps through K5
      A/B        and through upsample + K4, in turns (new, old, old, new);
                 make_pair alone both ways, the two pairs equal; the dense
-                route (make_pair of 32^2 images) counted: K4's launches
+                route (make_pair of 32^2 images) counted (K4's launches),
+                K4's two warps there within one bf16 ulp of plain, and
+                timed, with K4 alone at one of its TPS grids
   26. route     celeba128's b128 bf16 step with its marginal bottleneck
      A/B        through K1 then K2 (patched in here) and through the
                 package's K3, in turns (old, new, new, old); one step of
@@ -405,6 +413,55 @@ def kernel_phase() -> float:
     return worst
 
 
+def _dense_warp_cases(rs) -> list:
+    """K4's cases (what, f32 image, grid): celeba128's b128 3x128^2, a
+    ragged image, the dense route's b128 3x32^2, the tiles' ragged edges (Ho
+    not a multiple of 32, Wo not one of 64, odd Wo over two tiles, Wo = 1),
+    a grid with NaN points,
+    a grid far outside the image ([-5, 5]) and B = 70,000 (images along two
+    grid dimensions); grids span [-1.2, 1.2] unless said otherwise."""
+    def inputs(shape, out_hw, span=1.2):
+        img = torch.from_numpy(rs.rand(*shape).astype(np.float32)).cuda()
+        grid = torch.from_numpy(((rs.rand(shape[0], *out_hw, 2) * 2 - 1)
+                                 * span).astype(np.float32)).cuda()
+        return img, grid
+    cases = [("b128 3x128^2", *inputs((TRAIN_BATCH, 3, 128, 128), (128, 128))),
+             ("13x29 -> 11x17", *inputs((2, 3, 13, 29), (11, 17))),
+             ("b128 3x32^2", *inputs((TRAIN_BATCH, 3, 32, 32), (32, 32))),
+             ("40x50 -> 45x70", *inputs((1, 3, 40, 50), (45, 70))),
+             ("20x24 -> 33x65", *inputs((2, 3, 20, 24), (33, 65))),
+             ("16x16 -> 37x1", *inputs((2, 3, 16, 16), (37, 1))),
+             ("out of range", *inputs((2, 3, 48, 40), (40, 72), span=5.0)),
+             ("B = 70000", *inputs((70000, 1, 2, 2), (2, 2)))]
+    img, grid = inputs((2, 3, 64, 64), (64, 64))
+    grid[rs.rand(*grid.shape) < 0.05] = float("nan")
+    cases.append(("NaN points", img, grid))
+    return cases
+
+
+def _dense_warp_error(img, grid, got, padding, align, what) -> float:
+    """K4's result against the plain version (f32 within GRAD_TOL and
+    F.grid_sample's, bf16 within one bf16 ulp). A NaN point reads as one far
+    outside the image, as the kernel's corner math takes it: 0 under zeros
+    padding, the border under border padding (the plain version cannot
+    index at NaN; F.grid_sample, which gives NaN under zeros padding, is
+    held to the grids without NaN)."""
+    nan = bool(torch.isnan(grid).any())
+    want = plain_warp(img, torch.nan_to_num(grid, nan=-10.0), padding, align)
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    if img.dtype == torch.float32:
+        check(err <= GRAD_TOL, f"warp {what}: {err}")
+        if not nan:
+            lib = F.grid_sample(img, grid, "bilinear", padding, align)
+            check((got - lib).abs().max().item() <= GRAD_TOL,
+                  f"warp vs F.grid_sample {what}")
+    else:
+        check(bool((diff <= bf16_ulp(want)).all()),
+              f"warp {what}: more than one bf16 ulp ({err})")
+    return err
+
+
 def _plain_grad(fn, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     x = x.detach().clone().requires_grad_(True)
     (grad,) = torch.autograd.grad(fn(x), x, g)
@@ -488,38 +545,27 @@ def training_kernels_phase() -> dict:
           f"gradient's max), two backward calls equal bit for bit",
           flush=True)
 
-    # bilinear warp (K4)
-    for shape, out_hw in [((TRAIN_BATCH, 3, 128, 128), (128, 128)),
-                          ((2, 3, 13, 29), (11, 17))]:
-        img32 = torch.from_numpy(rs.rand(*shape).astype(np.float32)).cuda()
-        # points outside the image included: the grid spans [-1.2, 1.2]
-        grid = torch.from_numpy((rs.rand(shape[0], *out_hw, 2) * 2.4 - 1.2)
-                                .astype(np.float32)).cuda()
+    # bilinear warp (K4): celeba128's b128 3x128^2, the dense route's
+    # b128 3x32^2, then the tiles' ragged edges, a grid with NaN points, one
+    # far outside the image, and more images than a grid dimension holds
+    cases = 0
+    for what, img32, grid in _dense_warp_cases(rs):
         for dtype in (torch.float32, torch.bfloat16):
             img = img32.to(dtype)
             for padding in ("zeros", "border"):
                 for align in (True, False):
                     got = wcu.warp_bilinear_cuda(img, grid, padding, align)
                     torch.cuda.synchronize()
-                    want = plain_warp(img, grid, padding, align)
+                    case = f"{what} {dtype} {padding} align={align}"
                     check(got.dtype == dtype, f"warp output {got.dtype}")
-                    diff = (got.float() - want.float()).abs()
-                    err = diff.max().item()
+                    err = _dense_warp_error(img, grid, got, padding, align,
+                                            case)
                     errs["warp_bilinear"] = max(errs.get("warp_bilinear", 0.0),
                                                 err)
-                    what = f"{shape}->{out_hw} {dtype} {padding} align={align}"
-                    if dtype == torch.float32:
-                        check(err <= GRAD_TOL, f"warp {what}: {err}")
-                        lib = F.grid_sample(img, grid, "bilinear", padding,
-                                            align)
-                        check((got - lib).abs().max().item() <= GRAD_TOL,
-                              f"warp vs F.grid_sample {what}")
-                    else:
-                        check(bool((diff <= bf16_ulp(want)).all()),
-                              f"warp {what}: more than one bf16 ulp ({err})")
-    print(f"warp: 16 cases, max|d| {errs['warp_bilinear']:.3e} (f32 "
-          f"tolerance {GRAD_TOL}, bf16 within one bf16 ulp of plain)",
-          flush=True)
+                    cases += 1
+    print(f"warp: {cases} cases, max|d| {errs['warp_bilinear']:.3e} (f32 "
+          f"tolerance {GRAD_TOL}, also against F.grid_sample; bf16 within "
+          f"one bf16 ulp of plain)", flush=True)
     return errs
 
 
@@ -903,40 +949,50 @@ def kernel_times_phase(card: str, trainer) -> dict:
     the library call's where there is one, and the bound."""
     phase(f"9 times on {card}")
     cfg, *_ = trainer
+    cases = _bottleneck_cases(TRAIN_BATCH, cfg.model.num_keypoints,
+                              cfg.model.sigma, 3)
+    out = _time_cases(cases, card)
+    out.update(warp_times(card))
+    return out
+
+
+def warp_times(card: str) -> dict:
+    """K4 and K5 at celeba128's train-step warp (b128 3x128^2 images, the
+    augmentation's F = 33 field; K4 at that field upsampled to 128^2): bf16
+    against bound, plain and library; K4 also on the f32 image (ROADMAP
+    B.4). Returns the bf16 entries, the kernels line's."""
     b = TRAIN_BATCH
-    cases = _bottleneck_cases(b, cfg.model.num_keypoints, cfg.model.sigma, 3)
+    cfg = get_config("celeba128")
     rs = np.random.RandomState(4)
     img = torch.from_numpy(rs.rand(b, 3, 128, 128).astype(np.float32)).cuda()
-    img = img.to(torch.bfloat16)
+    img32, img = img, img.to(torch.bfloat16)
     field = random_warp_field(step_generator(0, 0, "cuda"), b,
                               warp_config(cfg)).contiguous()
     grid = upsample_field_aligned(field, 128, 128).contiguous()
     grid_bf16 = grid.to(torch.bfloat16)
-    cases["warp_bilinear"] = (
-        lambda: wcu.warp_bilinear_cuda(img, grid, "border", True),
-        lambda: plain_warp(img, grid, "border", True),
-        lambda: F.grid_sample(img, grid_bf16, "bilinear", "border", True),
-        _bound(2 * img.nelement() * img.element_size()
-               + grid.nelement() * 4, 30 * b * 128 * 128
-               + 8 * img.nelement()))
-    cases["warp_field"] = (
-        lambda: wcu.warp_field_cuda(img, field, 128, 128, "border", True),
-        lambda: plain_warp(img, upsample_field_aligned(field, 128, 128),
-                           "border", True), None,
-        _bound(2 * img.nelement() * img.element_size()
-               + field.nelement() * 4, 50 * b * 128 * 128
-               + 8 * img.nelement()))
-    out = _time_cases(cases, card)
+
+    def bound(image, points_bytes, ops_a_pixel):
+        return _bound(2 * image.nelement() * image.element_size()
+                      + points_bytes, ops_a_pixel * b * 128 * 128
+                      + 8 * image.nelement())
+    out = _time_cases({
+        "warp_bilinear": (
+            lambda: wcu.warp_bilinear_cuda(img, grid, "border", True),
+            lambda: plain_warp(img, grid, "border", True),
+            lambda: F.grid_sample(img, grid_bf16, "bilinear", "border", True),
+            bound(img, grid.nelement() * 4, 30)),
+        "warp_field": (
+            lambda: wcu.warp_field_cuda(img, field, 128, 128, "border", True),
+            lambda: plain_warp(img, upsample_field_aligned(field, 128, 128),
+                               "border", True), None,
+            bound(img, field.nelement() * 4, 50))}, card)
     print("warp library call: F.grid_sample on the bf16 image takes only a "
           "bf16 grid, so it reads the grid cast to bf16", flush=True)
-    img32 = img.float()
-    f32_k = cuda_median_ms(lambda: wcu.warp_bilinear_cuda(img32, grid,
-                                                          "border", True),
-                           reps=20)
-    f32_l = cuda_median_ms(lambda: F.grid_sample(img32, grid, "bilinear",
-                                                 "border", True), reps=20)
-    print(f"warp f32 image, same inputs: kernel {f32_k * 1e3:.2f} us, "
-          f"F.grid_sample {f32_l * 1e3:.2f} us  [{card}]", flush=True)
+    _time_cases({"warp_bilinear": (
+        lambda: wcu.warp_bilinear_cuda(img32, grid, "border", True),
+        lambda: plain_warp(img32, grid, "border", True),
+        lambda: F.grid_sample(img32, grid, "bilinear", "border", True),
+        bound(img32, grid.nelement() * 4, 30))}, card, label=" f32 image")
     return out
 
 
@@ -1420,7 +1476,24 @@ BOTTLENECK_CASES = {"atari b64": ((64, 4, 16, 16), (16, 16), 0.1),
                     "unaligned": ((4, 10, 32, 32), (32, 32), 0.1),
                     "8x4100 maps": ((2, 3, 32, 32), (8, 4100), 0.1),
                     "4x13000 maps": ((1, 2, 16, 16), (4, 13000), 0.1),
-                    "65x8 to 3x12400": ((1, 2, 65, 8), (3, 12400), 0.1)}
+                    "65x8 to 3x12400": ((1, 2, 65, 8), (3, 12400), 0.1),
+                    # the output sizes the map writing branches on: Wo % 4
+                    # != 0 with Ho * Wo odd (scalar stores), Wo < 4, and
+                    # float4 runs of a 16-wide map from 32^2 heatmaps
+                    "7x13 maps": ((2, 5, 16, 16), (7, 13), 0.1),
+                    "5x3 maps": ((2, 5, 13, 29), (5, 3), 0.1),
+                    "16x16 maps": ((4, 10, 32, 32), (16, 16), 0.1)}
+
+
+def _unaligned_maps_equal(x, kp, maps, t, sigma, align, variant) -> bool:
+    """K3 with its maps 4 bytes past a 16-byte boundary (pixel by pixel
+    stores) gives ``kp`` and ``maps`` bit for bit."""
+    buf = torch.empty(maps.numel() + 1, device="cuda")
+    off = buf[1:].view(maps.shape)
+    kp_off = torch.empty_like(kp)
+    fbc._launch(x, kp_off, off, t, sigma, align, variant)
+    torch.cuda.synchronize()
+    return torch.equal(kp_off, kp) and torch.equal(off, maps)
 
 
 def fused_kernel_phase() -> dict:
@@ -1460,6 +1533,8 @@ def fused_kernel_phase() -> dict:
             check(torch.equal(kp, kp1)
                   and torch.equal(maps, maps2.reshape(maps.shape)),
                   f"K3 {what}: not K1 then K2 bit for bit")
+            check(_unaligned_maps_equal(x, kp, maps, t, sigma, align, variant),
+                  f"K3 {what}: maps 4 bytes past a 16-byte boundary differ")
 
             xk = x.clone().requires_grad_(True)
             torch.autograd.backward(fbc.softargmax_raster_autograd(
@@ -1485,7 +1560,8 @@ def fused_kernel_phase() -> dict:
           f"{fused_map_tolerance(0.05):.2e} at 0.05), "
           f"dheatmaps max|d| {worst['dh']:.3e} (at {worst['dh_share']:.3f} of "
           f"its elementwise tolerance); keypoints and maps equal to K1 then "
-          f"K2 bit for bit in all {cases} cases", flush=True)
+          f"K2 bit for bit in all {cases} cases, and with the maps 4 bytes "
+          f"past a 16-byte boundary", flush=True)
     return {"softargmax_raster_fwd": max(worst["kp"], worst["maps"])}
 
 
@@ -1983,7 +2059,10 @@ def eval_phase(card: str, tmp: str) -> list:
 WIDE_CASES = [((2, 3, 65, 65), (65, 65), 0.1),
               ((128, 10, 96, 96), (96, 96), 0.1),
               ((128, 10, 128, 128), (128, 128), 0.1),
-              ((2, 3, 65, 200), (33, 100), 0.05)]
+              ((2, 3, 65, 200), (33, 100), 0.05),
+              # the block path's scalar stores: Wo % 4 != 0, Wo < 4
+              ((2, 3, 65, 65), (7, 13), 0.1),
+              ((2, 3, 70, 96), (5, 3), 0.05)]
 # celeba128's widths with stride-1 encoders: 128^2 heatmaps
 WIDE_TRAIN = {"model.encoder_strides": (1, 1, 1, 1, 1),
               "model.decoder_upsample": (False, False, False),
@@ -2038,7 +2117,9 @@ def wide_kernels_phase(card: str) -> None:
                 maps2 = gcu.gaussian_fwd_cuda(kp.reshape(-1, 2), ho, wo,
                                               sigma, align)
                 bits = (torch.equal(kp3, kp)
-                        and torch.equal(maps, maps2.reshape(maps.shape)))
+                        and torch.equal(maps, maps2.reshape(maps.shape))
+                        and _unaligned_maps_equal(x, kp3, maps, 0.7, sigma,
+                                                  align, variant))
                 check(bits, f"K3 {what}: not K1 then K2 bit for bit")
                 same += int(bits)
                 xk = x.clone().requires_grad_(True)
@@ -2098,7 +2179,14 @@ def wide_kernels_phase(card: str) -> None:
               f"extract_and_render forward and backward through the "
               f"kernels, both variants", flush=True)
 
-    # times at b128 K=10
+    wide_times(card, rs)
+
+
+def wide_times(card: str, rs=None) -> None:
+    """K1, K1b and K3 at b128 K=10 96^2 and 128^2 (the block path), both
+    variants, against the bound and the plain version; K3 against K1 then
+    K2 on the same heatmaps."""
+    rs = rs or np.random.RandomState(23)
     for side in (96, 128):
         b, k = 128, 10
         n, hw = b * k, side * side
@@ -2192,7 +2280,9 @@ def route_phase(card: str) -> list:
     patching ``data.augment.warp_sample_field``), in turns new, old, old,
     new; ``make_pair`` alone both ways, and both routes' pairs equal bit for
     bit; then the route that still reaches K4, ``make_pair`` of 32^2 images
-    (F = 33 is not below 32, so the exact TPS grid), counted."""
+    (F = 33 is not below 32, so the exact TPS grid), counted, its pair
+    equal to the one from its draws and K4's two warps at those draws
+    within one bf16 ulp of plain."""
     phase(f"25 route A/B: celeba128's field warps through K5 or upsample + "
           f"K4, b{TRAIN_BATCH} bf16, on {card}")
     from keypoints_tpu_torch.data import augment
@@ -2244,11 +2334,10 @@ def route_phase(card: str) -> list:
     del trainer
     torch.cuda.empty_cache()
 
-    small = torch.rand((TRAIN_BATCH, 3, 32, 32), device="cuda",
-                       dtype=torch.bfloat16)
+    small, draws = dense_route_inputs()
     torch.cuda.synchronize()
     reset_counts()
-    make_pair(step_generator(0, 26, "cuda"), small, wcfg)
+    pair = make_pair(step_generator(0, 26, "cuda"), small, wcfg)
     torch.cuda.synchronize()
     counts = read_counts()
     print(f"make_pair b{TRAIN_BATCH} 3x32^2 (the dense TPS grid): launches "
@@ -2257,7 +2346,53 @@ def route_phase(card: str) -> list:
         want = 2 if name == "warp_bilinear" else 0
         check(counts[name] == want, f"{name} launched {counts[name]} times by "
               f"the dense route ({want} expected)")
+    check(all(torch.equal(a, b) for a, b in zip(
+        pair, augment.pair_from_draws(small, draws, wcfg))),
+        "the dense route's pair differs from the pair of its draws")
+    err = 0.0
+    for side, grid in (("source", draws.source), ("target", draws.target)):
+        got = wcu.warp_bilinear_cuda(small, grid.contiguous(), "border", True)
+        err = max(err, _dense_warp_error(small, grid, got, "border", True,
+                                         f"dense route {side}"))
+    print(f"  K4 at the dense route's two TPS grids: max|d| {err:.3e} "
+          f"against plain (within one bf16 ulp)", flush=True)
+    dense_route_times(card, small, draws.source.contiguous())
     return [counts]
+
+
+def dense_route_inputs():
+    """The dense route's inputs: seeded b128 3x32^2 bf16 images and the
+    draws ``make_pair`` takes for them from ``step_generator(0, 26)`` with
+    celeba128's warp settings (two exact TPS grids, two sets of factors)."""
+    from keypoints_tpu_torch.data.augment import draw_pair
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    small = torch.rand((TRAIN_BATCH, 3, 32, 32), generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    draws = draw_pair(step_generator(0, 26, "cuda"), tuple(small.shape),
+                      warp_config(get_config("celeba128")), small.dtype)
+    return small, draws
+
+
+def dense_route_times(card: str, small: torch.Tensor,
+                      grid: torch.Tensor) -> None:
+    """The route that still reaches K4, ``make_pair`` of the b128 3x32^2
+    bf16 images ``small`` (F = 33 is not below 32, so the exact TPS grid):
+    one call with its launches and host work, as phase 25 times make_pair
+    at 128^2; then K4 alone at ``grid``, one of that route's TPS grids,
+    against bound and plain."""
+    from keypoints_tpu_torch.data.augment import make_pair
+    wcfg = warp_config(get_config("celeba128"))
+    pair_ms = cuda_median_ms(lambda: make_pair(
+        step_generator(0, 26, "cuda"), small, wcfg), runs=20,
+        queue_behind_sleep=False)
+    print(f"make_pair b{TRAIN_BATCH} 3x32^2 bf16 (the dense route): "
+          f"{pair_ms:.4f} ms a call  [{card}]", flush=True)
+    _time_cases({"warp_bilinear": (
+        lambda: wcu.warp_bilinear_cuda(small, grid, "border", True),
+        lambda: plain_warp(small, grid, "border", True), None,
+        _bound(2 * small.nelement() * 2 + grid.nelement() * 4,
+               30 * TRAIN_BATCH * 32 * 32 + 8 * small.nelement()))}, card,
+        label=f" b{TRAIN_BATCH} 3x32^2 bf16")
 
 
 def bottleneck_route_phase(card: str) -> list:

@@ -19,33 +19,47 @@
 // saves the (N, 2) round trip and the second launch of the unfused K1 -> K2
 // pair, so kernels.extract_and_render takes it in both variants.
 //
-// Design: one warp per heatmap, as K1, and K1's launch geometry
-// (kWarpsPerBlock warps a block). The keypoint comes from K1's own functions
-// (softmax.cuh: marginal_keypoint, joint_keypoint, with K1's chunk and load
-// width), so it equals K1's to the bit, and every lane holds it after the
-// butterfly reductions. The warp then writes the map straight from
-// registers, lane i at flat pixels i, i + 32, ... (one coalesced 128-byte
-// store per step), each pixel by the raster's own formula (common.cuh
-// gaussian_value), so the map equals K2's on that keypoint. A warp has 32
-// threads for Ho*Wo pixels where K2 has one thread a pixel, so the loop is
-// kept short: the output grid's coordinates (axis_coord, two float
-// divisions each) are computed once per block into shared memory, and the
-// pixel's (x, y) advance by 32 without an integer division. The table
-// (Ho + Wo floats, and on the block path the sums and reduction scratch
-// beside it) may take a block's whole 227 KB of shared memory, as the
-// raster's (gaussian.cu) may; above the default 48 KB the kernel opts in.
+// Design. Up to 64 a side, one warp per heatmap and kFusedWarps heatmaps a
+// block. The keypoint comes from K1's own functions (softmax.cuh:
+// marginal_keypoint, joint_keypoint, with K1's chunk and load width), so it
+// equals K1's to the bit, and every lane holds it after the butterfly
+// reductions. Then the warp writes its map, each pixel by the raster's own
+// formula (common.cuh gaussian_value) on the coordinates axis_coord gives,
+// so the map equals K2's on that keypoint to the bit. What the map writing
+// costs is a warp's chain of exps and stores behind its keypoint, so:
+//  * runs of 4: where Wo % 4 == 0 and the maps are 16-byte aligned (every
+//    preset), lane l writes runs of 4 neighbouring pixels l, l + 32, ...
+//    (runs of a row, never across one), one float4 store and one float4
+//    read of the column table each: 8 stores a lane at 32^2, 2 at 16^2.
+//    A lane's runs are independent (4 unrolled), so their exps overlap.
+//    Otherwise a lane writes pixels l, l + 32, ... with scalar stores. In
+//    both, (x, y) step by a fixed (dx, dy) and one conditional wrap, with no
+//    division and no loop a pixel;
+//  * the table after the loads: the output's coordinates (Ho + Wo
+//    axis_coord values, a division each) go to shared memory after the
+//    keypoint functions have issued their loads, so their latency overlaps
+//    the keypoint's chain, and the block's one barrier sits between the
+//    keypoints and the maps (a warp past the last heatmap still reaches it).
+//    The table (and on the block path the sums and reduction scratch beside
+//    it) may take a block's whole 227 KB of shared memory, as the raster's
+//    (gaussian.cu) may; above the default 48 KB the kernel opts in.
+// kFusedWarps is K3's own (K1 keeps softmax.cuh's kWarpsPerBlock): of 1,
+// 2, 4 and 8, the fastest summed over the presets' train steps on an H100
+// (PERF.md; tools/softmax_ab.py --set kFusedWarps=N times the others).
 //
 // H or W above 64: one block of 256 threads per heatmap, as K1's block
 // path. The keypoint comes from the same block functions (softmax.cuh:
 // block_marginal_keypoint, block_joint_keypoint), so it equals K1's to the
-// bit there too; then the block writes the map, thread t at flat pixels t,
-// t + 256, ..., each by gaussian_value from the coordinate table. The TPU
-// kernel's
-// block-row tiling (_block_rows, _flat_spec) and indicator-matrix marginals
-// exist for Mosaic's lack of lane-splitting reshapes and have no
+// bit there too; then the block writes the map from the coordinate table,
+// thread t at runs t, t + 256, ... of 4 pixels (float4) where Wo % 4 == 0
+// and the maps are aligned, else at pixels t, t + 256, ... The TPU
+// kernel's block-row tiling (_block_rows, _flat_spec) and indicator-matrix
+// marginals exist for Mosaic's lack of lane-splitting reshapes and have no
 // counterpart here.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "softmax.cuh"
 
@@ -56,9 +70,11 @@ using kpcommon::gaussian_value;
 using kpcommon::kWarp;
 using kpsoftmax::bad_shape;
 using kpsoftmax::joint_keypoint;
-using kpsoftmax::kWarpsPerBlock;
 using kpsoftmax::marginal_keypoint;
 
+// Heatmaps (warps) a block of the warp-path kernel
+constexpr int kFusedWarps = 1;
+constexpr int kRun = 4;                     // pixels a float4 store writes
 constexpr size_t kDefaultSmem = 48 * 1024;  // without an opt-in
 constexpr size_t kMaxSmem = 227 * 1024;     // a block's shared memory, sm_90
 // Static shared memory of block_fused_fwd (part, scratch), in floats
@@ -83,63 +99,106 @@ cudaError_t fit_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <bool kJoint, int R, bool kQuad>
-__global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
-fused_fwd(const float* __restrict__ in, float* __restrict__ kp,
-          float* __restrict__ maps, int n_rows, int h, int w, int ho, int wo,
-          float inv_t, float inv_two_s2, bool align) {
-  extern __shared__ float coords[];          // u of x < wo, then v of y < ho
-  for (int i = threadIdx.x; i < wo + ho; i += blockDim.x)
-    coords[i] = i < wo ? axis_coord(i, wo, align)
-                       : axis_coord(i - wo, ho, align);
-  __syncthreads();
-  const float* us = coords;
-  const float* vs = coords + wo;
-
-  const int lane = threadIdx.x % kWarp;
-  const long long row = kpsoftmax::warp_heatmap(n_rows);
-  if (row < 0) return;
-  const float* p = in + row * h * w;
-  float ex, ey;
-  if (kJoint)
-    joint_keypoint<R, kQuad>(p, h, w, inv_t, align, lane, ex, ey);
-  else
-    marginal_keypoint<R, kQuad>(p, h, w, inv_t, align, lane, ex, ey);
-  if (lane == 0) {
-    kp[2 * row] = ex;
-    kp[2 * row + 1] = ey;
+// The (ho, wo) map `o` of keypoint (ex, ey) from the coordinate table (us
+// of x < wo, 16-byte aligned; vs of y < ho), written by kThreads threads,
+// this one `t`: where `vec`, runs t, t + kThreads, ... of kRun pixels, one
+// float4 each; else pixels t, t + kThreads, ... Each pixel by
+// gaussian_value, as gaussian.cu writes it. (x, y) step by a fixed (dx, dy)
+// and wrap once at most: dx is below the row.
+template <int kThreads>
+__device__ __forceinline__ void write_map(float* __restrict__ o,
+                                          const float* us, const float* vs,
+                                          int ho, int wo, float ex, float ey,
+                                          float inv_two_s2, int t, bool vec) {
+  if (vec) {
+    const int rr = wo / kRun;                // runs a row
+    const int runs = ho * rr;
+    const int dy = kThreads / rr, dx = kThreads - dy * rr;
+    int y = t / rr, x = t - y * rr;
+    const float4* u4 = reinterpret_cast<const float4*>(us);
+    float4* o4 = reinterpret_cast<float4*>(o);
+#pragma unroll 4
+    for (int i = t; i < runs; i += kThreads) {
+      const float4 u = u4[x];
+      const float v = vs[y];
+      o4[i] = make_float4(gaussian_value(u.x, v, ex, ey, inv_two_s2),
+                          gaussian_value(u.y, v, ex, ey, inv_two_s2),
+                          gaussian_value(u.z, v, ex, ey, inv_two_s2),
+                          gaussian_value(u.w, v, ex, ey, inv_two_s2));
+      x += dx;
+      y += dy;
+      if (x >= rr) {
+        x -= rr;
+        ++y;
+      }
+    }
+    return;
   }
   const int hw = ho * wo;
-  float* o = maps + row * hw;
-  int y = lane / wo, x = lane - y * wo;      // of flat pixel i = lane
+  const int dy = kThreads / wo, dx = kThreads - dy * wo;
+  int y = t / wo, x = t - y * wo;
 #pragma unroll 4
-  for (int i = lane; i < hw; i += kWarp) {
+  for (int i = t; i < hw; i += kThreads) {
     o[i] = gaussian_value(us[x], vs[y], ex, ey, inv_two_s2);
-    x += kWarp;                              // pixel i + 32
-    while (x >= wo) {
+    x += dx;
+    y += dy;
+    if (x >= wo) {
       x -= wo;
       ++y;
     }
   }
 }
 
+// The output's coordinate table: u of x < wo, then v of y < ho.
+__device__ __forceinline__ void coord_table(float* coords, int ho, int wo,
+                                            bool align) {
+  for (int i = threadIdx.x; i < wo + ho; i += blockDim.x)
+    coords[i] = i < wo ? axis_coord(i, wo, align)
+                       : axis_coord(i - wo, ho, align);
+}
+
+template <bool kJoint, int R, bool kQuad>
+__global__ void __launch_bounds__(kFusedWarps * kWarp)
+fused_fwd(const float* __restrict__ in, float* __restrict__ kp,
+          float* __restrict__ maps, int n_rows, int h, int w, int ho, int wo,
+          float inv_t, float inv_two_s2, bool align, bool vec) {
+  extern __shared__ __align__(16) float coords[];  // coord_table
+  const int lane = threadIdx.x % kWarp;
+  const long long row = kpsoftmax::warp_heatmap(n_rows);
+  float ex = 0.0f, ey = 0.0f;
+  if (row >= 0) {
+    const float* p = in + row * h * w;
+    if (kJoint)
+      joint_keypoint<R, kQuad>(p, h, w, inv_t, align, lane, ex, ey);
+    else
+      marginal_keypoint<R, kQuad>(p, h, w, inv_t, align, lane, ex, ey);
+    if (lane == 0) {
+      kp[2 * row] = ex;
+      kp[2 * row + 1] = ey;
+    }
+  }
+  // the table after the keypoint's loads, then the block's one barrier
+  coord_table(coords, ho, wo, align);
+  __syncthreads();
+  if (row < 0) return;
+  write_map<kWarp>(maps + row * ho * wo, coords, coords + wo, ho, wo, ex, ey,
+                   inv_two_s2, lane, vec);
+}
+
 // H or W above 64: a block per heatmap. Dynamic shared memory: the output
-// coordinates (u of x < wo, then v of y < ho), then, marginal, the column
-// and row sums (w, then h floats).
+// coordinates (coord_table), then, marginal, the column and row sums (w,
+// then h floats).
 template <bool kJoint>
 __global__ void __launch_bounds__(kpsoftmax::kBlock)
 block_fused_fwd(const float* __restrict__ in, float* __restrict__ kp,
                 float* __restrict__ maps, int h, int w, int ho, int wo,
-                float inv_t, float inv_two_s2, bool align) {
+                float inv_t, float inv_two_s2, bool align, bool vec) {
   using kpsoftmax::kBlock;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   __shared__ float part[kpsoftmax::kPart];
   __shared__ float scratch[3 * kpsoftmax::kBlockWarps];
-  float* coords = smem;
-  for (int i = threadIdx.x; i < wo + ho; i += kBlock)
-    coords[i] = i < wo ? axis_coord(i, wo, align)
-                       : axis_coord(i - wo, ho, align);
   // the keypoint functions synchronise before the table is read
+  coord_table(smem, ho, wo, align);
   const size_t row = blockIdx.x;
   const float* p = in + row * h * w;
   float ex, ey;
@@ -154,21 +213,8 @@ block_fused_fwd(const float* __restrict__ in, float* __restrict__ kp,
     kp[2 * row] = ex;
     kp[2 * row + 1] = ey;
   }
-  const float* us = coords;
-  const float* vs = coords + wo;
-  const int hw = ho * wo;
-  float* o = maps + row * hw;
-  const int dy = kBlock / wo, dx = kBlock - dy * wo;
-  int y = threadIdx.x / wo, x = threadIdx.x - y * wo;  // of flat pixel t
-  for (int i = threadIdx.x; i < hw; i += kBlock) {
-    o[i] = gaussian_value(us[x], vs[y], ex, ey, inv_two_s2);
-    x += dx;                                 // pixel i + kBlock
-    y += dy;
-    if (x >= wo) {
-      x -= wo;
-      ++y;
-    }
-  }
+  write_map<kBlock>(maps + row * ho * wo, smem, smem + wo, ho, wo, ex, ey,
+                    inv_two_s2, threadIdx.x, vec);
 }
 
 // The warp-path kernel of a variant, chunk and load width, launched.
@@ -176,15 +222,15 @@ template <int R, bool kQuad>
 cudaError_t warp_fused(int variant, int n, size_t table, cudaStream_t s,
                        const float* x, float* k, float* m, int h, int w,
                        int ho, int wo, float inv_t, float inv_two_s2,
-                       bool align) {
-  const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock),
-      block(kWarpsPerBlock * kWarp);
+                       bool align, bool vec) {
+  const dim3 grid((n + kFusedWarps - 1) / kFusedWarps),
+      block(kFusedWarps * kWarp);
   const auto kernel =
       variant == 0 ? fused_fwd<true, R, kQuad> : fused_fwd<false, R, kQuad>;
   const cudaError_t e = fit_smem(kernel, table);
   if (e != cudaSuccess) return e;
   kernel<<<grid, block, table, s>>>(x, k, m, n, h, w, ho, wo, inv_t,
-                                    inv_two_s2, align);
+                                    inv_two_s2, align, vec);
   return cudaGetLastError();
 }
 
@@ -209,6 +255,9 @@ extern "C" int kp_softargmax_raster_fwd(int variant, int n, int h, int w,
   // the raster's 1 / (2 sigma^2), computed as gaussian.cu computes it
   const float inv_two_s2 = 1.0f / (2.0f * sigma * sigma);
   const bool align = align_corners != 0;
+  // float4 runs where a run never crosses a row and every map is aligned
+  const bool vec = wo % kRun == 0 &&
+                   reinterpret_cast<std::uintptr_t>(maps) % 16 == 0;
   const size_t table = (static_cast<size_t>(ho) + wo) * sizeof(float);
   if (kpsoftmax::wide(h, w)) {
     const size_t dyn =
@@ -218,7 +267,7 @@ extern "C" int kp_softargmax_raster_fwd(int variant, int n, int h, int w,
     const cudaError_t e = fit_smem(kernel, dyn);
     if (e != cudaSuccess) return static_cast<int>(e);
     kernel<<<n, kpsoftmax::kBlock, dyn, s>>>(x, k, m, h, w, ho, wo, inv_t,
-                                             inv_two_s2, align);
+                                             inv_two_s2, align, vec);
     return static_cast<int>(cudaGetLastError());
   }
   const bool quad = kpsoftmax::quad_ok(w, x);
@@ -226,17 +275,17 @@ extern "C" int kp_softargmax_raster_fwd(int variant, int n, int h, int w,
   if (kpsoftmax::warp_chunk(h, w) == kpsoftmax::kSmallChunk) {
     e = quad ? warp_fused<kpsoftmax::kSmallChunk, true>(
                    variant, n, table, s, x, k, m, h, w, ho, wo, inv_t,
-                   inv_two_s2, align)
+                   inv_two_s2, align, vec)
              : warp_fused<kpsoftmax::kSmallChunk, false>(
                    variant, n, table, s, x, k, m, h, w, ho, wo, inv_t,
-                   inv_two_s2, align);
+                   inv_two_s2, align, vec);
   } else {
     e = quad ? warp_fused<kpsoftmax::kChunk, true>(
                    variant, n, table, s, x, k, m, h, w, ho, wo, inv_t,
-                   inv_two_s2, align)
+                   inv_two_s2, align, vec)
              : warp_fused<kpsoftmax::kChunk, false>(
                    variant, n, table, s, x, k, m, h, w, ho, wo, inv_t,
-                   inv_two_s2, align);
+                   inv_two_s2, align, vec);
   }
   return static_cast<int>(e);
 }

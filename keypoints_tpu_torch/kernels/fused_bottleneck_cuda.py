@@ -66,16 +66,16 @@ def softargmax_raster_cuda(heatmaps: torch.Tensor, out_height: int,
     2)`` ``(x, y)`` and maps ``(B, K, Ho, Wo)``, both f32.
 
     Launches on the current stream of the tensor's device and does not
-    synchronise. Heatmaps of up to 64 a side take a warp per heatmap, two
-    a block as the soft-argmax kernel, larger ones a block. Raises on
-    anything the kernel does not take: what
-    ``spatial_softmax_cuda.check_heatmaps`` rejects, sigma not positive, an
-    output side below 1, or a block's shared memory (:func:`table_floats`)
-    above :data:`gaussian_cuda.MAX_TABLE` floats: up to 64 a side, Ho + Wo
-    up to 58,112, the raster backward's own limit. The outputs carry no
-    gradient: :class:`SoftargmaxRasterFused` does.
+    synchronise. Heatmaps of up to 64 a side take a warp per heatmap
+    (``csrc/fused_bottleneck.cu`` kFusedWarps a block), larger ones a
+    block; each writes its map in float4 runs of 4 pixels where Wo % 4 ==
+    0, else pixel by pixel. Raises on anything the kernel does not take:
+    what ``spatial_softmax_cuda.check_heatmaps`` rejects, sigma not
+    positive, an output side below 1, or a block's shared memory
+    (:func:`table_floats`) above :data:`gaussian_cuda.MAX_TABLE` floats: up
+    to 64 a side, Ho + Wo up to 58,112, the raster backward's own limit.
+    The outputs carry no gradient: :class:`SoftargmaxRasterFused` does.
     """
-    global launches
     check_heatmaps(heatmaps, variant, "softargmax_raster_cuda")
     check_sigma(sigma)
     ho, wo = int(out_height), int(out_width)
@@ -88,8 +88,21 @@ def softargmax_raster_cuda(heatmaps: torch.Tensor, out_height: int,
     kp = torch.empty((b, k, 2), dtype=torch.float32, device=heatmaps.device)
     maps = torch.empty((b, k, ho, wo), dtype=torch.float32,
                        device=heatmaps.device)
-    if b * k == 0:
-        return kp, maps
+    if b * k:
+        _launch(heatmaps, kp, maps, temperature, sigma, align_corners,
+                variant)
+    return kp, maps
+
+
+def _launch(heatmaps: torch.Tensor, kp: torch.Tensor, maps: torch.Tensor,
+            temperature: float, sigma: float, align_corners: bool,
+            variant: str) -> None:
+    """The kernel into ``kp`` and ``maps`` (contiguous f32 views, ``maps``
+    at any 4-byte offset: the kernel stores float4 runs only where the maps
+    are 16-byte aligned), on checked heatmaps; counted."""
+    global launches
+    b, k, h, w = heatmaps.shape
+    ho, wo = maps.shape[-2:]
     fn = _build.entry("kp_softargmax_raster_fwd", _I, _I, _I, _I, _I, _I, _F,
                       _F, _I, _P, _P, _P, _P)
     _build.launch(fn, heatmaps, f"softargmax_raster_fwd (N={b * k}, {h}x{w} "
@@ -99,7 +112,6 @@ def softargmax_raster_cuda(heatmaps: torch.Tensor, out_height: int,
                   kp.data_ptr(), maps.data_ptr())
     with _build.lock:
         launches += 1
-    return kp, maps
 
 
 class SoftargmaxRasterFused(torch.autograd.Function):

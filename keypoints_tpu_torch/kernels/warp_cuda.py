@@ -8,7 +8,13 @@ replaces ``warp_field_pallas`` (K5): the same sampling at a coarse
 exists. Both compute ``torch.nn.functional.grid_sample`` exactly: bilinear, ``padding_mode`` zeros or border, explicit
 ``align_corners``, with the corner, clip and zero-weight rules of
 ``warp_pallas._grid_math`` and ``ops/warp.grid_sample``. The output has the
-image's dtype (f32 or bf16); all index and weight arithmetic is f32.
+image's dtype (f32 or bf16); all index and weight arithmetic is f32. Both
+run one tile kernel body (a block of 256 threads an output tile: 32x64
+pixels with each tile's source footprint staged in shared memory within a
+budget for the field, 16x32 pixels gathered from device memory for a
+dense grid), which differs only in where a pixel's point comes from, so
+the field warp equals ``upsample_field_aligned`` followed by the dense warp
+bit for bit.
 
 What is not carried over, and why:
 
@@ -48,8 +54,8 @@ MAX_FIELD = 512    # a tile's field rows lerped along H: <= 128 KB of shared mem
 STAGE_BYTES = {torch.float32: 48 * 1024, torch.bfloat16: 32 * 1024}
 MAX_STAGE_BYTES = 96 * 1024
 
-#: dense-grid kernel launches so far; the wrapper adds one per launch and
-#: nowhere else
+#: dense-grid kernel calls so far; the wrapper adds one per call that
+#: launches (more than one launch past 65,535 images) and nowhere else
 launches = 0
 #: field kernel launches so far
 field_launches = 0
@@ -65,8 +71,10 @@ def warp_bilinear_cuda(image: torch.Tensor, grid: torch.Tensor,
     → (B, C, Ho, Wo) in the image's dtype.
 
     Both tensors contiguous on one CUDA device; image f32 or bf16, grid f32
-    aligned to 8 bytes. Launches on the current stream and does not
-    synchronise.
+    aligned to 8 bytes; H*W < 2**31. Runs the field warp's tile kernel on
+    the grid's points, 16x32 output pixels a block, gathering from device
+    memory. Launches on the current stream (more than once past 65,535
+    images) and does not synchronise.
     """
     global launches
     _build.require(image, "warp_bilinear_cuda image", tuple(DTYPES), 4)

@@ -287,32 +287,57 @@ def test_gaussian_forward_and_backward_match_plain(cuda, shape, align):
 
 # --- bilinear warp (K4) ----------------------------------------------------------
 
+# (image shape, output Ho x Wo, grid span, share of NaN points)
+WARP_CASES = [((128, 3, 128, 128), (128, 128), 1.2, 0.0),
+              ((2, 3, 13, 29), (11, 17), 1.2, 0.0),
+              # the dense route's shape (make_pair of images 32 wide)
+              ((128, 3, 32, 32), (32, 32), 1.2, 0.0),
+              # ragged tiles: Ho not a multiple of 32 (or 16) and Wo not
+              # one of 64 (or 32), odd Wo over two tiles, Wo = 1
+              ((1, 3, 40, 50), (45, 70), 1.2, 0.0),
+              ((2, 3, 20, 24), (33, 65), 1.2, 0.0),
+              ((2, 3, 16, 16), (37, 1), 1.2, 0.0),
+              # points far outside the image; NaN points
+              ((2, 3, 48, 40), (40, 72), 5.0, 0.0),
+              ((2, 3, 64, 64), (64, 64), 1.2, 0.05),
+              # more images than one grid dimension holds
+              ((70000, 1, 2, 2), (2, 2), 1.2, 0.0)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("align", [True, False])
 @pytest.mark.parametrize("padding", ["zeros", "border"])
-@pytest.mark.parametrize("case", [((128, 3, 128, 128), (128, 128)),
-                                  ((2, 3, 13, 29), (11, 17))],
-                         ids=["b128-128", "ragged"])
+@pytest.mark.parametrize("case", WARP_CASES,
+                         ids=["b128-128", "ragged", "b128-32", "45x70", "33x65",
+                              "37x1", "far", "nan", "b70000"])
 def test_warp_matches_plain_and_grid_sample(cuda, case, padding, align,
                                             dtype):
-    shape, out_hw = case
+    """K4 within f32 1e-5 of plain and of ``F.grid_sample`` (bf16: one bf16
+    ulp of plain). A NaN point reads as one far
+    outside the image, as the corner math takes it: 0 under zeros padding,
+    the border under border padding (the plain version cannot index at
+    NaN, and ``F.grid_sample`` gives NaN under zeros padding, so both are
+    held to the grid with NaN replaced by -10)."""
+    shape, out_hw, span, nan_share = case
     rs = np.random.RandomState(7)
     img = torch.from_numpy(rs.rand(*shape).astype(np.float32)).to(cuda)
     img = img.to(dtype)
-    # points outside the image included: the grid spans [-1.2, 1.2]
-    grid = torch.from_numpy((rs.rand(shape[0], *out_hw, 2) * 2.4 - 1.2)
-                            .astype(np.float32)).to(cuda)
+    grid = torch.from_numpy(((rs.rand(shape[0], *out_hw, 2) * 2 - 1) * span)
+                            .astype(np.float32))
+    grid[torch.from_numpy(rs.rand(*grid.shape) < nan_share)] = float("nan")
+    grid = grid.to(cuda)
     before = warp_cuda.launches
     got = warp_sample(img, grid, padding, align)
     torch.cuda.synchronize()
     assert warp_cuda.launches == before + 1
-    assert got.dtype == dtype and got.shape == (shape[0], 3, *out_hw)
-    want = plain_warp(img, grid, padding, align)
+    assert got.dtype == dtype and got.shape == (shape[0], shape[1], *out_hw)
+    far = torch.nan_to_num(grid, nan=-10.0)
+    want = plain_warp(img, far, padding, align)
     err = (got.float() - want.float()).abs()
     if dtype == torch.float32:
         assert err.max().item() <= 1e-5
-        lib = F.grid_sample(img, grid, "bilinear", padding, align)
+        lib = F.grid_sample(img, far, "bilinear", padding, align)
         assert (got - lib).abs().max().item() <= 1e-5
     else:
         assert bool((err <= bf16_ulp(want)).all())
@@ -408,10 +433,11 @@ def _zoom_shear(b, f, device):
                                   ((2, 3, 40, 40), 2, (40, 40)),
                                   ((1, 3, 40, 40), warp_cuda.MAX_FIELD,
                                    (50, 70)),
-                                  ((2, 3, 256, 256), "zoom", (256, 256))],
+                                  ((2, 3, 256, 256), "zoom", (256, 256)),
+                                  ((1, 3, 40, 50), 9, (45, 70))],
                          ids=["b16-256", "ragged-F9", "ragged-F33", "b128-128",
                               "Ho-not-H", "Wo-odd", "F2", "F-max",
-                              "zoom-shear"])
+                              "zoom-shear", "45x70"])
 def test_field_warp_matches_upsample_and_plain_warp(cuda, case, padding,
                                                      align, dtype):
     """The field kernel equals ``upsample_field_aligned`` + the dense-grid
@@ -589,14 +615,21 @@ BOTTLENECK = [((64, 4, 16, 16), (16, 16), 0.1),     # transporter_atari b64
               # widths of several chunks, one column of 2 loads a lane
               ((2, 3, 64, 64), (64, 64), 0.1),
               ((1, 5, 31, 33), (31, 33), 0.1),
-              ((2, 5, 64, 1), (16, 4), 0.1)]
+              ((2, 5, 64, 1), (16, 4), 0.1),
+              # the output sizes the map writing branches on: Wo % 4 != 0
+              # with Ho * Wo odd (pixel by pixel), Wo < 4, float4 runs of a
+              # 16-wide map from 32^2 heatmaps
+              ((2, 5, 16, 16), (7, 13), 0.1),
+              ((2, 5, 13, 29), (5, 3), 0.1),
+              ((4, 10, 32, 32), (16, 16), 0.1)]
 
 
 @pytest.mark.parametrize("align", [True, False])
 @pytest.mark.parametrize("variant", ["marginal", "joint"])
 @pytest.mark.parametrize("case", BOTTLENECK,
                          ids=["atari-b64", "ragged", "celeba-b128",
-                              "pose-b128", "64x64", "31x33", "64x1"])
+                              "pose-b128", "64x64", "31x33", "64x1",
+                              "7x13-maps", "5x3-maps", "16x16-maps"])
 def test_fused_bottleneck_matches_plain_and_the_unfused_kernels(
         cuda, case, variant, align):
     """K3 against ``ops.fused_bottleneck``: keypoints within TOL, maps
@@ -656,13 +689,17 @@ def test_fused_bottleneck_backward_matches_plain_autograd(cuda, case,
 WIDE_BOTTLENECK = [((2, 3, 65, 65), (65, 65), 0.1),
                    ((2, 3, 96, 96), (48, 48), 0.1),
                    ((4, 5, 128, 128), (128, 128), 0.05),
-                   ((2, 3, 65, 200), (33, 100), 0.1)]
+                   ((2, 3, 65, 200), (33, 100), 0.1),
+                   # pixel by pixel: Wo % 4 != 0, Wo < 4
+                   ((2, 3, 65, 65), (7, 13), 0.1),
+                   ((2, 3, 70, 96), (5, 3), 0.05)]
 
 
 @pytest.mark.parametrize("align", [True, False])
 @pytest.mark.parametrize("variant", ["marginal", "joint"])
 @pytest.mark.parametrize("case", WIDE_BOTTLENECK,
-                         ids=["65x65", "96x96", "128x128", "65x200"])
+                         ids=["65x65", "96x96", "128x128", "65x200",
+                              "7x13-maps", "5x3-maps"])
 def test_wide_fused_bottleneck_matches_plain_and_the_unfused_kernels(
         cuda, case, variant, align):
     """K3 above 64 a side (the block-per-heatmap kernel): keypoints within
@@ -695,6 +732,30 @@ def test_wide_fused_bottleneck_matches_plain_and_the_unfused_kernels(
     tol = fused_grad_tolerance(x, ho, wo, 0.7, sigma, align, variant, g_kp,
                                g_maps)
     assert bool(((xk.grad - xr.grad).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("variant", ["marginal", "joint"])
+@pytest.mark.parametrize("case", [BOTTLENECK[0], BOTTLENECK[2], BOTTLENECK[7],
+                                  WIDE_BOTTLENECK[2], WIDE_BOTTLENECK[4]],
+                         ids=["atari-b64", "celeba-b128", "7x13-maps",
+                              "128x128", "wide-7x13-maps"])
+def test_fused_bottleneck_maps_at_an_unaligned_base(cuda, case, variant):
+    """K3 with its maps 4 bytes past a 16-byte boundary (no float4 runs,
+    pixel by pixel): keypoints and maps equal to the aligned call's bit for
+    bit, warp and block path."""
+    shape, (ho, wo), sigma = case
+    x = _heatmaps(*shape, cuda, seed=25)
+    kp, maps = fbc.softargmax_raster_cuda(x, ho, wo, 0.7, sigma, True,
+                                          variant)
+    buf = torch.full((maps.numel() + 1,), float("nan"), device=cuda)
+    off = buf[1:].view(maps.shape)
+    assert off.data_ptr() % 16 == 4
+    kp_off = torch.empty_like(kp)
+    before = fbc.launches
+    fbc._launch(x, kp_off, off, 0.7, sigma, True, variant)
+    torch.cuda.synchronize()
+    assert fbc.launches == before + 1
+    assert torch.equal(kp_off, kp) and torch.equal(off, maps)
 
 
 @pytest.mark.parametrize("variant", ["marginal", "joint"])

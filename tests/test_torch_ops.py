@@ -143,6 +143,27 @@ def test_plain_warp_matches_pallas_and_grid_sample(padding, align):
     np.testing.assert_allclose(got.numpy(), torch_ref.numpy(), atol=ATOL)
 
 
+# the output sizes where the CUDA kernel's 32x64 tiles are ragged: Ho not a
+# multiple of 32 and Wo not one of 64 (40x70), odd Wo over two tiles (24x65),
+# Wo = 1 (56x1); the Pallas kernel takes Ho in multiples of 8 only
+RAGGED_TILES = [((1, 3, 40, 50), (40, 70)), ((2, 3, 20, 24), (24, 65)),
+                ((2, 3, 16, 16), (56, 1))]
+
+
+@pytest.mark.parametrize("padding", ["zeros", "border"])
+@pytest.mark.parametrize("align", [True, False])
+@pytest.mark.parametrize("case", RAGGED_TILES, ids=["40x70", "24x65", "56x1"])
+def test_plain_warp_matches_pallas_at_ragged_tiles(case, align, padding):
+    shape, out_hw = case
+    img, grid = _warp_inputs(shape, out_hw, seed=14)
+    got = grid_sample(torch.from_numpy(img), torch.from_numpy(grid), padding,
+                      align)
+    pallas = warp_bilinear_pallas(jnp.asarray(img), jnp.asarray(grid),
+                                  padding, align, interpret=True)
+    assert got.shape == (shape[0], 3, *out_hw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=ATOL)
+
+
 @pytest.mark.parametrize("padding", ["zeros", "border", "reflection"])
 @pytest.mark.parametrize("mode", ["bilinear", "nearest"])
 def test_plain_warp_ragged_matches_jax(mode, padding):

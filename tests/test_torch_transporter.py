@@ -167,18 +167,27 @@ def _rand(*shape, seed, scale=1.0):
 
 
 @pytest.mark.parametrize("align", [True, False])
-@pytest.mark.parametrize("variant,hw", [("joint", (16, 16)),
-                                        ("marginal", (16, 24))])
+@pytest.mark.parametrize("variant,hw", [
+    ("joint", ((16, 16), (12, 16))),
+    ("marginal", ((16, 24), (12, 16))),
+    # the output sizes the CUDA kernel's map writing branches on: Wo % 4 != 0
+    # with Ho * Wo odd (scalar stores), Wo < 4, Wo % 4 == 0 at 16x16 (float4
+    # runs, transporter_atari's), and a ragged heatmap
+    ("joint", ((16, 16), (7, 13))),
+    ("marginal", ((13, 29), (5, 3))),
+    ("marginal", ((16, 16), (16, 16))),
+    ("joint", ((13, 29), (9, 11)))])
 def test_plain_bottleneck_matches_the_fused_pallas_kernel(variant, hw, align):
-    """Forward 1e-5 (tests/test_kernels.py's bar), 16x16 and 16x24
-    heatmaps rendered at 12x16."""
-    hm = _rand(2, 3, *hw, seed=21, scale=4)
-    kp_j, maps_j = softargmax_raster_fused(jnp.asarray(hm), 12, 16, 0.7,
+    """Forward 1e-5 (tests/test_kernels.py's bar): 16x16 and 16x24 heatmaps
+    rendered at 12x16, then at 7x13, 5x3, 16x16 and 9x11."""
+    (h, w), (ho, wo) = hw
+    hm = _rand(2, 3, h, w, seed=21, scale=4)
+    kp_j, maps_j = softargmax_raster_fused(jnp.asarray(hm), ho, wo, 0.7,
                                            0.15, align, variant=variant,
                                            interpret=True)
-    kp, maps = softargmax_raster(torch.from_numpy(hm), 12, 16, 0.7, 0.15,
+    kp, maps = softargmax_raster(torch.from_numpy(hm), ho, wo, 0.7, 0.15,
                                  align, variant)
-    assert kp.shape == (2, 3, 2) and maps.shape == (2, 3, 12, 16)
+    assert kp.shape == (2, 3, 2) and maps.shape == (2, 3, ho, wo)
     np.testing.assert_allclose(kp.numpy(), np.asarray(kp_j), rtol=0,
                                atol=1e-5)
     np.testing.assert_allclose(maps.numpy(), np.asarray(maps_j), rtol=0,
