@@ -14,7 +14,10 @@ with the preset's marginal one (the fused bottleneck kernel in both); the
 banded warps K7 and K8 through their entry points (``kernels.experimental``)
 at celeba128's and pose256's b128 warps; and the eval CLI (``python -m
 keypoints_tpu_torch.eval``) of celeba128, pose256 and transporter_atari
-(joint) at b64.
+(joint) at b64; the train loop (``python -m keypoints_tpu_torch.train`` and
+``train()``: transporter_atari on the committed ``data/atari_64.npy``,
+pong64 on scripted Pong, celeba128 on a face store it generates) with its
+checkpoints and bit-exact resume, and store-backed eval of its checkpoint.
 
    1. device    torch/CUDA versions, ``nvidia-smi`` name and power limit
    2. build     the one kernel library, every ``csrc/*.cu`` built by nvcc
@@ -2457,6 +2460,329 @@ def bottleneck_route_phase(card: str) -> list:
     return [route_counts["K3"]]
 
 
+
+# phase 27: the train CLI at each preset's full width, and its resume
+CLI_PRESETS = ("transporter_atari", "pong64")
+CLI_STEPS = 40
+CLI_OVERRIDES = ["train.checkpoint_every=20", "train.log_every=10",
+                 "train.eval_every=20", "train.max_to_keep=1"]
+# phase 28: train() in this process; preset -> (overrides, steps, launches
+# a step, launches an eval, launches once: the scoring pair's warps, the
+# first eval's rows of a synthetic source)
+LOOP_CASES = {
+    "transporter_atari": ({}, 30,
+                          {"softargmax_raster_fwd": 2,
+                           "spatial_softmax_bwd": 1, "gaussian_bwd": 1},
+                          {"spatial_softmax_fwd": 1,
+                           "softargmax_raster_fwd": 2}, {}),
+    "celeba128": ({"train.batch_size": 32}, 30,
+                  {"warp_field": 2, "softargmax_raster_fwd": 1,
+                   "spatial_softmax_bwd": 1, "gaussian_bwd": 1},
+                  {"spatial_softmax_fwd": 1, "softargmax_raster_fwd": 1},
+                  {"warp_field": 2}),
+    "pong64": ({}, 15,
+               {"gaussian_fwd": 2, "softargmax_raster_fwd": 1,
+                "spatial_softmax_bwd": 1, "gaussian_bwd": 1},
+               {"spatial_softmax_fwd": 1, "softargmax_raster_fwd": 1},
+               {"gaussian_fwd": 4}),
+}
+LOOP_EVAL_EVERY = 15
+STREAM_STEPS = 6
+OVERHEAD_STEPS = (10, 40)
+STORE_EVAL_RTOL = 1e-4   # store eval: card f32 (TF32 off) vs the CPU
+
+
+def _same_tensors(a, b, what: str) -> int:
+    """Check two checkpoint payloads equal bit for bit, tensor by tensor;
+    → the count of tensors compared."""
+    if isinstance(a, torch.Tensor):
+        check(isinstance(b, torch.Tensor) and a.dtype == b.dtype
+              and a.shape == b.shape and torch.equal(a, b),
+              f"{what} differs")
+        return 1
+    if isinstance(a, dict):
+        check(isinstance(b, dict) and a.keys() == b.keys(),
+              f"{what}: keys differ")
+        return sum(_same_tensors(a[k], b[k], f"{what}.{k}") for k in a)
+    if isinstance(a, (list, tuple)):
+        check(len(a) == len(b), f"{what}: lengths differ")
+        return sum(_same_tensors(x, y, f"{what}[{i}]")
+                   for i, (x, y) in enumerate(zip(a, b)))
+    check(a == b, f"{what}: {a!r} != {b!r}")
+    return 0
+
+
+def train_cli_phase(card: str, tmp: str) -> str:
+    """``python -m keypoints_tpu_torch.train`` at full width: transporter_atari
+    on the committed ``data/atari_64.npy`` (resident on the card) and pong64
+    (scripted Pong drawn on the card), 40 steps in one process, then 20 and
+    a resumed 20 in two; the final checkpoints, model and optimizer, equal
+    bit for bit. → the uninterrupted transporter_atari run's directory."""
+    phase(f"27 train CLI and resume, full width, on {card}")
+    for preset in CLI_PRESETS:
+        runs = {}
+        for run, steps in (("full", CLI_STEPS), ("split", CLI_STEPS // 2),
+                           ("split", CLI_STEPS)):
+            logdir = os.path.join(tmp, f"{preset}_{run}_{steps}_logs")
+            argv = [sys.executable, "-m", "keypoints_tpu_torch.train",
+                    "--preset", preset, "--steps", str(steps), "--logdir",
+                    logdir, "--override",
+                    f"train.checkpoint_dir={os.path.join(tmp, run)}",
+                    *CLI_OVERRIDES]
+            t0 = time.perf_counter()
+            out = subprocess.run(argv, cwd=ROOT, capture_output=True,
+                                 text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            check(out.returncode == 0, f"{preset} train CLI ({run}, {steps} "
+                  f"steps) exited {out.returncode}: {out.stderr[-3000:]}")
+            lines = out.stdout.splitlines()
+            print(f"{preset} {run} {steps} steps: {wall:.2f}s wall (process "
+                  f"start, kernel load, store, steps); "
+                  f"{' | '.join(l for l in lines if l.startswith('step') or 'resumed' in l)}",
+                  flush=True)
+            if run == "split" and steps == CLI_STEPS:
+                check(f"resumed from step {CLI_STEPS // 2}" in out.stdout,
+                      f"{preset}: the second process did not resume")
+            rows = [json.loads(l) for l in
+                    Path(logdir, "metrics.jsonl").read_text().splitlines()]
+            for key in ("loss", "grad_norm", "keypoint_spread"):
+                vals = [r[key] for r in rows if key in r]
+                check(bool(vals) and all(v is not None and np.isfinite(v)
+                                         for v in vals),
+                      f"{preset} {run}: {key} in metrics.jsonl: {vals}")
+            runs[run] = os.path.join(tmp, run, preset)
+        for run, directory in runs.items():
+            files = sorted(os.listdir(directory))
+            check(files == [f"{CLI_STEPS}.pt"], f"{preset} {run}: "
+                  f"max_to_keep=1 kept {files}")
+            check(os.path.exists(os.path.join(tmp, run, f"{preset}_best",
+                                              "best.json")),
+                  f"{preset} {run}: no best.json")
+        full, split = (torch.load(os.path.join(runs[r], f"{CLI_STEPS}.pt"),
+                                  map_location="cpu", weights_only=True)
+                       for r in ("full", "split"))
+        n = _same_tensors(full, split, f"{preset} checkpoint")
+        best = json.loads(Path(tmp, "full", f"{preset}_best",
+                               "best.json").read_text())
+        print(f"{preset}: step-{CLI_STEPS} checkpoints of the uninterrupted "
+              f"and the resumed run equal bit for bit ({n} tensors, model "
+              f"and optimizer); best {best}", flush=True)
+    return os.path.join(tmp, "full", "transporter_atari")
+
+
+def _loop_cfg(preset: str, tmp: str, **over):
+    overrides, steps, *_ = LOOP_CASES[preset]
+    return get_config(preset).override(**{
+        **overrides, "train.steps": steps, "train.log_every": 10,
+        "train.eval_every": LOOP_EVAL_EVERY,
+        "train.checkpoint_every": LOOP_EVAL_EVERY,
+        "train.checkpoint_dir": os.path.join(tmp, f"loop_{preset}"),
+        "data.data_dir": (os.path.join(tmp, "data") if preset == "celeba128"
+                          else "data"), **over})
+
+
+def _timed_train(cfg) -> tuple[float, object]:
+    from keypoints_tpu_torch import train as train_mod
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = train_mod.train(cfg)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, state
+
+
+def train_loop_phase(card: str, tmp: str) -> list:
+    """``train()`` in this process at full width: transporter_atari on the
+    committed store, celeba128 at b32 on a face store it generates, pong64
+    on scripted Pong; the launches of each run against its steps and evals;
+    the stream path of transporter_atari (``fits_in_memory`` patched here
+    only); the loop's ms/step against ``make_train_step`` alone; then
+    celeba128's b128 bf16 step with cuDNN's deterministic setting off and
+    on, in turns. → the counts of the runs."""
+    phase(f"28 train loop in this process, full width, on {card}")
+    from keypoints_tpu_torch import train as train_mod
+    path_counts = []
+    for preset, (_, steps, per_step, per_eval, once) in LOOP_CASES.items():
+        cfg = _loop_cfg(preset, tmp)
+        if preset == "celeba128":
+            # the trainer generates the store; this phase times the loop
+            train_mod.make_batch_iterator(cfg, device="cuda")
+            store = Path(cfg.data.data_dir, "celeba_128.npy")
+            print(f"face store {store.name}: "
+                  f"{np.load(store, mmap_mode='r').shape}, "
+                  f"{store.stat().st_size / 1e6:.1f} MB", flush=True)
+        reset_counts()
+        wall, state = _timed_train(cfg)
+        counts = read_counts()
+        path_counts.append(counts)
+        evals = steps // LOOP_EVAL_EVERY
+        want = {name: per_step.get(name, 0) * steps
+                + per_eval.get(name, 0) * evals + once.get(name, 0)
+                for name in KERNELS}
+        print(f"{preset} b{cfg.train.batch_size} train(): {steps} steps, "
+              f"{evals} evals in {wall:.2f}s; launches {counts}", flush=True)
+        check(state.step == steps, f"{preset}: train() stopped at "
+              f"{state.step}")
+        for name in KERNELS:
+            check(counts[name] == want[name], f"{preset} loop launched "
+                  f"{name} {counts[name]} times ({want[name]} expected)")
+        del state
+        torch.cuda.empty_cache()
+
+    # the stream path, forced: host reads, pinned copies, the same step
+    real = train_mod.fits_in_memory
+    train_mod.fits_in_memory = lambda *a, **k: False
+    try:
+        cfg = _loop_cfg("transporter_atari", tmp, **{
+            "train.steps": STREAM_STEPS, "train.eval_every": 1000,
+            "train.checkpoint_every": 1000,
+            "train.checkpoint_dir": os.path.join(tmp, "stream")})
+        check(not isinstance(train_mod.make_batch_iterator(cfg),
+                             train_mod.InStepBatches),
+              "the patched budget did not take the stream path")
+        reset_counts()
+        wall, state = _timed_train(cfg)
+        counts = read_counts()
+    finally:
+        train_mod.fits_in_memory = real
+    path_counts.append(counts)
+    print(f"transporter_atari through the host stream: {STREAM_STEPS} "
+          f"steps in {wall:.2f}s; launches {counts}", flush=True)
+    check(state.step == STREAM_STEPS and counts["softargmax_raster_fwd"]
+          == 2 * STREAM_STEPS and counts["spatial_softmax_bwd"]
+          == STREAM_STEPS, f"stream path: step {state.step}, {counts}")
+    del state
+
+    # the loop's own cost: its ms/step between the log reads at steps 10
+    # and 40 of one run (the logger's scalars patched here to note the
+    # time; each read waits for the card), against make_train_step on the
+    # same source's batches with the same reads, both with cuDNN
+    # deterministic, in turns (loop, bare, bare, loop)
+    first, last = OVERHEAD_STEPS
+    for preset in ("transporter_atari", "celeba128"):
+        ms = {"loop": [], "bare": []}
+        for turn, kind in enumerate(("loop", "bare", "bare", "loop")):
+            cfg = _loop_cfg(preset, tmp, **{
+                "train.steps": last, "train.eval_every": 1000,
+                "train.checkpoint_every": 1000,
+                "train.checkpoint_dir": os.path.join(
+                    tmp, f"overhead_{preset}_{turn}")})
+            if kind == "loop":
+                ticks = {}
+                scalars = train_mod.Logger.scalars
+
+                def noting(self, step, **kv):
+                    if "loss" in kv:
+                        ticks[step] = time.perf_counter()
+                    return scalars(self, step, **kv)
+                train_mod.Logger.scalars = noting
+                try:
+                    train_mod.train(cfg)
+                finally:
+                    train_mod.Logger.scalars = scalars
+                ms["loop"].append((ticks[last] - ticks[first])
+                                  / (last - first) * 1e3)
+                continue
+            flags = (torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark)
+            torch.backends.cudnn.deterministic = True
+            torch.backends.cudnn.benchmark = False
+            try:
+                state = init_state(cfg, "cuda")
+                step = make_train_step(cfg)
+                source = train_mod.make_batch_iterator(cfg, device="cuda")
+                t0 = None
+                for i in range(last):
+                    state, metrics = step(state, source.sample_at(i))
+                    if (i + 1) % 10 == 0:
+                        float(metrics["loss"])      # the loop's log read
+                        if i + 1 == first:
+                            t0 = time.perf_counter()
+                ms["bare"].append((time.perf_counter() - t0)
+                                  / (last - first) * 1e3)
+            finally:
+                (torch.backends.cudnn.deterministic,
+                 torch.backends.cudnn.benchmark) = flags
+            del state, step, source
+        print(f"{preset} b{cfg.train.batch_size} bf16, steps {first + 1}-"
+              f"{last} (host clock, a loss read every 10 steps): train() "
+              f"loop {' / '.join(f'{v:.3f}' for v in ms['loop'])} ms/step, "
+              f"make_train_step on the source's batches "
+              f"{' / '.join(f'{v:.3f}' for v in ms['bare'])} (loop, bare, "
+              f"bare, loop): overhead "
+              f"{np.mean(ms['loop']) - np.mean(ms['bare']):+.3f} ms/step  "
+              f"[{card}]", flush=True)
+        torch.cuda.empty_cache()
+
+    # cuDNN's deterministic setting, the cost of bit-exact resume
+    trainer = _train_setup("celeba128")
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    det_ms = {False: [], True: []}
+    try:
+        for det in (False, True, True, False):
+            torch.backends.cudnn.deterministic = det
+            torch.backends.cudnn.benchmark = False
+            det_ms[det].append(train_step_times(
+                card, trainer, steps=20, label=f"celeba128, cuDNN "
+                f"deterministic {'on' if det else 'off'},"))
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    print(f"cuDNN deterministic A/B, celeba128 b{TRAIN_BATCH} bf16 step, ms "
+          f"(off, on, on, off): off {det_ms[False][0]:.3f} / "
+          f"{det_ms[False][1]:.3f}, on {det_ms[True][0]:.3f} / "
+          f"{det_ms[True][1]:.3f}: {np.mean(det_ms[True]) - np.mean(det_ms[False]):+.3f} "
+          f"ms/step  [{card}]", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return path_counts
+
+
+def store_eval_phase(card: str, tmp: str, ckdir: str) -> list:
+    """``python -m keypoints_tpu_torch.eval --preset transporter_atari
+    --checkpoint`` phase 27's directory: the store's held-out tail (the
+    committed ``data/atari_64.npy`` has no sidecar), 64 rows; then the same
+    checkpoint in float32 (TF32 off) on the card, counted, against the
+    port's plain path on the CPU. → the counts of the card's eval."""
+    phase(f"29 store eval of phase 27's checkpoint on {card}")
+    out = os.path.join(tmp, "store_eval.json")
+    argv = ["--preset", "transporter_atari", "--checkpoint", ckdir]
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "keypoints_tpu_torch.eval",
+                          *argv, "--json", out], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(run.returncode == 0, f"store eval CLI exited {run.returncode}: "
+          f"{run.stderr[-2000:]}")
+    record = json.loads(Path(out).read_text())
+    print(f"store eval CLI ({wall:.2f}s): {run.stdout.splitlines()[-2]}",
+          flush=True)
+    check(set(record) == EVAL_RECORD_KEYS and record["source"] == "store"
+          and record["held_out"] is True and record["rows"] == EVAL_BATCH
+          and record["step"] == CLI_STEPS and record["gt"] is None,
+          f"store eval record {record}")
+    check(np.isfinite(record["metrics"]["eval_loss"]),
+          f"store eval metrics {record['metrics']}")
+    f32 = ["--override", "train.compute_dtype=float32"]
+    reset_counts()
+    card_f32 = peval.main(argv + f32)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    cpu_f32 = peval.main(argv + f32 + ["--device", "cpu"])
+    rel = (abs(card_f32["metrics"]["eval_loss"]
+               - cpu_f32["metrics"]["eval_loss"])
+           / cpu_f32["metrics"]["eval_loss"])
+    print(f"store eval f32 (TF32 off): card {card_f32['metrics']['eval_loss']:.7f}"
+          f" vs CPU plain {cpu_f32['metrics']['eval_loss']:.7f}, rel "
+          f"{rel:.2e} (tolerance {STORE_EVAL_RTOL}); launches {counts}  "
+          f"[{card}]", flush=True)
+    check(rel <= STORE_EVAL_RTOL, f"store eval card vs CPU rel {rel}")
+    check(card_f32["rows"] == EVAL_BATCH and counts == {
+        name: 2 if name == "softargmax_raster_fwd" else 0 for name in KERNELS},
+        f"store eval on the card: {card_f32}, {counts}")
+    return [counts]
+
+
 def main() -> int:
     card = device_phase()
     build_phase()
@@ -2512,6 +2838,10 @@ def main() -> int:
     path_counts.extend(wide_train_phase(card))
     path_counts.extend(route_phase(card))
     path_counts.extend(bottleneck_route_phase(card))
+    with tempfile.TemporaryDirectory() as tmp:
+        ckdir = train_cli_phase(card, tmp)
+        path_counts.extend(train_loop_phase(card, tmp))
+        path_counts.extend(store_eval_phase(card, tmp, ckdir))
 
     errs["spatial_softmax_fwd"] = max(errs["spatial_softmax_fwd"],
                                       served["serve_max_abs_err"])

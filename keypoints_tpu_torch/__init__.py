@@ -19,7 +19,14 @@ Ported so far:
 * the Transporter (transporter_atari): ``models.Transporter`` from
   ``training.build_model``, trained through the temporal mode of
   ``make_train_step`` on (source, target) frame pairs, such as the
-  scripted-Pong pairs of ``data.synthetic``.
+  scripted-Pong pairs of ``data.synthetic``;
+* evaluation (``eval``, ``python -m keypoints_tpu_torch.eval``) on the
+  synthetic sets and on a store's held-out tail;
+* the train loop (``train``, ``python -m keypoints_tpu_torch.train``): batch
+  sources from the synthetic generators and the packed frame stores
+  (``data.records``, ``data.device``; written by ``data.faces``,
+  ``data.pose`` and ``data.collect``), native checkpoints with bit-exact
+  resume (``checkpoint.CheckpointManager``), logging (``viz.Logger``).
 
 The soft-argmax (forward and backward), the Gaussian raster (forward and
 backward), the fused soft-argmax → raster bottleneck, the bilinear warps

@@ -1,6 +1,17 @@
-"""Weights from the JAX package — port of ``keypoints_tpu/checkpoint.py:103-153``.
+"""Checkpoints — port of ``keypoints_tpu/checkpoint.py``.
 
-The port's modules carry the flax parameter paths as names
+Native training checkpoints (``checkpoint.py:28-50``, on Orbax in JAX):
+:class:`CheckpointManager` keeps one file a step, ``{directory}/{step}.pt``,
+holding the model's and the optimizer's ``state_dict``, the step, the
+preset's name and :data:`FORMAT`. A step is written with ``torch.save`` to a
+``.tmp`` name and ``os.replace``d into place, so a crash never leaves a
+half-written file under a step's name (a leftover ``.tmp`` is ignored);
+steps beyond ``max_to_keep`` are deleted after the replace. The train
+step's draws are a pure function of (seed, step)
+(``training.step_generator``), so no random state is saved, as in JAX.
+``make_manager``, ``save`` and ``restore_latest`` keep their JAX names.
+
+Weights from the JAX package (``checkpoint.py:103-153``). The port's modules carry the flax parameter paths as names
 (``encoder.Conv_0.weight``, ``keynet.trunk.GroupNorm_0.weight``,
 ``decoder.head.bias``, ...), so a state dict written by ``keypoints-convert
 export-torch`` with no ``--rename`` loads as it is:
@@ -8,7 +19,8 @@ export-torch`` with no ``--rename`` loads as it is:
 * ``state_dict_from_flax(params)`` turns nested flax params (numpy arrays,
   or anything ``np.asarray`` takes) into that state dict — conv kernels
   HWIO → OIHW, ``kernel``/``scale`` → ``weight`` — with numpy alone;
-* ``load_checkpoint(path)`` reads a ``.pt`` state dict;
+* ``load_checkpoint(path)`` reads a ``.pt`` state dict, or the newest
+  step's model of a trainer directory;
 * ``load_model_state(model, state_dict)`` loads ``encoder.*``, ``keynet.*``
   and ``decoder.*`` into the whole model, the autoencoder or the
   Transporter (the same three trees), with ``strict=True``.
@@ -16,7 +28,9 @@ export-torch`` with no ``--rename`` loads as it is:
 
 from __future__ import annotations
 
+import os
 from collections.abc import Mapping
+from typing import Optional
 
 import numpy as np
 import torch
@@ -60,9 +74,100 @@ def state_dict_from_flax(params: Mapping) -> dict[str, np.ndarray]:
     return out
 
 
+#: version of the step files' layout (``{"format", "step", "preset",
+#: "model", "optimizer"}``)
+FORMAT = 1
+
+
+class CheckpointManager:
+    """Training checkpoints in ``directory``: ``{step}.pt`` files, the
+    newest ``max_to_keep`` kept. Saves are synchronous;
+    :meth:`wait_until_finished` exists for the JAX manager's callers."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.directory, f"{step}.pt")
+
+    def all_steps(self) -> list[int]:
+        """The saved steps, oldest first (``.tmp`` files are not steps)."""
+        return sorted(int(name[:-3]) for name in os.listdir(self.directory)
+                      if name.endswith(".pt") and name[:-3].isdigit())
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state, preset: str = "") -> None:
+        """Write ``state`` (a ``training.TrainState``) as step ``step``."""
+        payload = {"format": FORMAT, "step": int(step), "preset": preset,
+                   "model": state.model.state_dict(),
+                   "optimizer": state.optimizer.state_dict()}
+        final = self.path(step)
+        tmp = final + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, final)
+        for old in self.all_steps()[:-self.max_to_keep]:
+            os.remove(self.path(old))
+
+    def restore(self, step: int, state):
+        """Load step ``step`` into ``state``'s model and optimizer in place
+        and set its step; → ``state``.
+
+        The file is read onto the CPU: ``load_state_dict`` copies the
+        parameters and moments to their device, and the optimizer's step
+        counts stay on the host, where torch keeps them for a fresh
+        non-fused Adam (a count on the card would be read back every step).
+        """
+        payload = torch.load(self.path(step), map_location="cpu",
+                             weights_only=True)
+        if payload.get("format") != FORMAT:
+            raise ValueError(f"{self.path(step)}: checkpoint format "
+                             f"{payload.get('format')!r}, expected {FORMAT}")
+        state.model.load_state_dict(payload["model"])
+        state.optimizer.load_state_dict(payload["optimizer"])
+        state.step = int(payload["step"])
+        return state
+
+    def wait_until_finished(self) -> None:
+        """No-op: :meth:`save` has returned only once its file is in place."""
+
+
+def make_manager(directory: str, max_to_keep: int = 3) -> CheckpointManager:
+    return CheckpointManager(directory, max_to_keep)
+
+
+def save(manager: CheckpointManager, step: int, state,
+         preset: str = "") -> None:
+    manager.save(step, state, preset)
+
+
+def restore_latest(manager: CheckpointManager, state):
+    """→ (step, state restored in place) from the newest checkpoint, or
+    (None, state) untouched."""
+    step = manager.latest_step()
+    if step is None:
+        return None, state
+    return step, manager.restore(step, state)
+
+
 def load_checkpoint(path: str) -> dict[str, torch.Tensor]:
-    """A ``torch.save``d state dict, on the CPU."""
-    return torch.load(path, map_location="cpu", weights_only=True)
+    """A model state dict on the CPU, from a ``torch.save``d state dict (the
+    file ``keypoints-convert export-torch`` writes), a trainer step file, or
+    a trainer directory (its newest step)."""
+    if os.path.isdir(path):
+        manager = CheckpointManager(path)
+        step = manager.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint found in {path}")
+        path = manager.path(step)
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and "format" in obj and "model" in obj:
+        return obj["model"]
+    return obj
 
 
 def load_model_state(model: nn.Module, state_dict: Mapping) -> None:

@@ -6,13 +6,15 @@ the head frame, drawn with numpy (vectorized over the batch). The world
 positions of the eyes, nose and mouth are the eval set's ground-truth
 landmarks. :func:`render_faces` and :func:`_render_chunk` are copies of the
 JAX package's numpy code, so one ``RandomState`` seed gives both packages
-the same frames to the bit. ``generate_face_store`` (the FrameStore the
-trainer reads) comes with the data slice.
+the same frames to the bit, and :func:`generate_face_store` writes the
+same store, byte for byte, with JAX's sidecar.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from keypoints_tpu_torch.data.records import FrameStore
 
 # (center_u, center_v, radius_u, radius_v) in the head frame; colors are
 # jittered per image around these bases.
@@ -78,3 +80,17 @@ def _render_chunk(n: int, size: int, rng: np.random.RandomState,
     if return_landmarks:
         return img, np.stack([marks[k] for k in _LANDMARKS], axis=1)
     return img
+
+
+def generate_face_store(out_path: str, count: int = 2048, size: int = 128,
+                        seed: int = 0, chunk: int = 256) -> str:
+    """Generate the synthetic face FrameStore (no pair index: the celeba
+    recipe makes its pairs by warping inside the train step)."""
+    rng = np.random.RandomState(seed)
+    frames = []
+    for i in range(0, count, chunk):
+        n = min(chunk, count - i)
+        frames.append((_render_chunk(n, size, rng) * 255).astype(np.uint8))
+    FrameStore.write(out_path, np.concatenate(frames),
+                     meta={"origin": "synthetic_faces", "seed": seed})
+    return out_path

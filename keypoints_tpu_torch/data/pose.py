@@ -10,14 +10,17 @@ The kinematics (:func:`_skeleton`, :func:`joint_positions`,
 ``RandomState`` seed gives both packages the same bones. The renderer
 (:func:`_render_episode`, capsule distance fields of the bone segments over
 a dense pixel grid) runs in torch on the device it is given, as the JAX
-package runs it jitted on its device. ``generate_pose_store`` (the
-FrameStore the trainer reads) comes with the data slice.
+package runs it jitted on its device. :func:`generate_pose_store` writes
+the FrameStore the trainer reads, with JAX's sidecar; its frames are
+rendered on the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from keypoints_tpu_torch.data.records import FrameStore, episode_pairs
 
 # Bone lengths in normalized [-1, 1] units.
 _TORSO, _HEAD = 0.45, 0.13
@@ -117,3 +120,21 @@ def generate_episode(steps: int, rng: np.random.RandomState):
         r = np.clip(r + rng.normal(0, 0.02, 2), -0.35, 0.4)
         a = np.clip(a + rng.normal(0, 0.06, 9), -1.6, 1.6)
     return _skeleton(root, ang)
+
+
+def generate_pose_store(out_path: str, episodes: int = 20,
+                        steps_per_episode: int = 100, size: int = 256,
+                        delta: int = 2, seed: int = 0,
+                        device: torch.device | str = "cuda") -> str:
+    """Generate the synthetic pose FrameStore (+ temporal-pair index), each
+    episode rendered on ``device`` and quantized as JAX does."""
+    rng = np.random.RandomState(seed)
+    frames, lengths = [], []
+    for _ in range(episodes):
+        segs = generate_episode(steps_per_episode, rng)
+        frames.append(_render_episode(segs, size, device).cpu().numpy())
+        lengths.append(steps_per_episode)
+    arr = (np.clip(np.concatenate(frames), 0, 1) * 255).astype(np.uint8)
+    FrameStore.write(out_path, arr, episode_pairs(lengths, delta),
+                     meta={"origin": "synthetic_pose", "seed": seed})
+    return out_path

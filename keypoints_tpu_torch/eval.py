@@ -13,23 +13,25 @@ keypoint lies (locking, PCK).
 * :func:`synthetic_eval_batch` (``:67``): pose, scripted Pong, faces and
   moving dots; the renderers' numpy seed is drawn from a
   ``torch.Generator`` where JAX draws it from its key.
+* :func:`store_eval_batch` (``:132``): the held-out tail of a stored
+  dataset (``train.scoring_holdout``), the batch clamped to it; temporal
+  mode takes the stored pairs, warp mode makes one pair on the generator,
+  carrying ``--landmarks`` into the target where they are given.
 * :func:`eval_batch_for` (``:203``): the synthetic sets, and a dataset
   with no store on disk or a store whose sidecar names the synthetic
-  origin, go to the generator, as in JAX. Eval from a stored dataset
-  (``store_eval_batch``, which needs ``records.FrameStore`` and
-  ``train.scoring_holdout``) raises ``NotImplementedError``: it comes with
-  the train-loop and data slice (ROADMAP A.4).
+  origin, go to the generator; any other store (real footage, or a store
+  without a sidecar such as the committed ``data/atari_64.npy``) to
+  :func:`store_eval_batch`, as in JAX.
 * :func:`coordinate_parity` (``:259``).
 * ``python -m keypoints_tpu_torch.eval`` (``_cli``, ``:272``): flags
-  ``--preset --checkpoint --override --batch --json --device --seed``.
-  ``--checkpoint`` is a ``torch.save``d state dict, the file the port's
-  ``serve`` loads; the record has JAX's keys, with ``step`` null (a state
-  dict has no step).
+  ``--preset --checkpoint --override --batch --landmarks --json --device
+  --seed``. ``--checkpoint`` is a trainer directory (its newest step; the
+  record's ``step``) or a ``torch.save``d state dict, the file the port's
+  ``serve`` loads (``step`` null); the record has JAX's keys.
 
 Not yet ported: ``--artifact`` (scoring an exported extractor) waits for
-the export slice (ROADMAP A.8); ``--overlay`` waits for the tools slice
-(A.9); ``--landmarks`` (ground truth for stored footage) for the data slice
-(A.4).
+the export slice (ROADMAP A.4); ``--overlay`` waits for the tools slice
+(A.5).
 """
 
 from __future__ import annotations
@@ -43,11 +45,15 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from keypoints_tpu_torch.checkpoint import load_checkpoint, load_model_state
+from keypoints_tpu_torch.checkpoint import (CheckpointManager,
+                                            load_checkpoint, load_model_state)
 from keypoints_tpu_torch.configs import Config, apply_overrides, get_config
+from keypoints_tpu_torch.data.records import (FrameStore, store_path_for,
+                                              tail_pair_frames)
 from keypoints_tpu_torch.losses import l2_loss
 from keypoints_tpu_torch.training import (KeypointModel, build_model,
-                                          make_extract_fn, warp_config)
+                                          make_extract_fn, require_device,
+                                          warp_config)
 
 
 @contextlib.contextmanager
@@ -173,29 +179,79 @@ _SYNTHETIC_ORIGIN_FOR = {"pose": "synthetic_pose",
                          "atari": "scripted_pong"}
 
 
-def _store_origin(store: str) -> Optional[str]:
-    """The ``origin`` of a store's provenance sidecar (``{store}_meta.json``,
-    ``keypoints_tpu/data/records.py:45``), None without one."""
-    path = store[:-len(".npy")] + "_meta.json"
-    if not os.path.exists(path):
-        return None
-    with open(path) as f:
-        return json.load(f).get("origin")
+def store_eval_batch(cfg: Config, store: FrameStore, batch: int,
+                     generator: torch.Generator,
+                     landmarks: Optional[np.ndarray] = None):
+    """→ (src, tgt, true_positions | None, info) from a frame store, on
+    ``generator``'s device.
+
+    The rows are the store tail that ``train.scoring_holdout`` reserved
+    from training, the batch clamped to it so every scored row is held out;
+    a store too small to reserve a tail falls back to trained rows, and
+    ``info`` says so. Temporal mode takes the stored (frame_t,
+    frame_{t+Δ}) pairs; warp mode makes one pair as training does, on
+    ``generator``. ``landmarks`` is an optional (num_frames, K, 2) array of
+    normalized (x, y) ground truth aligned with the store's frames; warp
+    mode carries it into the target. ``info`` is ``{"source": "store",
+    "held_out", "rows", "requested_rows", "gt": "landmarks" | None}``.
+    """
+    from keypoints_tpu_torch.train import scoring_holdout
+    d = cfg.data
+    temporal = d.pair_mode == "temporal" and store.pairs is not None
+    n_items = len(store.pairs) if temporal else len(store.frames)
+    holdout = scoring_holdout(cfg, n_items)
+    if holdout:
+        if batch > holdout:
+            print(f"eval batch clamped {batch} -> {holdout}: only the "
+                  f"reserved store tail is held out of training "
+                  f"(train.scoring_holdout)", flush=True)
+        take = min(batch, holdout)
+    else:
+        print(f"store too small to reserve a held-out tail "
+              f"({n_items} items) — eval rows OVERLAP training data",
+              flush=True)
+        take = min(batch, n_items)
+    info = {"source": "store", "held_out": bool(holdout),
+            "rows": int(take), "requested_rows": int(batch),
+            "gt": "landmarks" if landmarks is not None else None}
+    if landmarks is not None and len(landmarks) != len(store.frames):
+        raise ValueError(
+            f"landmarks rows ({len(landmarks)}) must match store frames "
+            f"({len(store.frames)})")
+    device = generator.device
+    src, tgt, idx = tail_pair_frames(store, d.pair_mode, take, device)
+    marks = (None if landmarks is None
+             else np.asarray(landmarks[idx], np.float32))
+    wcfg = warp_config(cfg)
+    if temporal or not (wcfg.field_res and wcfg.field_res < d.image_size):
+        return src, tgt, marks, info
+    from keypoints_tpu_torch.data.augment import (
+        draw_pair, pair_from_draws, pair_with_positions_from_draws)
+    frames = src
+    draws = draw_pair(generator, tuple(frames.shape), wcfg, frames.dtype)
+    if marks is None:
+        src, tgt = pair_from_draws(frames, draws, wcfg)
+        return src, tgt, None, info
+    src, tgt, pos_t = pair_with_positions_from_draws(
+        frames, torch.from_numpy(marks).to(device), draws, wcfg)
+    return src, tgt, pos_t.cpu().numpy(), info
 
 
-def eval_batch_for(cfg: Config, batch: int, generator: torch.Generator
+def eval_batch_for(cfg: Config, batch: int, generator: torch.Generator,
+                   landmarks_path: Optional[str] = None
                    ) -> tuple[torch.Tensor, torch.Tensor,
                               Optional[np.ndarray], dict]:
-    """The eval set for ``cfg``: → (src, tgt, true_positions, info), with
-    ``info`` the holdout and ground-truth record ``{"source", "held_out",
-    "rows", "requested_rows", "gt"}``.
+    """The eval set for ``cfg``: → (src, tgt, true_positions | None, info),
+    with ``info`` the holdout and ground-truth record ``{"source",
+    "held_out", "rows", "requested_rows", "gt"}``.
 
-    The synthetic datasets, a dataset whose store
-    (``{data_dir}/{dataset}_{image_size}.npy``) is not on disk, and a store
-    whose sidecar names this dataset's synthetic origin take the generator
-    (exact ground truth; a fresh draw is held-out data), as in JAX. Any
-    other store raises ``NotImplementedError``: store-backed eval comes with
-    the train-loop and data slice (ROADMAP A.4).
+    * the synthetic datasets, a dataset whose store
+      (``{data_dir}/{dataset}_{image_size}.npy``) is not on disk, and a
+      store whose sidecar names this dataset's synthetic origin → the
+      generator (exact ground truth; a fresh draw is held-out data);
+    * any other store (real footage, ingested frames, a store without a
+      sidecar) → :func:`store_eval_batch`; locking and PCK only with
+      ``landmarks_path``, a (num_frames, K, 2) ``.npy``.
     """
     d = cfg.data
 
@@ -206,18 +262,30 @@ def eval_batch_for(cfg: Config, batch: int, generator: torch.Generator
                                "requested_rows": int(batch),
                                "gt": "generator"}
 
+    landmarks = None if landmarks_path is None else np.load(landmarks_path)
     if d.dataset in ("synthetic_dots", "synthetic_pong"):
+        if landmarks is not None:
+            raise SystemExit(f"--landmarks does not apply to the "
+                             f"{d.dataset} generator (GT is built in)")
         return synth()
-    store = os.path.join(d.data_dir, f"{d.dataset}_{d.image_size}.npy")
-    if not os.path.exists(store):
+    sp = store_path_for(d)
+    if not os.path.exists(sp):
+        if landmarks is not None:
+            raise SystemExit(f"--landmarks given but no store at {sp}")
         return synth()                               # trainer-synthesized
-    if (d.dataset in _SYNTHETIC_ORIGIN_FOR
-            and _store_origin(store) == _SYNTHETIC_ORIGIN_FOR[d.dataset]):
+    store = FrameStore(sp)
+    # both sides guarded: a dataset with no synthetic origin must not
+    # match a store without a sidecar
+    if (landmarks is None
+            and d.dataset in _SYNTHETIC_ORIGIN_FOR
+            and store.meta.get("origin") == _SYNTHETIC_ORIGIN_FOR[d.dataset]):
         return synth()
-    raise NotImplementedError(
-        f"eval from the stored dataset {store} is not ported yet: it needs "
-        f"records.FrameStore and train.scoring_holdout (ROADMAP A.4); point "
-        f"data.data_dir elsewhere to score the synthetic set")
+    if landmarks is None:
+        print(f"store-backed eval ({sp}): no ground-truth landmarks — "
+              f"locking/PCK skipped (pass --landmarks pos.npy with "
+              f"(num_frames, K, 2) normalized coords to score them)",
+              flush=True)
+    return store_eval_batch(cfg, store, batch, generator, landmarks)
 
 
 def coordinate_parity(model: KeypointModel, golden_fn: Callable,
@@ -238,10 +306,16 @@ def build_parser() -> argparse.ArgumentParser:
                     "PyTorch port)")
     p.add_argument("--preset", required=True)
     p.add_argument("--checkpoint", required=True,
-                   help=".pt state dict (torch.save; the file "
+                   help="trainer checkpoint directory (its newest step), or "
+                        "a .pt state dict (torch.save; the file "
                         "keypoints_tpu_torch.serve loads)")
     p.add_argument("--override", nargs="*", default=[])
     p.add_argument("--batch", type=int, default=64)
+    p.add_argument("--landmarks", default=None, metavar="POS_NPY",
+                   help="ground-truth landmarks for store-backed datasets: "
+                        "a (num_frames, K, 2) .npy of normalized (x, y) "
+                        "aligned with store frame indices — enables "
+                        "locking/PCK on real footage")
     p.add_argument("--json", default=None, metavar="OUT_JSON",
                    help="also write the result record here (it is always "
                         "printed as the final 'result: {...}' line)")
@@ -256,24 +330,24 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     """Run the CLI on ``argv``; → the result record."""
     args = build_parser().parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {args.device}: CUDA is not available to "
-                         f"this torch ({torch.__version__}); pass --device "
-                         f"cpu to evaluate on the CPU")
+    device = require_device(args.device, "evaluate")
     cfg = apply_overrides(get_config(args.preset), args.override)
     generator = torch.Generator(device=device).manual_seed(args.seed)
-    src, tgt, pos, info = eval_batch_for(cfg, args.batch, generator)
+    src, tgt, pos, info = eval_batch_for(cfg, args.batch, generator,
+                                         landmarks_path=args.landmarks)
     model = build_model(cfg, device)
     load_model_state(model, load_checkpoint(args.checkpoint))
-    print(f"loaded params from {args.checkpoint}", flush=True)
+    step = (CheckpointManager(args.checkpoint).latest_step()
+            if os.path.isdir(args.checkpoint) else None)
+    print(f"loaded params from {args.checkpoint}"
+          f"{'' if step is None else f' (step {step})'}", flush=True)
     # score with the training objective (perceptual presets: VGG loss)
     from keypoints_tpu_torch.train import make_loss
     metrics = evaluate(model, src, tgt, true_positions=pos,
                        loss=make_loss(cfg, device))
     for k, v in metrics.items():
         print(f"{k}: {v:.5f}")
-    result = {"preset": args.preset, "step": None, "metrics": metrics,
+    result = {"preset": args.preset, "step": step, "metrics": metrics,
               **info}
     print("result:", json.dumps(result), flush=True)
     if args.json:

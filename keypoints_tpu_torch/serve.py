@@ -35,7 +35,7 @@ from keypoints_tpu_torch.checkpoint import load_checkpoint, load_model_state
 from keypoints_tpu_torch.configs import Config, apply_overrides, get_config
 from keypoints_tpu_torch.export import BucketedExtract
 from keypoints_tpu_torch.training import (build_model, freeze_for_inference,
-                                          make_extract_fn)
+                                          make_extract_fn, require_device)
 
 
 class BatchingExtractor:
@@ -334,11 +334,7 @@ def make_server(args: argparse.Namespace):
     ``batcher.close()``. ``--port 0`` binds a free port
     (``httpd.server_address[1]``).
     """
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {args.device}: CUDA is not available to "
-                         f"this torch ({torch.__version__}); pass --device "
-                         f"cpu to serve on the CPU")
+    device = require_device(args.device, "serve")
     cfg = apply_overrides(get_config(args.preset), args.override)
     if args.checkpoint:
         state_dict = load_checkpoint(args.checkpoint)

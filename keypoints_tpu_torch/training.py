@@ -46,6 +46,19 @@ MODELS = {"autoencoder": KeypointAutoencoder, "transporter": Transporter}
 KeypointModel = KeypointAutoencoder | Transporter
 
 
+def require_device(device: torch.device | str, action: str = "run"
+                   ) -> torch.device:
+    """``device`` as a ``torch.device``; exits with a message when it is
+    CUDA and this torch has none. The entry points default to the card and
+    run on the CPU only when asked (``--device cpu``)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {device}: CUDA is not available to this "
+                         f"torch ({torch.__version__}); pass --device cpu "
+                         f"to {action} on the CPU")
+    return device
+
+
 def build_model(cfg: Config, device: torch.device | str = "cuda",
                 seed: int = 0) -> KeypointModel:
     """The model of ``cfg.train.model_kind`` (the autoencoder or the

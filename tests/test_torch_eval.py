@@ -285,17 +285,149 @@ def test_synthetic_eval_sets_route_as_jax(preset, overrides, marks, identity,
     assert torch.equal(src, tgt) == identity
 
 
-def test_stores_route_to_the_generator_or_raise(tmp_path):
-    """A store whose sidecar names the synthetic origin takes the generator,
-    as in JAX; any other store is store-backed eval, not ported yet."""
-    _, cfg = _cfgs({"data.image_size": 32, "data.data_dir": str(tmp_path)})
-    np.save(tmp_path / "celeba_32.npy", np.zeros((4, 3, 32, 32), np.uint8))
-    with pytest.raises(NotImplementedError, match="A.4"):
-        peval.eval_batch_for(cfg, 2, torch.Generator().manual_seed(7))
+@pytest.mark.parametrize("frames", [4, 64])      # below / above a holdout
+def test_stores_route_to_the_store_or_the_generator(frames, tmp_path):
+    """A store without a sidecar is scored from the store (its held-out
+    tail, with JAX's ``info``, here the frames twice at 32²); a store whose
+    sidecar names the synthetic origin takes the generator, as in JAX."""
+    jcfg, cfg = _cfgs({"data.image_size": 32, "data.data_dir": str(tmp_path)})
+    np.save(tmp_path / "celeba_32.npy",
+            (np.random.RandomState(0).rand(frames, 3, 32, 32) * 255).astype(
+                np.uint8))
+    src, tgt, pos, info = peval.eval_batch_for(
+        cfg, 2, torch.Generator().manual_seed(7))
+    jsrc, jtgt, jpos, jinfo = jeval.eval_batch_for(jcfg, 2,
+                                                   jax.random.PRNGKey(7))
+    assert info == jinfo and info["source"] == "store"
+    assert info["held_out"] == (frames == 64)
+    assert pos is None and jpos is None
+    np.testing.assert_array_equal(src.numpy(), np.asarray(jsrc))
+    np.testing.assert_array_equal(tgt.numpy(), np.asarray(jtgt))
     (tmp_path / "celeba_32_meta.json").write_text(
         json.dumps({"origin": "synthetic_faces"}))
     *_, info = peval.eval_batch_for(cfg, 2, torch.Generator().manual_seed(7))
-    assert info["source"] == "synthetic"
+    assert info == jax_route_info(jcfg, 2) and info["source"] == "synthetic"
+
+
+# transporter_atari's structure at 32² with narrow filters, f32
+NARROW_ATARI = {**NARROW, "data.image_size": 32}
+
+
+def _atari_store(tmp_path) -> str:
+    """64 seeded 1-channel 32² frames, two episodes, Δ = 2: 60 pairs, the
+    last 15 held out; no sidecar, as the committed data/atari_64.npy."""
+    from keypoints_tpu_torch.data.records import FrameStore, episode_pairs
+    frames = (np.random.RandomState(12).rand(64, 1, 32, 32) * 255).astype(
+        np.uint8)
+    FrameStore.write(str(tmp_path / "atari_32.npy"), frames,
+                     episode_pairs([32, 32], 2))
+    return str(tmp_path)
+
+
+def test_store_eval_temporal_matches_jax(tmp_path):
+    """Temporal store eval uses no randomness: the clamped tail pairs and
+    ``info`` equal JAX's exactly; ``evaluate`` on the same weights within
+    eval_loss rel 1e-5 and keypoints 1e-4; the trainer's scoring pair is
+    the last rows of the same tail."""
+    from keypoints_tpu import train as jtrain
+    from keypoints_tpu_torch import train as ptrain
+    over = {**NARROW_ATARI, "data.data_dir": _atari_store(tmp_path)}
+    jcfg, cfg = _cfgs(over, "transporter_atari")
+    src, tgt, pos, info = peval.eval_batch_for(
+        cfg, 64, torch.Generator().manual_seed(7))
+    jsrc, jtgt, jpos, jinfo = jeval.eval_batch_for(jcfg, 64,
+                                                   jax.random.PRNGKey(7))
+    assert info == jinfo == {"source": "store", "held_out": True,
+                             "rows": 15, "requested_rows": 64, "gt": None}
+    assert pos is None and jpos is None
+    np.testing.assert_array_equal(src.numpy(), np.asarray(jsrc))
+    np.testing.assert_array_equal(tgt.numpy(), np.asarray(jtgt))
+    for got, want in zip(ptrain.heldout_scoring_pair(cfg, "cpu"),
+                         jtrain.heldout_scoring_pair(jcfg)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    params = random_flax_params(cfg, 0)
+    want, want_kp = jax_evaluate(jcfg, params, jsrc, jtgt, None)
+    model = build_model(cfg, "cpu")
+    load_model_state(model, state_dict_from_flax(params))
+    got = peval.evaluate(model, src, tgt)
+    assert got.keys() == want.keys()
+    np.testing.assert_allclose(got["eval_loss"], want["eval_loss"], rtol=1e-5)
+    _, kp = peval.eval_forward(model, src, tgt)
+    np.testing.assert_allclose(kp.numpy(), want_kp, atol=1e-4)
+
+
+def test_store_eval_warp_with_landmarks_on_jax_draws_matches_jax(
+        tmp_path, monkeypatch):
+    """Warp-mode store eval with ``--landmarks``: JAX's pair of the tail
+    frames, on its draws fed to the port (in place of the port's
+    ``draw_pair``), within 1e-5, the landmarks carried into the target
+    within 1e-5, the same ``info``."""
+    jcfg, cfg = _cfgs({**NARROW, "data.data_dir": str(tmp_path)})
+    rs = np.random.RandomState(13)
+    frames = (rs.rand(40, 3, 64, 64) * 255).astype(np.uint8)
+    marks = (rs.rand(40, 4, 2) * 1.6 - 0.8).astype(np.float32)
+    np.save(tmp_path / "celeba_64.npy", frames)
+    np.save(tmp_path / "marks.npy", marks)
+    key = jax.random.PRNGKey(7)
+    jsrc, jtgt, jpos, jinfo = jeval.eval_batch_for(
+        jcfg, 4, key, landmarks_path=str(tmp_path / "marks.npy"))
+    # the tail's 4 frames (of a 10-frame reserve), paired on JAX's draws
+    tail = frames[-10:-6].astype(np.float32) / 255.0
+    _, ref = jax_pair_and_draws(jax.random.fold_in(key, 1), tail,
+                                marks[-10:-6], jax_warp_config(jcfg))
+    from keypoints_tpu_torch.data import augment
+    from keypoints_tpu_torch.data.records import FrameStore
+    draw_pair = augment.draw_pair
+    monkeypatch.setattr(augment, "draw_pair",
+                        lambda *a, **k: reference_draws(ref)[0])
+    src, tgt, pos, info = peval.store_eval_batch(
+        cfg, FrameStore(str(tmp_path / "celeba_64.npy")), 4,
+        torch.Generator().manual_seed(7), landmarks=marks)
+    monkeypatch.setattr(augment, "draw_pair", draw_pair)
+    assert info == jinfo == {"source": "store", "held_out": True, "rows": 4,
+                             "requested_rows": 4, "gt": "landmarks"}
+    for g, w in ((src, jsrc), (tgt, jtgt)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5)
+    np.testing.assert_allclose(pos, np.asarray(jpos), atol=1e-5)
+    # the port's own draws: a warped pair of the same tail, the same info
+    src, tgt, pos, info = peval.eval_batch_for(
+        cfg, 4, torch.Generator().manual_seed(7),
+        landmarks_path=str(tmp_path / "marks.npy"))
+    assert info == jinfo and pos.shape == (4, 4, 2) and src.shape == tgt.shape
+    assert not torch.equal(src, tgt)
+    with pytest.raises(SystemExit, match="does not apply"):
+        peval.eval_batch_for(get_config("pong64"), 4, torch.Generator(),
+                             landmarks_path=str(tmp_path / "marks.npy"))
+
+
+def test_cli_scores_a_trainer_directory_on_the_store(tmp_path, capsys):
+    """``--checkpoint`` of the trainer's directory: its newest step, scored
+    on the store's held-out tail, the step in the record."""
+    from keypoints_tpu_torch import train as ptrain
+    data = _atari_store(tmp_path)
+    over = {**NARROW_ATARI, "data.data_dir": data, "train.batch_size": 4,
+            "train.steps": 4, "train.log_every": 2, "train.eval_every": 100,
+            "train.checkpoint_every": 2,
+            "train.checkpoint_dir": str(tmp_path / "ck")}
+    state = ptrain.train(get_config("transporter_atari").override(**over),
+                         device="cpu")
+    overrides = [f"{k}={','.join(map(str, v)) if isinstance(v, tuple) else v}"
+                 for k, v in {**NARROW_ATARI, "data.data_dir": data}.items()]
+    result = peval.main(["--preset", "transporter_atari", "--checkpoint",
+                         str(tmp_path / "ck" / "transporter_atari"),
+                         "--device", "cpu", "--override", *overrides])
+    assert result["step"] == 4 and result["source"] == "store"
+    assert result["held_out"] is True and result["rows"] == 15
+    assert result["requested_rows"] == 64 and result["gt"] is None
+    assert set(result["metrics"]) == {"eval_loss", "keypoint_spread",
+                                      "keypoint_in_bounds"}
+    cfg = get_config("transporter_atari").override(**NARROW_ATARI)
+    src, tgt, *_ = peval.eval_batch_for(
+        cfg.override(**{"data.data_dir": data}), 64,
+        torch.Generator().manual_seed(7))
+    want = peval.evaluate(state.model, src, tgt)["eval_loss"]
+    assert result["metrics"]["eval_loss"] == want
+    assert "(step 4)" in capsys.readouterr().out
 
 
 def test_cli_on_cpu_writes_the_jax_record(tmp_path, capsys):

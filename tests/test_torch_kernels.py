@@ -1033,3 +1033,39 @@ def test_banded_warp_edge_geometry(cuda, case, padding, kernel):
                        plain(img, grid, padding, True, shape[2]))
     assert torch.equal(got, warp_cuda.warp_bilinear_cuda(img, grid, padding,
                                                          True))
+
+
+# --- the train loop's data on the card ------------------------------------------
+
+def test_resident_sampler_stays_on_the_card(cuda, tmp_path):
+    """A resident store's batches are drawn, gathered and converted on the
+    card; the same generator seed gives the same rows."""
+    from keypoints_tpu_torch.data.device import DeviceDataset
+    from keypoints_tpu_torch.data.records import FrameStore, episode_pairs
+    frames = np.arange(40, dtype=np.uint8)[:, None, None, None] * np.ones(
+        (1, 1, 4, 4), np.uint8)
+    path = str(tmp_path / "s.npy")
+    FrameStore.write(path, frames, episode_pairs([40], 2))
+    ds = DeviceDataset(FrameStore(path), device=cuda)
+    assert ds.frames.is_cuda and ds.pairs.is_cuda
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    a, b = ds.sample_pair(gen, 64)
+    assert a.is_cuda and b.is_cuda and a.dtype == torch.float32
+    ia = (a[:, 0, 0, 0] * 255).round().long()
+    assert torch.equal((b[:, 0, 0, 0] * 255).round().long(), ia + 2)
+    again = ds.sample_pair(torch.Generator(device=cuda).manual_seed(3), 64)
+    assert torch.equal(again[0], a)
+
+
+def test_collect_scripted_pong_on_cuda_matches_cpu(cuda):
+    """The episodes rendered on the card (the ball through the raster
+    kernel) equal the CPU's frames within one uint8 level."""
+    from keypoints_tpu_torch.data.collect import collect_scripted_pong
+    before = gc.launches
+    got, lengths = collect_scripted_pong(3, 20, 64, seed=1, device=cuda)
+    assert gc.launches == before + 3                 # one raster an episode
+    want, want_lengths = collect_scripted_pong(3, 20, 64, seed=1,
+                                               device="cpu")
+    assert lengths == want_lengths
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    assert diff.max() <= 1 and np.mean(diff > 0) <= 1e-3

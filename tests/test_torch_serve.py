@@ -252,7 +252,10 @@ def test_port_imports_no_jax():
             "keypoints_tpu_torch.kernels.experimental, "
             "keypoints_tpu_torch.kernels.experimental_cuda, "
             "keypoints_tpu_torch.eval, keypoints_tpu_torch.data.faces, "
-            "keypoints_tpu_torch.data.pose; "
+            "keypoints_tpu_torch.data.pose, keypoints_tpu_torch.viz, "
+            "keypoints_tpu_torch.data.records, "
+            "keypoints_tpu_torch.data.device, "
+            "keypoints_tpu_torch.data.collect; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'keypoints_tpu.')) or m == 'keypoints_tpu');"
             " assert not bad, bad")
