@@ -17,7 +17,10 @@ keypoints_tpu_torch.eval``) of celeba128, pose256 and transporter_atari
 (joint) at b64; the train loop (``python -m keypoints_tpu_torch.train`` and
 ``train()``: transporter_atari on the committed ``data/atari_64.npy``,
 pong64 on scripted Pong, celeba128 on a face store it generates) with its
-checkpoints and bit-exact resume, and store-backed eval of its checkpoint.
+checkpoints and bit-exact resume, and store-backed eval of its checkpoint;
+data parallelism: dp_celeba's step (b256) through ``make_dp_train_step``
+in a one-rank NCCL group, the train CLI under ``torchrun`` with two ranks
+on the card, and the server on ``--devices 1``.
 
    1. device    torch/CUDA versions, ``nvidia-smi`` name and power limit
    2. build     the one kernel library, every ``csrc/*.cu`` built by nvcc
@@ -142,6 +145,27 @@ checkpoints and bit-exact resume, and store-backed eval of its checkpoint.
      A/B        through K1 then K2 (patched in here) and through the
                 package's K3, in turns (old, new, new, old); one step of
                 each route counted, only K3's toward the kernels line
+  27. train     ``python -m keypoints_tpu_torch.train`` of transporter_atari
+     CLI        and pong64: 40 steps, and 20 + a resumed 20, equal bits
+  28. loop      ``train()`` in this process, launches per step and eval,
+                the stream path, loop overhead, the cuDNN-deterministic A/B
+  29. store     store eval of phase 27's checkpoint, card vs CPU
+     eval
+  30. dp step   dp_celeba (b256 bf16) through ``make_dp_train_step`` in a
+                one-rank NCCL group: 3 steps equal the bare step's bit for
+                bit, launches of 20 steps, ms/step against the bare step
+                in turns, the gradient all-reduce alone (CUDA events and
+                torch.profiler), torch.profiler over 5 DP steps
+  31. dp CLI    ``torchrun --nproc_per_node 2 -m keypoints_tpu_torch.train
+                --preset pong64`` (gloo, both ranks on the card): 20 steps
+                against 10 + a resumed 10, equal bits, both ranks' losses
+                equal, rank 0's files only; dp_celeba dry runs over an
+                empty data dir (rank 0 alone generates the store); the
+                gloo all-reduce's host time
+  32. dp serve  the server on ``--devices 1`` at buckets 1/8/64/256, bit
+                for bit the one-device extract, n=1 p50; launches counted;
+                ``make_dp_extract`` over two replicas on the card at
+                8/64/256, bit for bit the one-device extract of each half
 
 Run from a checkout:  python3 chip_smoke.py
 The card's ``nvidia-smi`` line, then a JSON object of the kernels
@@ -2783,6 +2807,372 @@ def store_eval_phase(card: str, tmp: str, ckdir: str) -> list:
     return [counts]
 
 
+# phase 30: dp_celeba's DP step at world 1 (NCCL, in this process)
+DP_PRESET = "dp_celeba"
+DP_EQUAL_STEPS = 3
+DP_COUNT_STEPS = 20
+DP_PER_STEP = {"warp_field": 2, "softargmax_raster_fwd": 1,
+               "spatial_softmax_bwd": 1, "gaussian_bwd": 1}
+# phase 31: the train CLI under torchrun, two ranks on the card (gloo)
+DP_CLI_STEPS = 20
+DP_CLI_OVERRIDES = ["train.checkpoint_every=10", "train.log_every=10",
+                    "train.eval_every=10", "train.max_to_keep=1"]
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dp_step_phase(card: str) -> list:
+    """dp_celeba (celeba128's widths, b256, bf16) through
+    ``make_dp_train_step`` in a one-rank NCCL group in this process, cuDNN
+    deterministic as ``train()`` runs it: its first steps against
+    ``make_train_step``'s, bit for bit; its launches over 20 steps; its
+    ms/step against the bare step's in turns (dp, bare, bare, dp); the
+    gradient all-reduce alone (the bucket's fill, NCCL, the divide) and
+    NCCL alone on the bucket by CUDA events; torch.profiler over 5 DP
+    steps. → the counts of the 20 steps."""
+    import torch.distributed as dist
+    from keypoints_tpu_torch.parallel import dp as dp_mod
+    phase(f"30 dp step: {DP_PRESET} b256 bf16, NCCL at world 1, on {card}")
+    cfg = get_config(DP_PRESET)
+    check(cfg.train.batch_size == 256 and cfg.train.data_parallel
+          and cfg.train.compute_dtype == "bfloat16", f"{DP_PRESET}: {cfg}")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        group = dist.group.WORLD
+        images = torch.from_numpy(random_images(256, cfg, 4)).cuda()
+        runs = {"bare": (init_state(cfg, "cuda"), make_train_step(cfg)),
+                "dp": (init_state(cfg, "cuda"),
+                       dp_mod.make_dp_train_step(cfg, group))}
+        losses = {}
+        for kind, (state, step) in runs.items():
+            losses[kind] = [step(state, images)[1]["loss"]
+                            for _ in range(DP_EQUAL_STEPS)]
+        bare, dp = (runs[k][0].model.state_dict() for k in ("bare", "dp"))
+        check(all(torch.equal(bare[k], dp[k]) for k in bare)
+              and torch.equal(torch.stack(losses["bare"]),
+                              torch.stack(losses["dp"])),
+              "the one-rank DP step differs from the bare step")
+        # a resumed rank's replicate: rank 0's parameters and Adam state,
+        # the step counts staged through the card for NCCL
+        dp_mod.replicate(runs["dp"][0].model, runs["dp"][0].optimizer)
+        check(all(torch.equal(bare[k], dp[k]) for k in bare),
+              "replicate changed a one-rank group's parameters")
+        n_params = sum(p.numel() for p in runs["dp"][0].model.parameters())
+        print(f"{DP_EQUAL_STEPS} steps: the one-rank DP step's parameters "
+              f"({len(bare)} tensors, {n_params:,} values) and losses "
+              f"equal the bare step's bit for bit; losses "
+              f"{[round(float(v), 6) for v in losses['dp']]}", flush=True)
+
+        state, step = runs["dp"]
+        torch.cuda.synchronize()
+        reset_counts()
+        for _ in range(DP_COUNT_STEPS):
+            state, metrics = step(state, images)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        print(f"{DP_COUNT_STEPS} DP steps: launches {counts}, loss "
+              f"{float(metrics['loss']):.5f}", flush=True)
+        for name in KERNELS:
+            want = DP_PER_STEP.get(name, 0) * DP_COUNT_STEPS
+            check(counts[name] == want, f"DP step launched {name} "
+                  f"{counts[name]} times ({want} expected)")
+
+        ms = {"dp": [], "bare": []}
+        for kind in ("dp", "bare", "bare", "dp"):
+            ms[kind].append(train_step_times(
+                card, (cfg, *runs[kind], images), steps=20,
+                label=f"{DP_PRESET} {kind}, cuDNN deterministic,"))
+        print(f"{DP_PRESET} b256 bf16 ms/step (dp, bare, bare, dp): dp "
+              f"{ms['dp'][0]:.3f} / {ms['dp'][1]:.3f}, bare "
+              f"{ms['bare'][0]:.3f} / {ms['bare'][1]:.3f}: "
+              f"{np.mean(ms['dp']) - np.mean(ms['bare']):+.3f} ms/step; "
+              f"{256 / np.mean(ms['dp']) * 1e3:.0f} frames/s  [{card}]",
+              flush=True)
+
+        params = list(state.model.parameters())
+        loss = torch.zeros((), device="cuda")
+
+        def reduce():
+            dp_mod.all_reduce_mean(params, loss, group)
+        # one call a run queued behind the sleep: its ~0.6 ms of host time
+        # stays inside the sleep, so the events see device time only
+        reduce_ms = cuda_median_ms(reduce)
+        reduce_host_ms = cuda_median_ms(reduce, reps=10,
+                                        queue_behind_sleep=False)
+        bucket = torch.zeros(n_params + 1, device="cuda")
+        nccl_ms = cuda_median_ms(lambda: dist.all_reduce(bucket, group=group))
+        print(f"gradient all-reduce ({n_params + 1:,} float32, "
+              f"{(n_params + 1) * 4 / 1e6:.2f} MB; CUDA events, medians of "
+              f"25): all_reduce_mean {reduce_ms * 1e3:.2f} us of device "
+              f"time (fill, NCCL, divide; one call queued), "
+              f"{reduce_host_ms * 1e3:.2f} us a call back to back (host "
+              f"bound); NCCL alone {nccl_ms * 1e3:.2f} us  [{card}]",
+              flush=True)
+        _profile("all_reduce_mean alone (wall = CUDA events a call)", reduce,
+                 20, card, reduce_host_ms,
+                 {"bucket fill (cat)": ("CatArrayBatchedCopy",),
+                  "NCCL": ("nccl",)})
+
+        def dp_step():
+            step(state, images)
+        _profile(f"{DP_PRESET} DP step b256 bf16 (wall = CUDA-event "
+                 f"ms/step)", dp_step, 5, card, float(np.mean(ms["dp"])),
+                 {"all-reduce (NCCL)": ("nccl", "AllReduce"),
+                  "field warp": ("warp_field",),
+                  "fused bottleneck": ("fused_fwd",)})
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+        dist.destroy_process_group()
+    return [counts]
+
+
+def _dp_reduce_rank(rank: int, world: int, port: int, out: str) -> None:
+    """One of two gloo ranks on card 0: the host time of
+    ``all_reduce_mean`` over dp_celeba's gradients (median of 20)."""
+    import torch.distributed as dist
+    from keypoints_tpu_torch.parallel import dp as dp_mod
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        model = build_model(get_config(DP_PRESET), "cuda")
+        params = list(model.parameters())
+        for p in params:
+            p.grad = torch.randn_like(p)
+        loss = torch.ones((), device="cuda")
+        times = []
+        for i in range(23):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            dp_mod.all_reduce_mean(params, loss, dist.group.WORLD)
+            torch.cuda.synchronize()
+            if i >= 3:
+                times.append(time.perf_counter() - t0)
+        Path(out, f"{rank}.json").write_text(json.dumps(times))
+    finally:
+        dist.destroy_process_group()
+
+
+def _torchrun_train(tmp: str, run: str, steps: int) -> tuple:
+    """Start ``torchrun`` of two pong64 trainer ranks into ``tmp/dp_{run}``,
+    its output to ``{logdir}.out``/``.err`` (no pipe to fill while other
+    runs are waited for); → (process, logdir, start time)."""
+    logdir = os.path.join(tmp, f"dp_{run}_{steps}_logs")
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", "2", "-m", "keypoints_tpu_torch.train",
+            "--preset", "pong64", "--steps", str(steps), "--logdir", logdir,
+            "--override",
+            f"train.checkpoint_dir={os.path.join(tmp, 'dp_' + run)}",
+            *DP_CLI_OVERRIDES]
+    with open(logdir + ".out", "w") as out, open(logdir + ".err", "w") as err:
+        proc = subprocess.Popen(argv, cwd=ROOT, stdout=out, stderr=err)
+    return proc, logdir, time.perf_counter()
+
+
+def _check_torchrun(proc, logdir: str, t0: float, run: str, steps: int,
+                    start: int) -> None:
+    """Wait for a ``_torchrun_train`` run: both ranks logged the same loss
+    and grad norm at each of its log steps, and ``metrics.jsonl`` holds
+    each step once (rank 0 alone writes it)."""
+    import re
+    proc.wait(timeout=600)
+    wall = time.perf_counter() - t0
+    out, err = (Path(logdir + ext).read_text() for ext in (".out", ".err"))
+    check(proc.returncode == 0, f"torchrun pong64 ({run}, {steps} steps) "
+          f"exited {proc.returncode}: {out[-2000:]} {err[-3000:]}")
+    check("process group: gloo, 2 ranks" in out, f"no gloo group: "
+          f"{out[-2000:]}")
+    logged = {}
+    for rank, step_no, rest in re.findall(
+            r"\[rank (\d)/2\] step +(\d+) (loss \S+ grad \S+)", out):
+        logged.setdefault(int(step_no), {})[rank] = rest
+    check(sorted(logged) == list(range(start + 10, steps + 1, 10))
+          and all(len(v) == 2 and len(set(v.values())) == 1
+                  for v in logged.values()),
+          f"{run} {steps}: ranks' logged losses {logged}")
+    rows = [json.loads(r) for r in
+            Path(logdir, "metrics.jsonl").read_text().splitlines()]
+    check([r["step"] for r in rows if "loss" in r] == sorted(logged),
+          f"{run} {steps}: metrics.jsonl rows {rows}")
+    check(not start or f"resumed from step {start}" in out,
+          "the second torchrun did not resume")
+    print(f"pong64 dp {run} {steps} steps: {wall:.2f}s wall (torchrun, 2 "
+          f"processes, kernel load, steps); "
+          f"{' | '.join(f'{k}: {v}' for k, v in sorted(logged.items()))}",
+          flush=True)
+
+
+def _torchrun_store(tmp: str) -> tuple:
+    """Start ``torchrun`` of two dp_celeba dry runs over an empty
+    ``data.data_dir``: rank 0 must generate the face store, once, while
+    rank 1 waits; → (process, data dir, output file)."""
+    data = os.path.join(tmp, "dp_store_data")
+    os.makedirs(data)
+    log = os.path.join(tmp, "dp_store.out")
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", "2", "-m", "keypoints_tpu_torch.train",
+            "--preset", DP_PRESET, "--dry-run", "--override",
+            f"data.data_dir={data}"]
+    with open(log, "w") as out:
+        proc = subprocess.Popen(argv, cwd=ROOT, stdout=out,
+                                stderr=subprocess.STDOUT)
+    return proc, data, log
+
+
+def _check_torchrun_store(proc, data: str, log: str) -> None:
+    """Wait for ``_torchrun_store``: one generation, by rank 0; the store
+    and its sidecar the only files; both ranks on the resident source."""
+    proc.wait(timeout=600)
+    out = Path(log).read_text()
+    check(proc.returncode == 0, f"torchrun {DP_PRESET} --dry-run exited "
+          f"{proc.returncode}: {out[-3000:]}")
+    check(out.count("generating synthetic face store") == 1,
+          f"the face store was not generated once: {out[-3000:]}")
+    files = sorted(os.listdir(data))
+    check(files == ["celeba_128.npy", "celeba_128_meta.json"],
+          f"data dir after the dry runs: {files}")
+    check(all(f"[rank {rank}/2] dry run: preset '{DP_PRESET}'" in out
+              for rank in range(2))
+          and out.count("source DeviceResidentBatches") == 2
+          and out.count("dp=True (2 rank(s))") == 2,
+          f"the ranks' dry runs: {out[-3000:]}")
+    print(f"{DP_PRESET} --dry-run at world 2 over an empty data dir: rank 0 "
+          f"generated the face store once, both ranks took it resident "
+          f"({', '.join(files)})", flush=True)
+
+
+def dp_cli_phase(card: str, tmp: str) -> None:
+    """``python -m torch.distributed.run --nproc_per_node 2 -m
+    keypoints_tpu_torch.train --preset pong64`` at the preset's widths,
+    both ranks on the one card (gloo): 20 steps, and beside it 10, then a
+    resumed 10; the step-20 checkpoints equal in every tensor, each rank's
+    logged loss the same, rank 0's files only. Beside them, two dp_celeba
+    dry runs over an empty data dir: the store generated by rank 0 alone.
+    Then the host time of the gradient all-reduce between two gloo ranks
+    on the card."""
+    phase(f"31 dp train CLI: torchrun, 2 ranks of pong64 on {card} (gloo)")
+    half = DP_CLI_STEPS // 2
+    store = _torchrun_store(tmp)
+    full = _torchrun_train(tmp, "full", DP_CLI_STEPS)
+    first = _torchrun_train(tmp, "split", half)
+    _check_torchrun(*first, "split", half, 0)
+    second = _torchrun_train(tmp, "split", DP_CLI_STEPS)
+    _check_torchrun(*full, "full", DP_CLI_STEPS, 0)
+    _check_torchrun(*second, "split", DP_CLI_STEPS, half)
+    _check_torchrun_store(*store)
+    runs = {run: os.path.join(tmp, "dp_" + run) for run in ("full", "split")}
+    for run, directory in runs.items():
+        files = {d: sorted(os.listdir(os.path.join(directory, d)))
+                 for d in sorted(os.listdir(directory))}
+        check(files == {"pong64": [f"{DP_CLI_STEPS}.pt"],
+                        "pong64_best": [f"{DP_CLI_STEPS}.pt", "best.json"]}
+              or files == {"pong64": [f"{DP_CLI_STEPS}.pt"],
+                           "pong64_best": [f"{DP_CLI_STEPS // 2}.pt",
+                                           "best.json"]},
+              f"dp {run}: files {files}")
+    full, split = (torch.load(os.path.join(runs[r], "pong64",
+                                           f"{DP_CLI_STEPS}.pt"),
+                              map_location="cpu", weights_only=True)
+                   for r in ("full", "split"))
+    n = _same_tensors(full, split, "dp pong64 checkpoint")
+    print(f"pong64 at world 2: step-{DP_CLI_STEPS} checkpoints of the "
+          f"uninterrupted and the resumed run equal bit for bit ({n} "
+          f"tensors); rank 0 wrote every file, once", flush=True)
+
+    import torch.multiprocessing as mp
+    out_dir = os.path.join(tmp, "dp_reduce")
+    os.makedirs(out_dir)
+    mp.spawn(_dp_reduce_rank, args=(2, _free_port(), out_dir), nprocs=2)
+    times = [json.loads(Path(out_dir, f"{r}.json").read_text())
+             for r in range(2)]
+    print(f"gradient all-reduce between two gloo ranks on one card "
+          f"({DP_PRESET}'s gradients, host clock to a synchronise, median "
+          f"of 20): rank 0 {np.median(times[0]) * 1e3:.3f} ms, rank 1 "
+          f"{np.median(times[1]) * 1e3:.3f} ms  [{card}]", flush=True)
+
+
+def dp_serve_phase(card: str, tmp: str) -> list:
+    """The server on ``--devices 1`` (``make_dp_extract`` over the card):
+    requests that fill each bucket, answered bit for bit as
+    ``make_live_extract`` answers them at the same bucket, then the n=1
+    p50 over 30 requests. Then ``make_dp_extract`` over two replicas on the
+    card (the slab split and the ordered gather) at buckets 8/64/256,
+    bit for bit the one-device extract of each half at the same slab.
+    → the counts of the server's run."""
+    from keypoints_tpu_torch.parallel.dp import make_dp_extract
+
+    phase(f"32 dp serve: --devices 1 on buckets "
+          f"{' '.join(map(str, BUCKETS))}, two replicas at 8/64/256, on "
+          f"{card}")
+    cfg = get_config("celeba128")
+    state = {k: torch.from_numpy(v) for k, v in
+             state_dict_from_flax(random_flax_params(cfg, 0)).items()}
+    ckpt = os.path.join(tmp, "celeba128_seed0.pt")
+    torch.save(state, ckpt)
+    rs = np.random.RandomState(8)
+    requests = {b: rs.rand(b, 3, 128, 128).astype(np.float32)
+                for b in BUCKETS}
+    one = make_live_extract(cfg, state, BUCKETS, "cuda")
+    want = {b: one(x) for b, x in requests.items()}
+    del one
+    reset_counts()
+    server = start_server(ckpt, BUCKETS, "--devices", "1")
+    url = f"http://localhost:{server[0].server_address[1]}"
+    latencies = []
+    try:
+        meta = http_meta(url)
+        check(meta["data_parallel_devices"] == 1, f"meta {meta}")
+        for b, images in requests.items():
+            got = http_extract(url, images)
+            check(np.array_equal(got, want[b]), f"--devices 1 at b{b} "
+                  f"differs from the one-device extract by "
+                  f"{np.abs(got - want[b]).max()}")
+        one_row = requests[1]
+        for i in range(35):
+            t0 = time.perf_counter()
+            http_extract(url, one_row)
+            if i >= 5:
+                latencies.append(time.perf_counter() - t0)
+    finally:
+        stop_server(*server)
+    counts = read_counts()
+    calls = 2 * len(BUCKETS) + 35
+    split = (8, 64, 256)
+    two = make_dp_extract(cfg, state, split, ["cuda:0", "cuda:0"])
+    check(two.meta["data_parallel_devices"] == 2, f"meta {two.meta}")
+    half = make_live_extract(cfg, state, [b // 2 for b in split], "cuda")
+    for b in split:
+        images = requests[b]
+        got = two(images)
+        want2 = np.concatenate([half(images[:b // 2]), half(images[b // 2:])])
+        check(got.shape == want2.shape and np.array_equal(got, want2),
+              f"two replicas at b{b} differ from the one-device extract of "
+              f"each b{b // 2} half by {np.abs(got - want2).max()}")
+    del two, half
+    print("two replicas on the card: answers at b8, b64, b256 equal the "
+          "one-device extract of each half bit for bit", flush=True)
+    print(f"--devices 1: answers at b{', b'.join(map(str, BUCKETS))} equal "
+          f"the one-device extract bit for bit; http n=1 p50 "
+          f"{np.median(latencies) * 1e3:.3f} ms (30 requests, host clock); "
+          f"launches {counts} ({calls} bucket calls)  [{card}]", flush=True)
+    check(counts["spatial_softmax_fwd"] >= calls and all(
+        v == 0 for k, v in counts.items() if k != "spatial_softmax_fwd"),
+        f"dp serving launches {counts}")
+    return [counts]
+
+
 def main() -> int:
     card = device_phase()
     build_phase()
@@ -2842,6 +3232,11 @@ def main() -> int:
         ckdir = train_cli_phase(card, tmp)
         path_counts.extend(train_loop_phase(card, tmp))
         path_counts.extend(store_eval_phase(card, tmp, ckdir))
+    path_counts.extend(dp_step_phase(card))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        dp_cli_phase(card, tmp)
+        path_counts.extend(dp_serve_phase(card, tmp))
 
     errs["spatial_softmax_fwd"] = max(errs["spatial_softmax_fwd"],
                                       served["serve_max_abs_err"])

@@ -26,7 +26,10 @@ Ported so far:
   sources from the synthetic generators and the packed frame stores
   (``data.records``, ``data.device``; written by ``data.faces``,
   ``data.pose`` and ``data.collect``), native checkpoints with bit-exact
-  resume (``checkpoint.CheckpointManager``), logging (``viz.Logger``).
+  resume (``checkpoint.CheckpointManager``), logging (``viz.Logger``);
+* data parallelism (``parallel``): the train step, the loop and resume on
+  ``torch.distributed`` under ``torchrun`` (``parallel.multihost``), and
+  serving over several cards (``parallel.dp.make_dp_extract``).
 
 The soft-argmax (forward and backward), the Gaussian raster (forward and
 backward), the fused soft-argmax → raster bottleneck, the bilinear warps

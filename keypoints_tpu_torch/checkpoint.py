@@ -2,8 +2,13 @@
 
 Native training checkpoints (``checkpoint.py:28-50``, on Orbax in JAX):
 :class:`CheckpointManager` keeps one file a step, ``{directory}/{step}.pt``,
-holding the model's and the optimizer's ``state_dict``, the step, the
-preset's name and :data:`FORMAT`. A step is written with ``torch.save`` to a
+holding the model's ``state_dict`` under ``"state_dict"`` (the key JAX's
+``load_torch_checkpoint`` unwraps, so ``keypoints-convert convert`` takes a
+step file as it is), the optimizer's under ``"optimizer"``, the step, the
+preset's name and :data:`FORMAT`. Under a process group rank 0 alone
+writes and prunes; the file is the same for one process and for many, so
+a data-parallel run resumes on one card and the other way round. A step is
+written with ``torch.save`` to a
 ``.tmp`` name and ``os.replace``d into place, so a crash never leaves a
 half-written file under a step's name (a leftover ``.tmp`` is ignored);
 steps beyond ``max_to_keep`` are deleted after the replace. The train
@@ -35,6 +40,8 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+
+from keypoints_tpu_torch.parallel import multihost
 
 
 def _invert_leaf(leaf: str, value: np.ndarray) -> tuple[str, np.ndarray]:
@@ -75,8 +82,10 @@ def state_dict_from_flax(params: Mapping) -> dict[str, np.ndarray]:
 
 
 #: version of the step files' layout (``{"format", "step", "preset",
-#: "model", "optimizer"}``)
-FORMAT = 1
+#: "state_dict", "optimizer"}``); format 1 held the model under ``"model"``
+FORMAT = 2
+#: the model's key in each format that restores
+MODEL_KEYS = {1: "model", 2: "state_dict"}
 
 
 class CheckpointManager:
@@ -102,9 +111,13 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, state, preset: str = "") -> None:
-        """Write ``state`` (a ``training.TrainState``) as step ``step``."""
+        """Write ``state`` (a ``training.TrainState``) as step ``step``; on
+        rank 0 only under a process group (every rank holds the same
+        state)."""
+        if not multihost.is_primary():
+            return
         payload = {"format": FORMAT, "step": int(step), "preset": preset,
-                   "model": state.model.state_dict(),
+                   "state_dict": state.model.state_dict(),
                    "optimizer": state.optimizer.state_dict()}
         final = self.path(step)
         tmp = final + ".tmp"
@@ -124,10 +137,12 @@ class CheckpointManager:
         """
         payload = torch.load(self.path(step), map_location="cpu",
                              weights_only=True)
-        if payload.get("format") != FORMAT:
+        key = MODEL_KEYS.get(payload.get("format"))
+        if key is None:
             raise ValueError(f"{self.path(step)}: checkpoint format "
-                             f"{payload.get('format')!r}, expected {FORMAT}")
-        state.model.load_state_dict(payload["model"])
+                             f"{payload.get('format')!r}, expected one of "
+                             f"{sorted(MODEL_KEYS)}")
+        state.model.load_state_dict(payload[key])
         state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
         return state
@@ -165,8 +180,8 @@ def load_checkpoint(path: str) -> dict[str, torch.Tensor]:
             raise FileNotFoundError(f"no checkpoint found in {path}")
         path = manager.path(step)
     obj = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(obj, dict) and "format" in obj and "model" in obj:
-        return obj["model"]
+    if isinstance(obj, dict) and obj.get("format") in MODEL_KEYS:
+        return obj[MODEL_KEYS[obj["format"]]]
     return obj
 
 

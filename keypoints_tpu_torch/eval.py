@@ -51,6 +51,7 @@ from keypoints_tpu_torch.configs import Config, apply_overrides, get_config
 from keypoints_tpu_torch.data.records import (FrameStore, store_path_for,
                                               tail_pair_frames)
 from keypoints_tpu_torch.losses import l2_loss
+from keypoints_tpu_torch.parallel import multihost
 from keypoints_tpu_torch.training import (KeypointModel, build_model,
                                           make_extract_fn, require_device,
                                           warp_config)
@@ -328,8 +329,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> dict:
-    """Run the CLI on ``argv``; → the result record."""
+    """Run the CLI on ``argv``; → the result record. Under ``torchrun``
+    every rank evaluates and rank 0 alone prints and writes."""
     args = build_parser().parse_args(argv)
+    multihost.initialize("gloo" if torch.device(args.device).type == "cpu"
+                         else None)
+    primary = multihost.is_primary()
     device = require_device(args.device, "evaluate")
     cfg = apply_overrides(get_config(args.preset), args.override)
     generator = torch.Generator(device=device).manual_seed(args.seed)
@@ -339,16 +344,19 @@ def main(argv=None) -> dict:
     load_model_state(model, load_checkpoint(args.checkpoint))
     step = (CheckpointManager(args.checkpoint).latest_step()
             if os.path.isdir(args.checkpoint) else None)
-    print(f"loaded params from {args.checkpoint}"
-          f"{'' if step is None else f' (step {step})'}", flush=True)
+    if primary:
+        print(f"loaded params from {args.checkpoint}"
+              f"{'' if step is None else f' (step {step})'}", flush=True)
     # score with the training objective (perceptual presets: VGG loss)
     from keypoints_tpu_torch.train import make_loss
     metrics = evaluate(model, src, tgt, true_positions=pos,
                        loss=make_loss(cfg, device))
-    for k, v in metrics.items():
-        print(f"{k}: {v:.5f}")
     result = {"preset": args.preset, "step": step, "metrics": metrics,
               **info}
+    if not primary:
+        return result
+    for k, v in metrics.items():
+        print(f"{k}: {v:.5f}")
     print("result:", json.dumps(result), flush=True)
     if args.json:
         with open(args.json, "w") as f:

@@ -6,8 +6,9 @@ batch (bounded by ``max_batch`` and ``max_delay_ms``), runs the extractor
 once, and scatters the result rows back to their callers. ``BatchingExtractor``,
 ``http_meta`` and ``http_extract`` are copied from the JAX package (numpy and
 threading only; that module is reachable only through the jax-importing
-package). ``make_live_extract`` is the one-device counterpart of
-``keypoints_tpu.parallel.dp.make_dp_extract``.
+package). The server runs ``parallel.dp.make_dp_extract`` over
+``--devices`` cards (default: every visible card), each taking an equal
+slab of every padded bucket; ``make_live_extract`` is its one-device case.
 
     # serve celeba128 on the GPU from a state dict (keypoints-convert export-torch)
     python -m keypoints_tpu_torch.serve --preset celeba128 --checkpoint kp.pt
@@ -31,11 +32,12 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from keypoints_tpu_torch.checkpoint import load_checkpoint, load_model_state
+from keypoints_tpu_torch.checkpoint import load_checkpoint
 from keypoints_tpu_torch.configs import Config, apply_overrides, get_config
 from keypoints_tpu_torch.export import BucketedExtract
-from keypoints_tpu_torch.training import (build_model, freeze_for_inference,
-                                          make_extract_fn, require_device)
+from keypoints_tpu_torch.parallel import multihost
+from keypoints_tpu_torch.parallel.dp import make_dp_extract
+from keypoints_tpu_torch.training import require_device
 
 
 class BatchingExtractor:
@@ -262,52 +264,68 @@ def make_live_extract(cfg: Config, state_dict: dict | None,
                       input_dtype: str = "float32") -> BucketedExtract:
     """One-device live serving: → a ``BucketedExtract`` running on ``device``.
 
-    The model is built on ``device`` and its parameters uploaded once
-    (``state_dict`` as ``checkpoint.load_model_state`` takes it; None keeps
-    the seeded random init), and the conv weights are cast to the compute
-    dtype once (``training.freeze_for_inference``). Each bucket's function
-    uploads the padded request host→device, rescales uint8 /255 on the
-    device, runs Ψ and the soft-argmax, and returns the (n, K, 2) keypoints
-    as a numpy array.
+    ``parallel.dp.make_dp_extract`` over ``[device]``: the model is built on
+    ``device`` and its parameters uploaded once (``state_dict`` as
+    ``checkpoint.load_model_state`` takes it; None keeps the seeded random
+    init), and the conv weights are cast to the compute dtype once
+    (``training.freeze_for_inference``). Each bucket's function uploads the
+    padded request host→device, rescales uint8 /255 on the device, runs Ψ
+    and the soft-argmax, and returns the (n, K, 2) keypoints as a numpy
+    array.
     """
-    sizes = sorted({int(b) for b in batches})
-    if not sizes or sizes[0] < 1:
-        raise ValueError(f"invalid bucket list {batches!r}")
-    if input_dtype not in ("float32", "uint8"):
-        raise ValueError(f"input_dtype must be float32|uint8, "
-                         f"got {input_dtype!r}")
+    return make_dp_extract(cfg, state_dict, batches, [device], input_dtype)
+
+
+def serving_devices(device: torch.device | str,
+                    n: int | None = None) -> list[torch.device]:
+    """The devices ``--device``/``--devices`` name: the first ``n`` cards
+    (default: every visible card) for a bare ``cuda``; ``device`` alone for
+    ``cpu`` or an explicit ``cuda:k``, where ``n`` may only be 1."""
     device = torch.device(device)
-    model = build_model(cfg, device)
-    if state_dict is not None:
-        load_model_state(model, state_dict)
-    extract = make_extract_fn(freeze_for_inference(model))
+    if device.type != "cuda" or device.index is not None:
+        if n not in (None, 1):
+            raise SystemExit(f"--devices {n} takes the first {n} cards of "
+                             f"--device cuda, not {device}")
+        return [device]
+    count = torch.cuda.device_count()
+    n = count if n is None else n
+    if not 1 <= n <= count:
+        raise SystemExit(f"--devices {n}: {count} card(s) visible")
+    return [torch.device("cuda", i) for i in range(n)]
 
-    def fn(images: np.ndarray) -> np.ndarray:
-        x = torch.from_numpy(images).to(device)
-        if x.dtype == torch.uint8:
-            x = x.float() / 255.0
-        return extract(x).cpu().numpy()
 
-    d = cfg.data
-    meta = {"format": "keypoints-extract-bundle", "version": 1,
-            "batches": sizes, "image_size": d.image_size,
-            "channels": d.channels,
-            "num_keypoints": cfg.model.num_keypoints,
-            "input_dtype": input_dtype,
-            "data_parallel_devices": 1}
-    return BucketedExtract({b: fn for b in sizes}, meta)
+def _dp_extract_from_args(args: argparse.Namespace) -> BucketedExtract:
+    """Live data-parallel extract of ``args``' preset and checkpoint over
+    its devices (``serving_devices``)."""
+    cfg = apply_overrides(get_config(args.preset), args.override)
+    if args.checkpoint:
+        state_dict = load_checkpoint(args.checkpoint)
+        print(f"serving params from {args.checkpoint}", flush=True)
+    else:
+        state_dict = None
+        print("WARNING: no --checkpoint, serving random-init params",
+              flush=True)
+    devices = serving_devices(args.device, args.devices)
+    print(f"data-parallel serving: {len(devices)} device(s)", flush=True)
+    return make_dp_extract(cfg, state_dict, args.batch, devices,
+                           input_dtype=args.input_dtype)
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="HTTP keypoint-extraction server: live extract of a "
-                    "config preset on one device (the PyTorch port)")
+        description="HTTP keypoint-extraction server: live data-parallel "
+                    "extract of a config preset over local devices (the "
+                    "PyTorch port)")
     p.add_argument("--preset", required=True)
     p.add_argument("--checkpoint", default=None,
                    help=".pt state dict (keypoints-convert export-torch); "
                         "omit for seeded random-init smoke serving")
     p.add_argument("--batch", type=int, nargs="+", default=[256],
-                   help="bucket sizes; requests pad up to the smallest cover")
+                   help="bucket sizes; requests pad up to the smallest "
+                        "cover (each must divide by the device count)")
+    p.add_argument("--devices", type=int, default=None,
+                   help="serve on the first N cards of --device cuda "
+                        "(default: all visible)")
     p.add_argument("--override", nargs="*", default=[])
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--max-delay-ms", type=float, default=5.0,
@@ -334,17 +352,8 @@ def make_server(args: argparse.Namespace):
     ``batcher.close()``. ``--port 0`` binds a free port
     (``httpd.server_address[1]``).
     """
-    device = require_device(args.device, "serve")
-    cfg = apply_overrides(get_config(args.preset), args.override)
-    if args.checkpoint:
-        state_dict = load_checkpoint(args.checkpoint)
-        print(f"serving params from {args.checkpoint}", flush=True)
-    else:
-        state_dict = None
-        print("WARNING: no --checkpoint, serving random-init params",
-              flush=True)
-    extract = make_live_extract(cfg, state_dict, args.batch, device,
-                                input_dtype=args.input_dtype)
+    require_device(args.device, "serve")
+    extract = _dp_extract_from_args(args)
     max_batch, meta = extract.max_batch, extract.meta
     want_dtype = np.dtype(meta["input_dtype"])
     if not args.no_warmup:
@@ -412,6 +421,9 @@ def make_server(args: argparse.Namespace):
 
 def _cli(argv=None):
     args = build_parser().parse_args(argv)
+    # torchrun's process group, if any (serving itself has no collective)
+    multihost.initialize("gloo" if torch.device(args.device).type == "cpu"
+                         else None)
     httpd, batcher = make_server(args)
     print(f"serving --preset {args.preset} on {args.device} at "
           f":{httpd.server_address[1]} (buckets {sorted(set(args.batch))})",

@@ -25,6 +25,24 @@ resume from the newest checkpoint.
 * Ctrl-C saves at the interrupted step when that step is newer than the
   newest checkpoint and no step was in flight (a step interrupted inside
   the optimizer update would leave half-updated parameters).
+* Data parallelism (``parallel.dp``): under ``torchrun --nproc_per_node N
+  -m keypoints_tpu_torch.train``, one process a card, each rank takes
+  ``batch / N`` rows of every batch (its own stream shard, or its own
+  in-step draws) and the step averages the gradients across the ranks.
+  Rank 0 alone writes checkpoints, ``best.json``, logs and images; every
+  rank restores the newest checkpoint, then takes rank 0's parameters and
+  optimizer state. What decides control flow (the divergence check, the
+  spread check, best-checkpoint scoring, the stop) is computed on every
+  rank from equal parameters and equal rows, so no rank leaves the loop
+  while the others wait in an all-reduce.
+* The supervisors (``--supervise``, ``--reroll-on-plateau``) wrap one
+  process. Under ``torchrun`` each rank's supervisor relaunches its own
+  child: a crashed rank leaves the others waiting in the next all-reduce
+  until the process group's timeout, so restart a group with torchrun's
+  own ``--max-restarts``, which relaunches every rank (each resumes from
+  the newest checkpoint). A discovery failure stops every rank at the same
+  step; rank 0 alone quarantines the checkpoints, and every rank's reroll
+  supervisor relaunches with the same next seed.
 
 Not ported:
 
@@ -35,8 +53,6 @@ Not ported:
 * ``_state_saveable``: JAX's donated buffers, which torch does not have.
 * ``utils/compile_cache``: the XLA compilation cache (the kernels' library
   is cached by ``kernels._build``).
-* ``multihost.initialize`` and data parallelism: ROADMAP A.3. With more
-  than one visible card the trainer uses one and says so.
 """
 
 from __future__ import annotations
@@ -52,6 +68,7 @@ import time
 from typing import Callable, Iterator, Optional
 
 import torch
+import torch.distributed as dist
 
 from keypoints_tpu_torch import checkpoint as ckpt
 from keypoints_tpu_torch.configs import Config, apply_overrides, get_config
@@ -68,6 +85,8 @@ from keypoints_tpu_torch.data.synthetic import (moving_dots_pair,
 from keypoints_tpu_torch.eval import keypoint_metrics
 from keypoints_tpu_torch.losses import l2_loss, make_perceptual_loss
 from keypoints_tpu_torch.models.vgg import make_feature_fn
+from keypoints_tpu_torch.parallel import dp as dp_mod
+from keypoints_tpu_torch.parallel import multihost
 from keypoints_tpu_torch.training import (TrainState, init_state,
                                           make_extract_fn, make_train_step,
                                           require_device, step_generator,
@@ -81,14 +100,20 @@ SYNTHETIC_DATASETS = ("synthetic_dots", "synthetic_pong")
 def make_batch_iterator(cfg: Config, start_step: int = 0,
                         device: torch.device | str = "cuda") -> Iterator:
     """→ a source of raw-image batches (warp mode) or (src, tgt) pairs on
-    ``device``, starting at batch ``start_step``.
+    ``device``, starting at batch ``start_step``: this rank's
+    ``batch / world`` rows of each batch under a process group
+    (``multihost.host_shard``), the whole batch without one.
 
-    A missing store is generated first (pose: articulated figures; celeba:
-    procedural faces; atari: scripted-Pong rollouts, or real ALE where gym
-    has it). A store's tail (:func:`scoring_holdout`) is held out of
+    A missing store is generated first, by rank 0 under a process group
+    (pose: articulated figures; celeba: procedural faces; atari:
+    scripted-Pong rollouts, or real ALE where gym has it). Every rank takes
+    the same source: resident only where the store fits every rank's
+    card. A store's tail (:func:`scoring_holdout`) is held out of
     training in both the resident and the stream paths.
     """
-    d, b = cfg.data, cfg.train.batch_size
+    d = cfg.data
+    rank, world = multihost.host_shard()
+    b = multihost.local_batch_size(cfg.train.batch_size)
     warp_mode = d.pair_mode == "warp"
     if d.dataset == "synthetic_dots":
         def mk(gen, n):
@@ -96,64 +121,86 @@ def make_batch_iterator(cfg: Config, start_step: int = 0,
                                     num_dots=cfg.model.num_keypoints,
                                     channels=d.channels, max_shift=0.8)[:2]
             return pair[0] if warp_mode else pair
-        return SyntheticBatches(mk, b, cfg.train.seed, start_step, device)
+        return SyntheticBatches(mk, b, cfg.train.seed, start_step, device,
+                                rank, world)
     if d.dataset == "synthetic_pong":
         def mk(gen, n):
             pair = scripted_pong_pair(gen, n, d.image_size)[:2]
             return pair[0] if warp_mode else pair
-        return SyntheticBatches(mk, b, cfg.train.seed, start_step, device)
+        return SyntheticBatches(mk, b, cfg.train.seed, start_step, device,
+                                rank, world)
     store_path = store_path_for(d)
-    if not os.path.exists(store_path):
-        if d.dataset == "pose":
-            from keypoints_tpu_torch.data.pose import generate_pose_store
-            print(f"generating synthetic pose store at {store_path}",
-                  flush=True)
-            generate_pose_store(store_path, size=d.image_size,
-                                seed=cfg.train.seed, device=device)
-        elif d.dataset == "celeba":
-            from keypoints_tpu_torch.data.faces import generate_face_store
-            print(f"generating synthetic face store at {store_path}",
-                  flush=True)
-            generate_face_store(store_path, size=d.image_size,
-                                seed=cfg.train.seed)
-        elif d.dataset == "atari":
-            from keypoints_tpu_torch.data.collect import collect
-            print(f"collecting rollouts into {store_path}", flush=True)
-            collect(store_path, size=d.image_size, seed=cfg.train.seed,
-                    device=device)
-        else:
-            raise FileNotFoundError(
-                f"{store_path} not found; convert real frames with "
-                f"data.records.image_folder_to_store or point data.data_dir "
-                f"at an existing store")
+    # rank 0 alone generates a missing store (the group shares one
+    # filesystem), and no rank opens it before it is whole
+    try:
+        if multihost.is_primary() and not os.path.exists(store_path):
+            _generate_store(cfg, store_path, device)
+    finally:
+        multihost.barrier()
     store = FrameStore(store_path)
     n_items = (len(store.pairs) if d.pair_mode == "temporal"
                and store.pairs is not None else len(store.frames))
     holdout = scoring_holdout(cfg, n_items)
     limit = n_items - holdout if holdout else None
-    if fits_in_memory(store, device=device):
+    # resident or streamed on every rank alike: a stream's first step
+    # broadcasts its scoring rows, a resident source's does not
+    if multihost.min_max(int(fits_in_memory(store, device=device)))[0]:
         return DeviceResidentBatches(DeviceDataset(store, device=device), b,
                                      d.pair_mode, cfg.train.seed, start_step,
-                                     limit=limit)
-    # bigger than the card: host streams, this process's shard (0 of 1
-    # until data parallelism, ROADMAP A.3)
+                                     limit=limit, rank=rank, world=world)
+    # bigger than the card: host streams, this rank's shard of the items
     stream = pair_stream if d.pair_mode == "temporal" else single_stream
-    return prefetch(stream(store, b, cfg.train.seed, start_batch=start_step,
+    return prefetch(stream(store, b, cfg.train.seed, shard_index=rank,
+                           shard_count=world, start_batch=start_step,
                            workers=d.loader_workers, limit=limit,
                            device=device))
 
 
+def _generate_store(cfg: Config, store_path: str,
+                    device: torch.device | str) -> None:
+    """Write the preset's missing store at ``store_path``: pose figures,
+    procedural faces, or Atari rollouts; raises for any other dataset."""
+    d = cfg.data
+    if d.dataset == "pose":
+        from keypoints_tpu_torch.data.pose import generate_pose_store
+        print(f"generating synthetic pose store at {store_path}",
+              flush=True)
+        generate_pose_store(store_path, size=d.image_size,
+                            seed=cfg.train.seed, device=device)
+    elif d.dataset == "celeba":
+        from keypoints_tpu_torch.data.faces import generate_face_store
+        print(f"generating synthetic face store at {store_path}",
+              flush=True)
+        generate_face_store(store_path, size=d.image_size,
+                            seed=cfg.train.seed)
+    elif d.dataset == "atari":
+        from keypoints_tpu_torch.data.collect import collect
+        print(f"collecting rollouts into {store_path}", flush=True)
+        collect(store_path, size=d.image_size, seed=cfg.train.seed,
+                device=device)
+    else:
+        raise FileNotFoundError(
+            f"{store_path} not found; convert real frames with "
+            f"data.records.image_folder_to_store or point data.data_dir "
+            f"at an existing store")
+
+
 class InStepBatches:
-    """A batch source sampled on the device: batch ``i`` is
-    ``sample(generator(i), batch)``, a pure function of
-    ``(seed + _key_salt, i)``. The loop draws batch ``state.step`` each
-    step; the eval cadence draws its rows from the same source. Also
-    iterable, from ``start_step``."""
+    """A batch source sampled on the device: rank ``rank`` of ``world``
+    draws its ``batch`` rows of batch ``i`` as
+    ``sample(parallel.dp.shard_generator(seed + _key_salt, i, rank, world),
+    batch)``, a pure function of ``(seed + _key_salt, i, rank)`` (of
+    ``(seed + _key_salt, i)`` alone in a one-rank world). The loop draws
+    batch ``state.step`` each step; the eval cadence draws its rows from
+    :meth:`generator`, the same on every rank. Also iterable, from
+    ``start_step``."""
 
     batch: int = 0
     seed: int = 0
     start_step: int = 0
     device: torch.device | str = "cuda"
+    rank: int = 0
+    world: int = 1
     #: separates this source's draws from the train step's (seed, step)
     _key_salt: int = 1
 
@@ -162,10 +209,13 @@ class InStepBatches:
         raise NotImplementedError
 
     def generator(self, step: int) -> torch.Generator:
+        """The generator of step ``step``, the same on every rank."""
         return step_generator(self.seed + self._key_salt, step, self.device)
 
     def sample_at(self, step: int):
-        return self.sample(self.generator(step), self.batch)
+        return self.sample(dp_mod.shard_generator(
+            self.seed + self._key_salt, step, self.rank, self.world,
+            self.device), self.batch)
 
     def __iter__(self):
         for i in itertools.count(self.start_step):
@@ -176,12 +226,14 @@ class SyntheticBatches(InStepBatches):
     """A synthetic generator ``make(generator, n)`` drawn on the device."""
 
     def __init__(self, make: Callable, batch: int, seed: int,
-                 start_step: int, device: torch.device | str = "cuda"):
+                 start_step: int, device: torch.device | str = "cuda",
+                 rank: int = 0, world: int = 1):
         self.make = make            # (generator, n) -> batch or (src, tgt)
         self.batch = batch
         self.seed = seed
         self.start_step = start_step
         self.device = device
+        self.rank, self.world = rank, world
 
     def sample(self, generator, n):
         return self.make(generator, n)
@@ -195,7 +247,8 @@ class DeviceResidentBatches(InStepBatches):
     _key_salt = 3
 
     def __init__(self, ds: DeviceDataset, batch: int, pair_mode: str,
-                 seed: int, start_step: int, limit: Optional[int] = None):
+                 seed: int, start_step: int, limit: Optional[int] = None,
+                 rank: int = 0, world: int = 1):
         self.ds = ds
         self.batch = batch
         self.pair_mode = pair_mode
@@ -203,6 +256,7 @@ class DeviceResidentBatches(InStepBatches):
         self.start_step = start_step
         self.limit = limit
         self.device = ds.frames.device
+        self.rank, self.world = rank, world
 
     def sample(self, generator, n):
         if self.pair_mode == "temporal":
@@ -282,7 +336,8 @@ class BestTracker:
     and carries the previous entry, so a crash between the two reconciles
     at restart: the step the manager retained is matched against the
     current or the previous entry, and a later, worse value can never evict
-    a strictly better checkpoint. Saves are synchronous.
+    a strictly better checkpoint. Saves are synchronous. Under a process
+    group every rank keeps the best, and rank 0 alone writes.
     """
 
     def __init__(self, directory: str, preset: str = ""):
@@ -309,6 +364,8 @@ class BestTracker:
         prev = ({"step": self.step, "eval_loss": self.best}
                 if self.step is not None else None)
         self.best, self.step = eval_loss, step
+        if not multihost.is_primary():
+            return True
         if self._mgr is None:               # lazy: only runs that improve pay
             self._mgr = ckpt.make_manager(self.dir, max_to_keep=1)
         # ``extra`` carries the scoring pair's provenance: held_out=False
@@ -400,14 +457,23 @@ def train(cfg: Config, logdir: str | None = None, dry_run: bool = False,
 def _train(cfg: Config, logdir: str | None, dry_run: bool,
            device: torch.device) -> TrainState:
     t = cfg.train
+    rank, world = multihost.host_shard()
+    dp = world > 1
+    if dp:
+        if not t.data_parallel:
+            raise ValueError(f"{world} ranks with train.data_parallel off: "
+                             f"each would train alone into the same "
+                             f"checkpoints; launch one process")
+        if t.batch_size % world:
+            raise ValueError(f"data_parallel off: batch {t.batch_size} not "
+                             f"divisible by {world} processes")
+        if device.type == "cuda" and device.index is None:
+            device = multihost.rank_device()
+    primary = multihost.is_primary()
+    tag = f"[rank {rank}/{world}] " if dp else ""
     loss = make_loss(cfg, device)
     state = init_state(cfg, device)
     model = state.model
-
-    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-    if t.data_parallel and n_dev > 1:
-        print(f"data_parallel: {n_dev} devices visible, training on "
-              f"{device} alone (data parallelism is ROADMAP A.3)", flush=True)
 
     extract = make_extract_fn(model)
     # a dry run must not touch disk: no tracker or manager directories
@@ -424,24 +490,37 @@ def _train(cfg: Config, logdir: str | None, dry_run: bool,
         mgr = ckpt.make_manager(f"{t.checkpoint_dir}/{cfg.name}",
                                 t.max_to_keep)
         start, state = ckpt.restore_latest(mgr, state)
-    if start is not None:
+    if dp:
+        # ``replicate`` needs one optimizer-state layout on every rank, and
+        # the batch sources one start: every rank resumes the same step
+        lo, hi = multihost.min_max(-1 if start is None else start)
+        if lo != hi:
+            raise RuntimeError(
+                f"rank {rank} restored step {start}; the ranks restored "
+                f"steps {lo} to {hi} (-1: none): every rank must read the "
+                f"same train.checkpoint_dir")
+    if start is not None and primary:
         print(f"resumed from step {start}", flush=True)
 
-    log = Logger(logdir if not dry_run else None)
+    log = Logger(logdir if primary and not dry_run else None)
     batches = make_batch_iterator(cfg, start_step=state.step, device=device)
     in_step = isinstance(batches, InStepBatches)
-    step_fn = make_train_step(cfg, loss=loss)
+    step_fn = (make_train_step(cfg, loss=loss, group=dist.group.WORLD)
+               if dp else make_train_step(cfg, loss=loss))
 
     if dry_run:
-        print(f"dry run: preset {cfg.name!r}, {t.steps} steps of batch "
+        print(f"{tag}dry run: preset {cfg.name!r}, {t.steps} steps of batch "
               f"{t.batch_size}, source {type(batches).__name__}"
               f"{' (in-step sampling)' if in_step else ''}, one step a "
-              f"dispatch, dp=False ({n_dev} device(s)), on {device}",
+              f"dispatch, dp={dp} ({world} rank(s)), on {device}",
               flush=True)
-        print(json.dumps(dataclasses.asdict(cfg), default=str, indent=2),
-              flush=True)
+        if primary:
+            print(json.dumps(dataclasses.asdict(cfg), default=str,
+                             indent=2), flush=True)
         log.close()
         return state
+    if dp:
+        dp_mod.replicate(state.model, state.optimizer)
 
     batch_iter = None if in_step else iter(batches)
     eval_batch = None
@@ -460,7 +539,9 @@ def _train(cfg: Config, logdir: str | None, dry_run: bool,
                 batch = (batches.sample_at(step) if in_step
                          else next(batch_iter))
                 if eval_batch is None and not in_step:
-                    eval_batch = batch
+                    # every rank scores the same rows: rank 0's
+                    eval_batch = (dp_mod.broadcast_rows(batch, 8) if dp
+                                  else batch)
                 state, metrics = step_fn(state, batch)
             except RuntimeError as e:
                 if _is_device_fault(e):
@@ -483,7 +564,7 @@ def _train(cfg: Config, logdir: str | None, dry_run: bool,
                         f"training diverged at step {step}: loss={lv} "
                         f"grad={gn}; restart from the last checkpoint with a "
                         f"lower lr")
-                print(f"step {step:6d} loss {lv:.5f} grad {gn:.3f} "
+                print(f"{tag}step {step:6d} loss {lv:.5f} grad {gn:.3f} "
                       f"frames/s {fps:.0f}", flush=True)
                 log.scalars(step, loss=lv, grad_norm=gn, frames_per_sec=fps)
 
@@ -501,7 +582,7 @@ def _train(cfg: Config, logdir: str | None, dry_run: bool,
                 log.scalars(step, keypoint_spread=spread)
                 if (t.min_spread and step >= t.spread_check_step
                         and spread < t.min_spread):
-                    print(f"step {step:6d} DISCOVERY FAILURE SUSPECTED: "
+                    print(f"{tag}step {step:6d} DISCOVERY FAILURE SUSPECTED: "
                           f"keypoint_spread {spread:.3f} < {t.min_spread} "
                           f"past step {t.spread_check_step} — some objects "
                           f"were likely never discovered; rerolling the "
@@ -561,11 +642,13 @@ def _train(cfg: Config, logdir: str | None, dry_run: bool,
                     if best.update(step, el, state,
                                    extra={**eval_pair_info,
                                           "rows": int(eval_pair[0].shape[0])}):
-                        print(f"step {step:6d} new best eval_loss {el:.5f} "
-                              f"-> {best.dir}", flush=True)
+                        if primary:
+                            print(f"step {step:6d} new best eval_loss "
+                                  f"{el:.5f} -> {best.dir}", flush=True)
 
             if step % t.checkpoint_every == 0:
-                ckpt.save(mgr, step, state, cfg.name)
+                ckpt.save(mgr, step, state, cfg.name)   # rank 0 writes
+                multihost.barrier()
                 last_saved = step
 
     try:
@@ -578,9 +661,10 @@ def _train(cfg: Config, logdir: str | None, dry_run: bool,
         newest = max(last_saved or 0, mgr.latest_step() or 0)
         if not mid_step and step > newest:
             ckpt.save(mgr, step, state, cfg.name)
-            print(f"\ninterrupted at step {step}: checkpoint saved to "
-                  f"{t.checkpoint_dir}/{cfg.name}; rerun the same command "
-                  f"to resume", flush=True)
+            if primary:
+                print(f"\ninterrupted at step {step}: checkpoint saved to "
+                      f"{t.checkpoint_dir}/{cfg.name}; rerun the same "
+                      f"command to resume", flush=True)
         raise
     finally:
         # one shutdown path for normal exit, Ctrl-C and crashes
@@ -751,6 +835,9 @@ def main(argv=None):
             _strip_flag(_strip_flag(raw, "--reroll-on-plateau"),
                         "--seed-offset"),
             args.reroll_on_plateau, base_offset=args.seed_offset))
+    # join torchrun's process group, if any, before the first card access
+    multihost.initialize("gloo" if torch.device(args.device).type == "cpu"
+                         else None)
 
     cfg = apply_overrides(get_config(args.preset), args.override)
     if args.steps is not None:
@@ -774,10 +861,12 @@ def main(argv=None):
         with profile(activities=activities) as prof:
             train(cfg.override(**{"train.steps": min(cfg.train.steps, 20)}),
                   args.logdir, device=device)
-        os.makedirs(args.profile, exist_ok=True)
-        out = os.path.join(args.profile, "trace.json")
-        prof.export_chrome_trace(out)
-        print(f"profile of the first 20 steps written to {out}", flush=True)
+        if multihost.is_primary():
+            os.makedirs(args.profile, exist_ok=True)
+            out = os.path.join(args.profile, "trace.json")
+            prof.export_chrome_trace(out)
+            print(f"profile of the first 20 steps written to {out}",
+                  flush=True)
     else:
         try:
             train(cfg, args.logdir, device=args.device)
@@ -787,7 +876,7 @@ def main(argv=None):
             # parameters, then signal the reroll supervisor
             for d in (f"{cfg.train.checkpoint_dir}/{cfg.name}",
                       f"{cfg.train.checkpoint_dir}/{cfg.name}_best"):
-                if os.path.isdir(d):
+                if multihost.is_primary() and os.path.isdir(d):
                     dst, i = f"{d}_failed_seed{cfg.train.seed}", 1
                     while os.path.exists(dst):
                         dst = f"{d}_failed_seed{cfg.train.seed}.{i}"

@@ -198,7 +198,8 @@ def make_loss_fn(cfg: Config, loss: Optional[Callable] = None) -> Callable:
     return loss_fn
 
 
-def make_train_step(cfg: Config, loss: Optional[Callable] = None) -> Callable:
+def make_train_step(cfg: Config, loss: Optional[Callable] = None,
+                    group=None) -> Callable:
     """→ step(state, batch, draws=None) -> (state, metrics).
 
     ``batch`` is a raw image batch (warp mode: the (src, tgt) pair is made
@@ -210,6 +211,14 @@ def make_train_step(cfg: Config, loss: Optional[Callable] = None) -> Callable:
     the full-batch gradient of the mean loss. The gradients stay in the
     parameters' ``.grad`` after the step. ``metrics`` holds ``loss`` and
     ``grad_norm`` (the global L2 norm of the gradients) as device tensors.
+
+    With a process ``group`` (data parallelism, ``parallel.dp``) ``batch``
+    is this rank's rows, the warp draws are the rank's own
+    (``parallel.dp.shard_generator``), and after the last micro-batch's
+    backward the gradients and the loss are averaged across the group
+    (``parallel.dp.all_reduce_mean``), as JAX's ``axis_name`` does;
+    ``grad_norm`` is taken on the averaged gradients. Micro-batches stay
+    per rank. ``group=None`` is the single-process step.
     """
     loss_fn = make_loss_fn(cfg, loss)
     schedule = make_schedule(cfg)
@@ -225,6 +234,12 @@ def make_train_step(cfg: Config, loss: Optional[Callable] = None) -> Callable:
             f"train.grad_accum {accum}")
     div_anneal = (cfg.train.keypoint_diversity > 0.0
                   and cfg.train.diversity_steps > 0)
+    if group is not None:
+        import torch.distributed as dist
+
+        from keypoints_tpu_torch.parallel.dp import (all_reduce_mean,
+                                                     shard_generator)
+        rank, world = dist.get_rank(group), dist.get_world_size(group)
 
     def step(state: TrainState, batch, draws: Optional[PairDraws] = None):
         model, opt = state.model, state.optimizer
@@ -236,7 +251,10 @@ def make_train_step(cfg: Config, loss: Optional[Callable] = None) -> Callable:
             if bf16_aug:
                 batch = batch.to(torch.bfloat16)
             if draws is None:
-                gen = step_generator(cfg.train.seed, state.step, batch.device)
+                gen = (step_generator(cfg.train.seed, state.step,
+                                      batch.device) if group is None else
+                       shard_generator(cfg.train.seed, state.step, rank,
+                                       world, batch.device))
                 draws = draw_pair(gen, tuple(batch.shape), wcfg, batch.dtype)
             src, tgt = pair_from_draws(batch, draws, wcfg)
         else:
@@ -259,10 +277,12 @@ def make_train_step(cfg: Config, loss: Optional[Callable] = None) -> Callable:
             value, _ = loss_fn(model, src, tgt, lam_scale)
             value.backward()
             value = value.detach()
+        if group is not None:
+            value = all_reduce_mean(model.parameters(), value, group)
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         grad_norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
-        for group in opt.param_groups:
-            group["lr"] = schedule(state.step)
+        for param_group in opt.param_groups:
+            param_group["lr"] = schedule(state.step)
         opt.step()
         state.step += 1
         return state, {"loss": value, "grad_norm": grad_norm}

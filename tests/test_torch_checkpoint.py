@@ -118,3 +118,62 @@ def test_overrides_parse_like_jax():
     want = jax_configs.apply_overrides(jax_configs.get_config("celeba128"),
                                        items)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+# --- a port-trained step file back into JAX ----------------------------------
+
+def _train_steps(tmp_path, steps: int = 3):
+    from keypoints_tpu_torch import train as train_mod
+    cfg = configs.get_config("celeba128").override(**{
+        **NARROW, "data.dataset": "synthetic_dots", "train.batch_size": 4,
+        "train.steps": steps, "train.checkpoint_every": steps,
+        "train.log_every": 100, "train.eval_every": 1000,
+        "train.checkpoint_dir": str(tmp_path)})
+    return cfg, train_mod.train(cfg, device="cpu")
+
+
+def test_port_step_file_loads_through_jax_converter(tmp_path):
+    """A step file of 3 port train steps goes through JAX's unedited
+    ``load_torch_checkpoint`` (the ``"state_dict"`` key of format 2), and
+    JAX's extract on those params matches the port's keypoints within
+    1e-3 (docs/PARITY.md)."""
+    import jax.numpy as jnp
+
+    from keypoints_tpu.checkpoint import load_torch_checkpoint
+    from keypoints_tpu.training import build_model as jax_build_model
+    from keypoints_tpu.training import make_extract_fn as jax_extract_fn
+    from keypoints_tpu_torch.testing import random_images
+    from keypoints_tpu_torch.training import make_extract_fn
+
+    cfg, state = _train_steps(tmp_path)
+    params = load_torch_checkpoint(str(tmp_path / "celeba128" / "3.pt"))
+    jcfg = jax_configs.get_config("celeba128").override(**NARROW)
+    images = random_images(4, cfg, 5)
+    want = jax.jit(jax_extract_fn(jcfg, jax_build_model(jcfg)))(
+        params, jnp.asarray(images))
+    got = make_extract_fn(state.model)(torch.from_numpy(images)).numpy()
+    assert float(np.linalg.norm(got - np.asarray(want), axis=-1).max()) < 1e-3
+
+
+def test_format_1_step_files_still_restore(tmp_path):
+    """A step file of the first layout (the model under ``"model"``)
+    restores, and ``load_checkpoint`` reads its model."""
+    from keypoints_tpu_torch import checkpoint as ckpt
+    from keypoints_tpu_torch.training import init_state
+
+    cfg, state = _train_steps(tmp_path)
+    path = tmp_path / "celeba128" / "3.pt"
+    payload = torch.load(path, weights_only=True)
+    assert payload["format"] == ckpt.FORMAT == 2
+    payload["format"], payload["model"] = 1, payload.pop("state_dict")
+    torch.save(payload, path)
+    restored = ckpt.CheckpointManager(str(path.parent)).restore(
+        3, init_state(cfg, "cpu"))
+    for key, value in state.model.state_dict().items():
+        assert torch.equal(restored.model.state_dict()[key], value), key
+        assert torch.equal(load_checkpoint(str(path))[key], value), key
+    payload["format"] = 3
+    torch.save(payload, path)
+    with pytest.raises(ValueError, match="checkpoint format 3"):
+        ckpt.CheckpointManager(str(path.parent)).restore(
+            3, init_state(cfg, "cpu"))

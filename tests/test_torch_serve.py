@@ -255,7 +255,9 @@ def test_port_imports_no_jax():
             "keypoints_tpu_torch.data.pose, keypoints_tpu_torch.viz, "
             "keypoints_tpu_torch.data.records, "
             "keypoints_tpu_torch.data.device, "
-            "keypoints_tpu_torch.data.collect; "
+            "keypoints_tpu_torch.data.collect, keypoints_tpu_torch.parallel, "
+            "keypoints_tpu_torch.parallel.dp, "
+            "keypoints_tpu_torch.parallel.multihost; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'keypoints_tpu.')) or m == 'keypoints_tpu');"
             " assert not bad, bad")

@@ -429,7 +429,8 @@ def test_checkpoint_manager_keeps_max_to_keep_and_ignores_tmp(tmp_path):
     payload = torch.load(mgr.path(10), weights_only=True)
     assert payload["format"] == ckpt.FORMAT and payload["step"] == 10
     assert payload["preset"] == "pong64"
-    assert set(payload) == {"format", "step", "preset", "model", "optimizer"}
+    assert set(payload) == {"format", "step", "preset", "state_dict",
+                            "optimizer"}
     fresh = init_state(_dots("unused", 1), "cpu")
     step, restored = ckpt.restore_latest(mgr, fresh)
     assert step == 10 and restored is fresh and fresh.step == 10
