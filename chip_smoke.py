@@ -17,7 +17,9 @@ keypoints_tpu_torch.eval``) of celeba128, pose256 and transporter_atari
 (joint) at b64; the train loop (``python -m keypoints_tpu_torch.train`` and
 ``train()``: transporter_atari on the committed ``data/atari_64.npy``,
 pong64 on scripted Pong, celeba128 on a face store it generates) with its
-checkpoints and bit-exact resume, and store-backed eval of its checkpoint;
+checkpoints and bit-exact resume, its step one CUDA graph a step
+(``make_graphed_train_step``, held against the eager step bit for bit in
+phase 36), and store-backed eval of its checkpoint;
 data parallelism: dp_celeba's step (b256) through ``make_dp_train_step``
 in a one-rank NCCL group, the train CLI under ``torchrun`` with two ranks
 on the card, and the server on ``--devices 1``; the deployment path:
@@ -151,9 +153,13 @@ their consumers, ``serve --artifact``, ``eval --artifact --overlay`` and
                 package's K3, in turns (old, new, new, old); one step of
                 each route counted, only K3's toward the kernels line
   27. train     ``python -m keypoints_tpu_torch.train`` of transporter_atari
-     CLI        and pong64: 40 steps, and 20 + a resumed 20, equal bits
-  28. loop      ``train()`` in this process, launches per step and eval,
-                the stream path, loop overhead, the cuDNN-deterministic A/B
+     CLI        and pong64: 40 steps, and 20 + a resumed 20, equal bits,
+                each process's step captured as a CUDA graph after its
+                first step
+  28. loop      ``train()`` in this process (graphed): kernels per step and
+                eval on the card, counted from torch.profiler, and the
+                wrappers' counts; the stream path, loop overhead against
+                the graphed step alone, the cuDNN-deterministic A/B
   29. store     store eval of phase 27's checkpoint, card vs CPU
      eval
   30. dp step   dp_celeba (b256 bf16) through ``make_dp_train_step`` in a
@@ -191,6 +197,16 @@ their consumers, ``serve --artifact``, ``eval --artifact --overlay`` and
                 events; ``trace`` of an artifact call holds the K1 kernel;
                 ``guard_metrics`` raises on a NaN loss; ``assert_finite``
                 names the non-finite tensor of a state dict on the card
+  36. graph     ``make_graphed_train_step`` against ``make_train_step``:
+      step      celeba128 and pose256 b128 (a fixed batch copied into the
+                graph), transporter_atari b64 joint and marginal (the
+                resident store sampled inside the graph), pong64 b64
+                (scripted Pong drawn inside the graph), bf16, cuDNN
+                deterministic: 1 eager + 3 replayed steps equal 4 eager
+                steps bit for bit (parameters, Adam's state, metrics);
+                kernels a step from torch.profiler, eager and replayed;
+                the capture's seconds and bytes; ms/step in turns (eager,
+                graph, graph, eager) and the device's idle share
 
 Run from a checkout:  python3 chip_smoke.py
 The card's ``nvidia-smi`` line, then a JSON object of the kernels
@@ -271,6 +287,7 @@ from keypoints_tpu_torch.training import (build_model,  # noqa: E402
                                           freeze_for_inference, init_state,
                                           make_extract_fn,
                                           make_extract_many_fn,
+                                          make_graphed_train_step,
                                           make_train_step,
                                           step_generator, warp_config)
 
@@ -2567,8 +2584,10 @@ def train_cli_phase(card: str, tmp: str) -> str:
     """``python -m keypoints_tpu_torch.train`` at full width: transporter_atari
     on the committed ``data/atari_64.npy`` (resident on the card) and pong64
     (scripted Pong drawn on the card), 40 steps in one process, then 20 and
-    a resumed 20 in two; the final checkpoints, model and optimizer, equal
-    bit for bit. → the uninterrupted transporter_atari run's directory."""
+    a resumed 20 in two, each process's step captured as one CUDA graph
+    after its first step and replayed; the final checkpoints, model and
+    optimizer, equal bit for bit. → the uninterrupted transporter_atari
+    run's directory."""
     phase(f"27 train CLI and resume, full width, on {card}")
     for preset in CLI_PRESETS:
         runs = {}
@@ -2589,11 +2608,16 @@ def train_cli_phase(card: str, tmp: str) -> str:
             lines = out.stdout.splitlines()
             print(f"{preset} {run} {steps} steps: {wall:.2f}s wall (process "
                   f"start, kernel load, store, steps); "
-                  f"{' | '.join(l for l in lines if l.startswith('step') or 'resumed' in l)}",
+                  f"{' | '.join(l for l in lines if l.startswith('step') or 'resumed' in l or 'CUDA graph' in l)}",
                   flush=True)
             if run == "split" and steps == CLI_STEPS:
                 check(f"resumed from step {CLI_STEPS // 2}" in out.stdout,
                       f"{preset}: the second process did not resume")
+            first = CLI_STEPS // 2 + 1 if run == "split" and steps == \
+                CLI_STEPS else 1
+            check(f"captured as one CUDA graph after step {first}"
+                  in out.stdout, f"{preset} {run}: the step was not "
+                  f"captured after step {first}")
             rows = [json.loads(l) for l in
                     Path(logdir, "metrics.jsonl").read_text().splitlines()]
             for key in ("loss", "grad_norm", "keypoint_spread"):
@@ -2632,23 +2656,17 @@ def _loop_cfg(preset: str, tmp: str, **over):
                           else "data"), **over})
 
 
-def _timed_train(cfg) -> tuple[float, object]:
-    from keypoints_tpu_torch import train as train_mod
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state = train_mod.train(cfg)
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0, state
-
-
 def train_loop_phase(card: str, tmp: str) -> list:
-    """``train()`` in this process at full width: transporter_atari on the
-    committed store, celeba128 at b32 on a face store it generates, pong64
-    on scripted Pong; the launches of each run against its steps and evals;
-    the stream path of transporter_atari (``fits_in_memory`` patched here
-    only); the loop's ms/step against ``make_train_step`` alone; then
-    celeba128's b128 bf16 step with cuDNN's deterministic setting off and
-    on, in turns. → the counts of the runs."""
+    """``train()`` in this process at full width, its step one CUDA graph a
+    step: transporter_atari on the committed store, celeba128 at b32 on a
+    face store it generates, pong64 on scripted Pong; the kernels each run
+    launched on the card, counted from torch.profiler's kernel names,
+    against its steps and evals, and the wrappers' counts (the first,
+    eager step, the capture, the evals); the stream path of
+    transporter_atari (``fits_in_memory`` patched here only); the loop's
+    ms/step against ``make_graphed_train_step`` alone; then celeba128's
+    b128 bf16 eager step with cuDNN's deterministic setting off and on, in
+    turns. → the wrappers' counts of the runs."""
     phase(f"28 train loop in this process, full width, on {card}")
     from keypoints_tpu_torch import train as train_mod
     path_counts = []
@@ -2662,21 +2680,32 @@ def train_loop_phase(card: str, tmp: str) -> list:
                   f"{np.load(store, mmap_mode='r').shape}, "
                   f"{store.stat().st_size / 1e6:.1f} MB", flush=True)
         reset_counts()
-        wall, state = _timed_train(cfg)
+        runs = []
+        on_card, _, wall = profiled_launches(
+            lambda: runs.append(train_mod.train(cfg)), 1, _card_op)
+        state = runs[0]
         counts = read_counts()
         path_counts.append(counts)
         evals = steps // LOOP_EVAL_EVERY
         want = {name: per_step.get(name, 0) * steps
                 + per_eval.get(name, 0) * evals + once.get(name, 0)
-                for name in KERNELS}
+                for name in PROFILED_KERNELS}
         print(f"{preset} b{cfg.train.batch_size} train(): {steps} steps, "
-              f"{evals} evals in {wall:.2f}s; launches {counts}", flush=True)
+              f"{evals} evals in {wall / 1e3:.2f}s under torch.profiler; "
+              f"kernels on the card {on_card}; wrapper launches {counts}",
+              flush=True)
         check(state.step == steps, f"{preset}: train() stopped at "
               f"{state.step}")
-        for name in KERNELS:
-            check(counts[name] == want[name], f"{preset} loop launched "
-                  f"{name} {counts[name]} times ({want[name]} expected)")
-        del state
+        for name in PROFILED_KERNELS:
+            check(on_card[name] == want[name], f"{preset} loop ran {name} "
+                  f"{on_card[name]} times on the card ({want[name]} "
+                  f"expected)")
+            # the eager first step and the capture; replays count nothing
+            wrapped = want[name] - per_step.get(name, 0) * (steps - 2)
+            check(counts[name] == wrapped, f"{preset} loop's wrapper "
+                  f"counted {name} {counts[name]} times ({wrapped} "
+                  f"expected)")
+        del state, runs
         torch.cuda.empty_cache()
 
     # the stream path, forced: host reads, pinned copies, the same step
@@ -2691,22 +2720,30 @@ def train_loop_phase(card: str, tmp: str) -> list:
                              train_mod.InStepBatches),
               "the patched budget did not take the stream path")
         reset_counts()
-        wall, state = _timed_train(cfg)
+        runs = []
+        on_card, _, wall = profiled_launches(
+            lambda: runs.append(train_mod.train(cfg)), 1, _card_op)
+        state = runs[0]
         counts = read_counts()
     finally:
         train_mod.fits_in_memory = real
     path_counts.append(counts)
     print(f"transporter_atari through the host stream: {STREAM_STEPS} "
-          f"steps in {wall:.2f}s; launches {counts}", flush=True)
-    check(state.step == STREAM_STEPS and counts["softargmax_raster_fwd"]
-          == 2 * STREAM_STEPS and counts["spatial_softmax_bwd"]
-          == STREAM_STEPS, f"stream path: step {state.step}, {counts}")
-    del state
+          f"steps in {wall / 1e3:.2f}s under torch.profiler; kernels on the "
+          f"card {on_card}; wrapper launches {counts}", flush=True)
+    check(state.step == STREAM_STEPS and on_card["softargmax_raster_fwd"]
+          == 2 * STREAM_STEPS and on_card["spatial_softmax_bwd"]
+          == STREAM_STEPS, f"stream path: step {state.step}, {on_card}")
+    check(counts["softargmax_raster_fwd"] == 4
+          and counts["spatial_softmax_bwd"] == 2,
+          f"stream path: wrapper counts {counts} (the eager step and the "
+          f"capture)")
+    del state, runs
 
     # the loop's own cost: its ms/step between the log reads at steps 10
     # and 40 of one run (the logger's scalars patched here to note the
-    # time; each read waits for the card), against make_train_step on the
-    # same source's batches with the same reads, both with cuDNN
+    # time; each read waits for the card), against make_graphed_train_step
+    # on the same in-step source with the same reads, both with cuDNN
     # deterministic, in turns (loop, bare, bare, loop)
     first, last = OVERHEAD_STEPS
     for preset in ("transporter_atari", "celeba128"):
@@ -2739,11 +2776,11 @@ def train_loop_phase(card: str, tmp: str) -> list:
             torch.backends.cudnn.benchmark = False
             try:
                 state = init_state(cfg, "cuda")
-                step = make_train_step(cfg)
                 source = train_mod.make_batch_iterator(cfg, device="cuda")
+                step = make_graphed_train_step(cfg, state, source=source)
                 t0 = None
                 for i in range(last):
-                    state, metrics = step(state, source.sample_at(i))
+                    state, metrics = step(state)
                     if (i + 1) % 10 == 0:
                         float(metrics["loss"])      # the loop's log read
                         if i + 1 == first:
@@ -2757,7 +2794,7 @@ def train_loop_phase(card: str, tmp: str) -> list:
         print(f"{preset} b{cfg.train.batch_size} bf16, steps {first + 1}-"
               f"{last} (host clock, a loss read every 10 steps): train() "
               f"loop {' / '.join(f'{v:.3f}' for v in ms['loop'])} ms/step, "
-              f"make_train_step on the source's batches "
+              f"make_graphed_train_step on the source "
               f"{' / '.join(f'{v:.3f}' for v in ms['bare'])} (loop, bare, "
               f"bare, loop): overhead "
               f"{np.mean(ms['loop']) - np.mean(ms['bare']):+.3f} ms/step  "
@@ -3584,6 +3621,308 @@ def tools_phase(card: str, tmp: str, bundle: bytes) -> None:
         print(f"assert_finite: {e}", flush=True)
 
 
+# phase 36: the graphed train step against the eager one. case -> (preset,
+# overrides, the loop's in-step source or a fixed image batch, kernels a
+# step: LOOP_CASES' and phases 9/14/19's)
+GRAPH_CASES = {
+    "celeba128 b128": ("celeba128", {"train.batch_size": TRAIN_BATCH}, False,
+                       {"warp_field": 2, "softargmax_raster_fwd": 1,
+                        "spatial_softmax_bwd": 1, "gaussian_bwd": 1}),
+    "pose256 b128": ("pose256", {"train.batch_size": TRAIN_BATCH}, False,
+                     {"warp_field": 2, "max_pool_fwd": 4, "max_pool_bwd": 2,
+                      "softargmax_raster_fwd": 1, "spatial_softmax_bwd": 1,
+                      "gaussian_bwd": 1}),
+    "transporter_atari joint b64": (
+        "transporter_atari", {"model.softmax_variant": "joint"}, True,
+        {"softargmax_raster_fwd": 2, "spatial_softmax_bwd": 1,
+         "gaussian_bwd": 1}),
+    "transporter_atari marginal b64": (
+        "transporter_atari", {}, True,
+        {"softargmax_raster_fwd": 2, "spatial_softmax_bwd": 1,
+         "gaussian_bwd": 1}),
+    "pong64 b64": ("pong64", {}, True,
+                   {"gaussian_fwd": 2, "softargmax_raster_fwd": 1,
+                    "spatial_softmax_bwd": 1, "gaussian_bwd": 1}),
+}
+GRAPH_EQUAL_STEPS = 4      # 1 eager + 3 replays against 4 eager steps
+GRAPH_TIMED_STEPS = {"pose256 b128": 5, "celeba128 b128": 10}   # else 20
+GRAPH_PROFILED_STEPS = 3
+# each counted kernel's function names, as torch.profiler shows them
+PROFILED_KERNELS = {
+    "spatial_softmax_fwd": {"marginal_fwd", "joint_fwd", "block_fwd"},
+    "spatial_softmax_bwd": {"marginal_bwd", "joint_bwd", "block_marginal_bwd",
+                            "block_joint_bwd"},
+    "gaussian_fwd": {"gaussian_fwd"}, "gaussian_bwd": {"gaussian_bwd"},
+    "warp_bilinear": {"warp_bilinear"}, "warp_field": {"warp_field"},
+    "max_pool_fwd": {"max_pool_fwd"}, "max_pool_bwd": {"max_pool_bwd"},
+    "softargmax_raster_fwd": {"fused_fwd", "block_fused_fwd"},
+}
+
+
+# phase 36's failing capture: pong64 with a source whose sampling reads a
+# value back to the host
+CAPTURE_FAILURE = """
+from keypoints_tpu_torch import train as train_mod
+from keypoints_tpu_torch.configs import get_config
+from keypoints_tpu_torch.training import (CaptureError, init_state,
+                                          make_graphed_train_step)
+cfg = get_config("pong64")
+source = train_mod.make_batch_iterator(cfg, device="cuda")
+sample = source.sample
+
+
+def reading(gen, n):
+    batch = sample(gen, n)
+    float(batch[0].sum())
+    return batch
+
+
+source.sample = reading
+state = init_state(cfg, "cuda")
+step = make_graphed_train_step(cfg, state, source=source)
+try:
+    step(state)
+    print("captured")
+except CaptureError as e:
+    print(f"CaptureError after step {state.step}, from "
+          f"{type(e.__cause__).__name__}: {str(e).splitlines()[0][:120]}")
+"""
+
+
+def _kernel_name(event_name: str) -> str:
+    """The function of a kernel's demangled name: ``marginal_fwd`` of
+    ``void (anonymous namespace)::marginal_fwd<2, true>(float const*,
+    ...)``."""
+    import re
+    found = re.search(r"::(\w+)\s*[<(]", event_name)
+    return found.group(1) if found else event_name
+
+
+def profiled_launches(fn, calls: int, warmup=None
+                      ) -> tuple[dict, float, float]:
+    """torch.profiler over ``calls`` calls of ``fn``: → (launches of each
+    counted kernel a call, from the kernel events' names; device ms a call,
+    the sum of the kernels and copies on the card; host ms a call around
+    the profiled calls, to a synchronise). The profiler traces a first
+    ``warmup()`` (default: a call of ``fn``) without recording it: kernels
+    at the very start of a trace can be missed."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        (warmup or fn)()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / calls * 1e3
+    # the kernels and copies; not the step's annotation on the card's line
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("ProfilerStep")]
+    names = [_kernel_name(e.name) for e in on_card]
+    counts = {}
+    for kernel, fns in PROFILED_KERNELS.items():
+        n = sum(name in fns for name in names)
+        check(n % calls == 0, f"{kernel}: {n} launches in {calls} calls")
+        counts[kernel] = n // calls
+    device_ms = sum(e.time_range.elapsed_us() for e in on_card) / calls / 1e3
+    return counts, device_ms, host_ms
+
+
+def _card_op() -> None:
+    """One small op on the card: a profiler's warm-up."""
+    torch.ones(1, device="cuda").add_(1)
+
+
+def _step_ms(run, steps: int) -> tuple[float, float]:
+    """(CUDA-event ms a step, host ms a step), each the median of 3 runs
+    of ``steps`` warm steps; each run ends in a synchronise."""
+    torch.cuda.synchronize()
+    events, host = [], []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(steps):
+            run()
+        end.record()
+        end.synchronize()
+        events.append(start.elapsed_time(end) / steps)
+        host.append((time.perf_counter() - t0) / steps * 1e3)
+    return float(np.median(events)), float(np.median(host))
+
+
+def _optimizer_move(card: str) -> None:
+    """How far the capturable Adam (bias corrections on the card in
+    float32) moves one eager celeba128 b128 step against torch's default
+    Adam (bias corrections on the host in float64), from the same state
+    at the schedule's peak rate (step ``warmup_steps``)."""
+    cfg = get_config("celeba128").override(
+        **{"train.batch_size": TRAIN_BATCH})
+    images = torch.from_numpy(random_images(TRAIN_BATCH, cfg, 4)).cuda()
+    states = [init_state(cfg, "cuda") for _ in range(2)]
+    default = states[1]
+    default.optimizer = torch.optim.Adam(default.model.parameters(), lr=0.0,
+                                         betas=(0.9, 0.999), eps=1e-8)
+    before = [p.detach().clone() for p in default.model.parameters()]
+    step = make_train_step(cfg)
+    for state in states:
+        state.step = cfg.train.warmup_steps
+        step(state, images)
+    moved = max((a - b).abs().max().item() for a, b in zip(
+        states[0].model.parameters(), default.model.parameters()))
+    update = max((a - b).abs().max().item() for a, b in zip(
+        default.model.parameters(), before))
+    print(f"one eager celeba128 b{TRAIN_BATCH} step at the peak rate, "
+          f"capturable Adam against torch's default Adam: parameters "
+          f"max|d| {moved:.3e}, {moved / update:.3e} of the largest update "
+          f"({update:.3e})  [{card}]", flush=True)
+    del states, default
+
+
+def graph_step_phase(card: str) -> list:
+    """Each case's step through ``make_graphed_train_step`` (one eager step,
+    then replays of the captured graph) against ``make_train_step``'s eager
+    steps from the same initial state, cuDNN deterministic as ``train()``
+    runs it: after 1 eager + 3 replayed steps against 4 eager ones, every
+    parameter, Adam moment and step count and every step's metrics equal
+    bit for bit. Launches a step counted from torch.profiler's kernel
+    names, eager and replayed; the wrapper counters see the eager step
+    and the capture only. The capture's seconds and the bytes it reserved;
+    ms a step by CUDA events and the host clock in turns (eager, graph,
+    graph, eager) and the device's idle share; pose256's peak memory
+    under the graph. → the counts of the graphed runs."""
+    phase(f"36 graph step: one CUDA graph a step against the eager step, on "
+          f"{card}")
+    from keypoints_tpu_torch import train as train_mod
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    path_counts = []
+    try:
+        _optimizer_move(card)
+        for case, (preset, over, in_step, per_step) in GRAPH_CASES.items():
+            t_case = time.perf_counter()
+            cfg = get_config(preset).override(**over)
+            loss = make_loss(cfg)
+            if in_step:
+                sources = [train_mod.make_batch_iterator(cfg, device="cuda")
+                           for _ in range(2)]
+                check(all(isinstance(src, train_mod.InStepBatches)
+                          for src in sources), f"{case}: not in-step")
+                images = None
+            else:
+                images = torch.from_numpy(random_images(
+                    cfg.train.batch_size, cfg, 4)).cuda()
+            eager, graphed = init_state(cfg, "cuda"), init_state(cfg, "cuda")
+            eager_step = make_train_step(cfg, loss=loss)
+
+            def eager_once():
+                nonlocal eager
+                batch = (sources[0].sample_at(eager.step) if in_step
+                         else images)
+                eager, m = eager_step(eager, batch)
+                return m
+
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            graph_step = make_graphed_train_step(
+                cfg, graphed, source=sources[1] if in_step else None,
+                loss=loss)
+
+            def graph_once():
+                nonlocal graphed
+                graphed, m = (graph_step(graphed) if in_step
+                              else graph_step(graphed, images))
+                return m
+
+            got = [{k: v.clone() for k, v in graph_once().items()}
+                   for _ in range(GRAPH_EQUAL_STEPS)]
+            torch.cuda.synchronize()
+            captured = read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            want = [{k: v.clone() for k, v in eager_once().items()}
+                    for _ in range(GRAPH_EQUAL_STEPS)]
+            n = _same_tensors(graphed.model.state_dict(),
+                              eager.model.state_dict(), f"{case} model")
+            n += _same_tensors(graphed.optimizer.state_dict()["state"],
+                               eager.optimizer.state_dict()["state"],
+                               f"{case} Adam state")
+            n += _same_tensors(got, want, f"{case} metrics")
+            check(graphed.step == eager.step == GRAPH_EQUAL_STEPS,
+                  f"{case}: steps {graphed.step} / {eager.step}")
+            check(all(captured[k] == 2 * per_step.get(k, 0)
+                      for k in KERNELS),
+                  f"{case}: wrappers counted {captured}, the eager step and "
+                  f"the capture of {per_step} expected")
+            print(f"{case}: {GRAPH_EQUAL_STEPS} steps graphed (1 eager + "
+                  f"{GRAPH_EQUAL_STEPS - 1} replays) and eager equal bit for "
+                  f"bit ({n} tensors: parameters, Adam moments and counts, "
+                  f"metrics; losses {[round(float(m['loss']), 6) for m in got]}"
+                  f"); capture {graph_step.capture_seconds:.3f}s, "
+                  f"{graph_step.pool_bytes / 2 ** 20:.1f} MiB reserved by it; "
+                  f"peak allocated {peak / 2 ** 30:.2f} GiB, reserved "
+                  f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB",
+                  flush=True)
+
+            reset_counts()
+            launches = {}
+            for kind, fn in (("eager", eager_once), ("graph", graph_once)):
+                launches[kind], device_ms, host_ms = profiled_launches(
+                    fn, GRAPH_PROFILED_STEPS)
+                check(all(launches[kind][k] == per_step.get(k, 0)
+                          for k in PROFILED_KERNELS),
+                      f"{case} {kind}: {launches[kind]} kernels a step, "
+                      f"{per_step} expected")
+                launches[kind]["device_ms"] = device_ms
+            replayed = read_counts()
+            check(replayed == {k: (GRAPH_PROFILED_STEPS + 1)
+                               * per_step.get(k, 0) for k in KERNELS},
+                  f"{case}: wrapper counts over eager steps (a warm-up "
+                  f"and {GRAPH_PROFILED_STEPS}) and replays {replayed}: a "
+                  f"replay must count nothing")
+            path_counts.append(captured)
+
+            steps = GRAPH_TIMED_STEPS.get(case, 20)
+            ms = {"eager": [], "graph": []}
+            for kind in ("eager", "graph", "graph", "eager"):
+                ms[kind].append(_step_ms(
+                    eager_once if kind == "eager" else graph_once, steps))
+            line = "; ".join(
+                f"{kind} {' / '.join(f'{e:.3f}' for e, _ in ms[kind])} ms "
+                f"(host {' / '.join(f'{h:.3f}' for _, h in ms[kind])}), "
+                f"device {launches[kind]['device_ms']:.3f} ms, idle "
+                f"{1 - launches[kind]['device_ms'] / np.mean([e for e, _ in ms[kind]]):.1%}"
+                for kind in ("eager", "graph"))
+            print(f"{case} bf16 ms/step, CUDA events over {steps} steps, "
+                  f"median of 3, in turns eager, graph, graph, eager: {line}; "
+                  f"graph - eager "
+                  f"{np.mean([e for e, _ in ms['graph']]) - np.mean([e for e, _ in ms['eager']]):+.3f} "
+                  f"ms ({time.perf_counter() - t_case:.1f}s)  [{card}]",
+                  flush=True)
+            del eager, graphed, eager_step, graph_step
+            torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    # a step that reads the card on the host cannot be captured: the
+    # capture raises, in its own process, and nothing runs it eagerly
+    out = subprocess.run([sys.executable, "-c", CAPTURE_FAILURE],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    check(out.returncode == 0 and "CaptureError" in out.stdout,
+          f"a capture that reads the card did not raise CaptureError: "
+          f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+    print(f"a source that reads the card on the host: "
+          f"{out.stdout.strip().splitlines()[-1]}", flush=True)
+    return path_counts
+
+
 def main() -> int:
     card = device_phase()
     build_phase()
@@ -3653,6 +3992,7 @@ def main() -> int:
         path_counts.extend(counts)
         artifact_cli_phase(card, tmp, paths, served["http_p50_ms"])
         tools_phase(card, tmp, paths["bundle"])
+    path_counts.extend(graph_step_phase(card))
 
     errs["spatial_softmax_fwd"] = max(errs["spatial_softmax_fwd"],
                                       served["serve_max_abs_err"])

@@ -35,5 +35,13 @@ The soft-argmax (forward and backward), the Gaussian raster (forward and
 backward), the fused soft-argmax → raster bottleneck, the bilinear warps
 (dense grid and coarse field) and the 2×2 max pool (forward and backward)
 run hand-written CUDA kernels on CUDA tensors (``kernels``, sources in
-``csrc/``) and their plain PyTorch versions on CPU tensors (``ops``).
+``csrc/``) and their plain PyTorch versions on CPU tensors (``ops``). On
+CUDA the train loop replays its single-process step from one CUDA graph a
+step (``training.make_graphed_train_step``); ``checkpoint`` converts state
+dicts in the reference's module names (``python -m
+keypoints_tpu_torch.checkpoint``).
 """
+
+from keypoints_tpu_torch.ops.warp import affine_grid
+
+__all__ = ["affine_grid"]

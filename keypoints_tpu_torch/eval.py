@@ -420,5 +420,12 @@ def write_overlay(path: str, images: torch.Tensor, kp: np.ndarray) -> None:
     cv2.imwrite(path, (grid[..., ::-1] * 255).astype(np.uint8))
 
 
+
+def _cli(argv=None) -> None:
+    """The ``keypoints-torch-eval`` console script: :func:`main`, whose return
+    value would otherwise become the exit status."""
+    main(argv)
+
+
 if __name__ == "__main__":
     main()

@@ -9,6 +9,9 @@ Port of ``keypoints_tpu/ops/warp.py``:
   the path for CPU tensors. Unlike the JAX function, which promotes a bf16
   image to f32 on the CPU, it keeps the image's dtype, as the kernels do:
   the arithmetic is f32 and the result is rounded once to the image dtype.
+* :func:`affine_grid` == ``torch.nn.functional.affine_grid`` for 2-D
+  with explicit ``align_corners``, as a plain function (JAX's
+  ``affine_grid``, exported at the package's top level as JAX's is).
 * :func:`tps_coefficients`, :func:`tps_coefficients_fixed_sites`,
   :func:`tps_evaluate`, :func:`tps_grid`, :func:`tps_grid_fixed`: the
   thin-plate-spline solve and its dense evaluation.
@@ -100,6 +103,19 @@ def grid_sample(image: torch.Tensor, grid: torch.Tensor,
     out = (corner(y0, x0, wy0, wx0) + corner(y0, x1, wy0, wx1)
            + corner(y1, x0, wy1, wx0) + corner(y1, x1, wy1, wx1))
     return out.reshape(b, c, *out_hw).to(image.dtype)
+
+
+def affine_grid(theta: torch.Tensor, height: int, width: int,
+                align_corners: bool = DEFAULT_ALIGN_CORNERS) -> torch.Tensor:
+    """Theta (B, 2, 3) → the sampling grid (B, H, W, 2), ``grid[b, i, j] =
+    theta[b] @ (x_j, y_i, 1)`` on the normalized identity grid
+    (``coords.coord_grid``), in theta's dtype and on its device."""
+    base = coord_grid(height, width, align_corners, theta.dtype,
+                      theta.device)                               # (H, W, 2)
+    ones = torch.ones((height, width, 1), dtype=theta.dtype,
+                      device=theta.device)
+    homo = torch.cat([base, ones], dim=-1)                        # (H, W, 3)
+    return torch.einsum("bij,hwj->bhwi", theta, homo)
 
 
 def _tps_u(r2: torch.Tensor) -> torch.Tensor:

@@ -18,9 +18,13 @@ NCCL between cards, gloo on the CPU or where ranks share a card.
   rank applies the same averaged gradients.
 * In-step sampling (JAX's ``make_dp_fused_chunk``): rank r draws its
   ``batch / world`` rows of batch i from ``shard_generator(seed + salt, i,
-  r, world)`` (``train.InStepBatches.sample_at``). The scan of steps in one
-  dispatch and its chunking are not ported: PyTorch dispatches one step at
-  a time and has no dispatch to fuse them into.
+  r, world)``'s seed (``train.InStepBatches.sample_at``). The DP step is
+  dispatched eagerly, one aten op and kernel launch at a time: the
+  single-process step's CUDA graph (``training.make_graphed_train_step``)
+  is not ported to it yet, since :func:`all_reduce_mean` rebinds the
+  gradients as views of its bucket and a gloo all-reduce cannot be
+  captured. The scan's chunking (``capped_chunk``) is not ported: a graph
+  replays one step.
 * Serving (:func:`make_dp_extract`) is row-parallel with no collective: one
   process, a frozen replica per device, each device given an equal slab of
   the padded request.
@@ -40,19 +44,17 @@ from keypoints_tpu_torch.configs import Config
 from keypoints_tpu_torch.export import BucketedExtract, bundle_meta
 from keypoints_tpu_torch.training import (build_model, freeze_for_inference,
                                           make_extract_fn, make_train_step,
-                                          step_generator)
+                                          step_seed)
 
 
 def shard_generator(seed: int, step: int, rank: int, world: int,
                     device: torch.device | str) -> torch.Generator:
     """The generator of ``rank``'s draws at ``step``: exactly
     ``training.step_generator(seed, step)`` in a one-rank group, else
-    seeded from ``SeedSequence([seed, step, rank])``, distinct per rank."""
-    if world == 1:
-        return step_generator(seed, step, device)
-    words = np.random.SeedSequence([seed, step, rank]).generate_state(2)
+    seeded from ``SeedSequence([seed, step, rank])``, distinct per rank
+    (``training.step_seed``)."""
     return torch.Generator(device=device).manual_seed(
-        (int(words[0]) << 31) ^ int(words[1]))
+        step_seed(seed, step, rank, world))
 
 
 def _broadcast_(tensor: torch.Tensor, group) -> None:

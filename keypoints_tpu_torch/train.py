@@ -15,9 +15,17 @@ resume from the newest checkpoint.
   function of ``(seed, i)`` too. The train step's own draws are a function
   of ``(seed, step)``, so a resumed run continues the uninterrupted run's
   trajectory bit for bit.
+* One dispatch a step, as JAX's jitted step (``run_chunk``): on CUDA the
+  single-process step is one CUDA graph, captured after the first step and
+  replayed every step after it (``training.make_graphed_train_step``); an
+  in-step source's sampling is inside the graph, a streamed batch is
+  copied into the graph's input. The CPU (``--device cpu``) and data
+  parallelism (whose gloo or NCCL all-reduce rebinds the gradients) take
+  the eager step. A failed capture raises; nothing falls back to the
+  eager step on CUDA.
 * The step counter lives on the host, and the metrics are read (a device
-  sync) only at ``log_every``. Eager PyTorch dispatches one step a loop
-  iteration.
+  sync) only at ``log_every``. Eval, viz, the checks and the saves run
+  eagerly between steps, on the parameters the graph updates in place.
 * On CUDA, :func:`train` sets ``torch.backends.cudnn.deterministic`` (and
   ``benchmark`` off) for the run and restores both after it: resume is
   bit-exact only with deterministic convolution algorithms. The
@@ -47,7 +55,10 @@ resume from the newest checkpoint.
 Not ported:
 
 * ``capped_chunk`` / ``MAX_CHUNK_STEPS``: the length of a ``lax.scan``
-  dispatch, capped for a TPU worker's execution deadline; there is no scan.
+  dispatch, capped for a TPU worker's execution deadline. A CUDA graph
+  replays one step, and a replay of a few ms meets no deadline: the host
+  enqueues the next replay while the card runs this one, so a graph of
+  many steps would save no host round trip that the eager loop pays.
 * ``preflight_hbm``, ``_tree_bytes``, ``PREFLIGHT_MARGIN_BYTES``: XLA's
   buffer assignment asked for a program's peak, on the TPU only.
 * ``_state_saveable``: JAX's donated buffers, which torch does not have.
@@ -88,9 +99,11 @@ from keypoints_tpu_torch.losses import l2_loss, make_perceptual_loss
 from keypoints_tpu_torch.models.vgg import make_feature_fn
 from keypoints_tpu_torch.parallel import dp as dp_mod
 from keypoints_tpu_torch.parallel import multihost
-from keypoints_tpu_torch.training import (TrainState, init_state,
-                                          make_extract_fn, make_train_step,
-                                          require_device, step_generator,
+from keypoints_tpu_torch.training import (CaptureError, TrainState,
+                                          init_state, make_extract_fn,
+                                          make_graphed_train_step,
+                                          make_train_step, require_device,
+                                          step_generator, step_seed,
                                           warp_config)
 from keypoints_tpu_torch.viz import (Logger, image_grid, overlay_keypoints,
                                      side_by_side, to_hwc)
@@ -189,12 +202,13 @@ def _generate_store(cfg: Config, store_path: str,
 class InStepBatches:
     """A batch source sampled on the device: rank ``rank`` of ``world``
     draws its ``batch`` rows of batch ``i`` as
-    ``sample(parallel.dp.shard_generator(seed + _key_salt, i, rank, world),
-    batch)``, a pure function of ``(seed + _key_salt, i, rank)`` (of
-    ``(seed + _key_salt, i)`` alone in a one-rank world). The loop draws
-    batch ``state.step`` each step; the eval cadence draws its rows from
-    :meth:`generator`, the same on every rank. Also iterable, from
-    ``start_step``."""
+    ``sample(generator_at(i), batch)``, a pure function of
+    ``(seed + _key_salt, i, rank)`` (of ``(seed + _key_salt, i)`` alone in
+    a one-rank world), as ``parallel.dp.shard_generator`` draws. The loop
+    draws batch ``state.step`` each step, inside the step's CUDA graph on
+    the card (``training.make_graphed_train_step``); the eval cadence draws
+    its rows from :meth:`generator`, the same on every rank. Also
+    iterable, from ``start_step``."""
 
     batch: int = 0
     seed: int = 0
@@ -204,6 +218,7 @@ class InStepBatches:
     world: int = 1
     #: separates this source's draws from the train step's (seed, step)
     _key_salt: int = 1
+    _gen: Optional[torch.Generator] = None
 
     def sample(self, generator: torch.Generator, n: int):
         """Draw an ``n``-example batch on ``generator`` (on the device)."""
@@ -213,10 +228,18 @@ class InStepBatches:
         """The generator of step ``step``, the same on every rank."""
         return step_generator(self.seed + self._key_salt, step, self.device)
 
+    def generator_at(self, step: int) -> torch.Generator:
+        """This rank's generator of batch ``step``: one persistent
+        generator on the device, reseeded; it draws what a fresh generator
+        of the same seed draws, and a CUDA graph that registered it reads
+        the new seed at each replay."""
+        if self._gen is None:
+            self._gen = torch.Generator(device=self.device)
+        return self._gen.manual_seed(step_seed(
+            self.seed + self._key_salt, step, self.rank, self.world))
+
     def sample_at(self, step: int):
-        return self.sample(dp_mod.shard_generator(
-            self.seed + self._key_salt, step, self.rank, self.world,
-            self.device), self.batch)
+        return self.sample(self.generator_at(step), self.batch)
 
     def __iter__(self):
         for i in itertools.count(self.start_step):
@@ -400,6 +423,8 @@ def _crash_hint(step: int, last_saved, cfg: Config) -> str:
 def _is_device_fault(e: RuntimeError) -> bool:
     """A CUDA runtime error (torch's ``CUDA error`` text) or a failed launch
     of one of the package's kernels (``kernels._build.launch``)."""
+    if isinstance(e, CaptureError):
+        return False
     msg = str(e)
     return "CUDA error" in msg or "kernel launch failed" in msg
 
@@ -506,15 +531,22 @@ def _train(cfg: Config, logdir: str | None, dry_run: bool,
     log = Logger(logdir if primary and not dry_run else None)
     batches = make_batch_iterator(cfg, start_step=state.step, device=device)
     in_step = isinstance(batches, InStepBatches)
-    step_fn = (make_train_step(cfg, loss=loss, group=dist.group.WORLD)
-               if dp else make_train_step(cfg, loss=loss))
+    # one dispatch a step: JAX's jitted step and fused in-step chunk
+    graphed = device.type == "cuda" and not dp
+    if graphed:
+        step_fn = make_graphed_train_step(
+            cfg, state, source=batches if in_step else None, loss=loss)
+        dispatch = "1 step/CUDA graph replay (captured after step 1)"
+    else:
+        step_fn = (make_train_step(cfg, loss=loss, group=dist.group.WORLD)
+                   if dp else make_train_step(cfg, loss=loss))
+        dispatch = "1 step/eager dispatch"
 
     if dry_run:
         print(f"{tag}dry run: preset {cfg.name!r}, {t.steps} steps of batch "
               f"{t.batch_size}, source {type(batches).__name__}"
-              f"{' (in-step sampling)' if in_step else ''}, one step a "
-              f"dispatch, dp={dp} ({world} rank(s)), on {device}",
-              flush=True)
+              f"{' (in-step sampling)' if in_step else ''}, {dispatch}, "
+              f"dp={dp} ({world} rank(s)), on {device}", flush=True)
         if primary:
             print(json.dumps(dataclasses.asdict(cfg), default=str,
                              indent=2), flush=True)
@@ -530,20 +562,26 @@ def _train(cfg: Config, logdir: str | None, dry_run: bool,
     last_t, last_step = time.time(), step
     last_saved = start                      # step of the newest checkpoint
     mid_step = False                        # a step is being taken
+    announced = False                       # the capture was reported
 
     def _train_loop():
         nonlocal state, step, last_t, last_step, last_saved, mid_step
+        nonlocal announced
         nonlocal eval_batch, eval_pair, eval_pair_info
         while step < t.steps:
             mid_step = True
             try:
-                batch = (batches.sample_at(step) if in_step
-                         else next(batch_iter))
-                if eval_batch is None and not in_step:
-                    # every rank scores the same rows: rank 0's
-                    eval_batch = (dp_mod.broadcast_rows(batch, 8) if dp
-                                  else batch)
-                state, metrics = step_fn(state, batch)
+                if in_step and graphed:
+                    # the graph samples batch ``step`` itself
+                    state, metrics = step_fn(state)
+                else:
+                    batch = (batches.sample_at(step) if in_step
+                             else next(batch_iter))
+                    if eval_batch is None and not in_step:
+                        # every rank scores the same rows: rank 0's
+                        eval_batch = (dp_mod.broadcast_rows(batch, 8) if dp
+                                      else batch)
+                    state, metrics = step_fn(state, batch)
             except RuntimeError as e:
                 if _is_device_fault(e):
                     raise RuntimeError(
@@ -551,6 +589,12 @@ def _train(cfg: Config, logdir: str | None, dry_run: bool,
                 raise
             step = state.step
             mid_step = False
+            if graphed and not announced:
+                announced = True
+                print(f"train step captured as one CUDA graph after step "
+                      f"{step} ({step_fn.capture_seconds:.2f}s, "
+                      f"{step_fn.pool_bytes / 2 ** 20:.0f} MiB reserved); "
+                      f"each later step replays it", flush=True)
             _maybe_inject_fault(step)
 
             if step % t.log_every == 0:

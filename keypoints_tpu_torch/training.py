@@ -3,7 +3,9 @@
 ``build_model`` (``training.py:41``), ``make_optimizer`` (``:56``) with the
 warmup-cosine schedule, ``init_state`` (``:66``), ``warp_config`` (``:77``),
 ``make_loss_fn`` (``:84``), ``make_train_step`` (``:131``),
-``make_extract_fn`` (``:218``) and ``make_extract_many_fn`` (``:226``).
+``make_extract_fn`` (``:218``) and ``make_extract_many_fn`` (``:226``);
+:func:`make_graphed_train_step` is the jitted step's counterpart
+(``keypoints_tpu/train.py:569-672``).
 
 Parameters are float32; ``cfg.train.compute_dtype`` is the dtype the convs
 compute in (bf16 on the hot path: GroupNorm statistics stay float32, the
@@ -15,15 +17,21 @@ conv weights to the compute dtype once, for serving.
 (``train.model_kind``); both take a (source, target) pair, so the
 Transporter trains through the temporal mode of the same step.
 
-PyTorch is eager, so the train step is a Python function: augmentation (in
-warp mode) → Φ/Ψ → soft-argmax → raster → decoder → L2 → backward → Adam,
-each on the device of the batch. The step's metrics stay on the device; the
-step never waits for it.
+The train step (:class:`TrainStep`) is augmentation (in warp mode) → Φ/Ψ
+→ soft-argmax → raster → decoder → L2 → backward → Adam, each on the
+device of the batch, in two parts: the host's (the step's seed, rate and
+anneal) and the device's. The step's metrics stay on the device; the step
+never waits for it. Eagerly it dispatches one aten op or kernel launch at
+a time. :func:`make_graphed_train_step` captures the device's part once as
+a CUDA graph and replays it every step, which is how the train loop runs
+on CUDA: JAX's jitted step (``jax.jit(make_train_step)``, ``run_chunk``),
+bit for bit the eager step's result.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -126,20 +134,43 @@ def make_schedule(cfg: Config) -> Callable[[int], float]:
 def make_optimizer(cfg: Config, params) -> torch.optim.Optimizer:
     """``optax.adam`` (``adamw`` when ``train.weight_decay > 0``): b1 0.9,
     b2 0.999, eps 1e-8. The train step sets the rate before each update
-    from :func:`make_schedule`."""
+    from :func:`make_schedule` (:func:`set_learning_rate`).
+
+    Parameters on CUDA get a capturable optimizer (``capturable=True``):
+    its step counts live on the card, the rate is a float32 tensor there
+    and the bias corrections are computed on the card in float32, so an
+    update runs alike eagerly and replayed from a CUDA graph
+    (:func:`make_graphed_train_step`). On the CPU the rate is a float and
+    the bias corrections are taken on the host in float64, as before.
+    """
     t = cfg.train
+    params = list(params)
+    kw = {"lr": 0.0, "betas": (0.9, 0.999), "eps": 1e-8}
+    if params and params[0].device.type == "cuda":
+        kw.update(lr=torch.zeros((), device=params[0].device),
+                  capturable=True)
     if t.weight_decay > 0:
-        return torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.999),
-                                 eps=1e-8, weight_decay=t.weight_decay)
-    return torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8)
+        return torch.optim.AdamW(params, weight_decay=t.weight_decay, **kw)
+    return torch.optim.Adam(params, **kw)
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Every group's rate: filled into a capturable optimizer's rate tensor
+    in place (a CUDA graph of the step reads that tensor), set as a float
+    otherwise."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 @dataclass
 class TrainState:
     """The model (float32 parameters), its optimizer and the count of
     updates taken. The step's random draws are a function of
-    ``cfg.train.seed`` and this count (:func:`step_generator`), as JAX folds
-    the step into its key."""
+    ``cfg.train.seed`` and this count (:func:`step_seed`), as JAX folds
+    the step into its key. The count lives on the host."""
     model: KeypointModel
     optimizer: torch.optim.Optimizer
     step: int = 0
@@ -158,12 +189,23 @@ def warp_config(cfg: Config) -> WarpConfig:
                       contrast=d.contrast, saturation=d.saturation)
 
 
+def step_seed(seed: int, step: int, rank: int = 0, world: int = 1) -> int:
+    """The seed of the draws of ``step``: from ``SeedSequence([seed,
+    step])``, and from ``[seed, step, rank]`` for a rank of a world of
+    more than one (``parallel.dp.shard_generator``)."""
+    key = [seed, step] if world == 1 else [seed, step, rank]
+    words = np.random.SeedSequence(key).generate_state(2)
+    return (int(words[0]) << 31) ^ int(words[1])
+
+
 def step_generator(seed: int, step: int,
                    device: torch.device | str) -> torch.Generator:
     """A generator on ``device`` seeded from (seed, step) alone."""
-    words = np.random.SeedSequence([seed, step]).generate_state(2)
-    return torch.Generator(device=device).manual_seed(
-        (int(words[0]) << 31) ^ int(words[1]))
+    return torch.Generator(device=device).manual_seed(step_seed(seed, step))
+
+
+def _device_of(model: nn.Module) -> torch.device:
+    return next(model.parameters()).device
 
 
 def make_loss_fn(cfg: Config, loss: Optional[Callable] = None) -> Callable:
@@ -172,7 +214,8 @@ def make_loss_fn(cfg: Config, loss: Optional[Callable] = None) -> Callable:
     ``train.keypoint_diversity`` > 0 adds the opt-in separation term of the
     JAX package: a squared hinge on per-example pairwise keypoint distances,
     mean(relu(margin - d_ij)^2) over the K(K-1)/2 pairs, scaled by
-    ``lam_scale`` (the anneal).
+    ``lam_scale`` (the anneal: a float, or a 0-dim tensor on the model's
+    device that the train step fills before each step).
     """
     recon_loss = loss or l2_loss
     lam = cfg.train.keypoint_diversity
@@ -198,65 +241,79 @@ def make_loss_fn(cfg: Config, loss: Optional[Callable] = None) -> Callable:
     return loss_fn
 
 
-def make_train_step(cfg: Config, loss: Optional[Callable] = None,
-                    group=None) -> Callable:
-    """→ step(state, batch, draws=None) -> (state, metrics).
+class TrainStep:
+    """The train step of :func:`make_train_step`, in two parts, so that a
+    CUDA graph can replay the second (:func:`make_graphed_train_step`).
 
-    ``batch`` is a raw image batch (warp mode: the (src, tgt) pair is made
-    on the batch's device inside the step, after the bf16 cast when the
-    compute dtype is bf16) or a (src, tgt) tuple (temporal mode). In warp
-    mode the draws come from :func:`step_generator` unless ``draws`` (a
-    ``PairDraws``) are given. With ``train.grad_accum`` > 1 the batch is
-    split into micro-batches whose gradients sum and divide, which equals
-    the full-batch gradient of the mean loss. The gradients stay in the
-    parameters' ``.grad`` after the step. ``metrics`` holds ``loss`` and
-    ``grad_norm`` (the global L2 norm of the gradients) as device tensors.
-
-    With a process ``group`` (data parallelism, ``parallel.dp``) ``batch``
-    is this rank's rows, the warp draws are the rank's own
-    (``parallel.dp.shard_generator``), and after the last micro-batch's
-    backward the gradients and the loss are averaged across the group
-    (``parallel.dp.all_reduce_mean``), as JAX's ``axis_name`` does;
-    ``grad_norm`` is taken on the averaged gradients. Micro-batches stay
-    per rank. ``group=None`` is the single-process step.
+    :meth:`prepare` is the host's part of step ``state.step``: it reseeds
+    the warp draws' generator (one persistent generator on the model's
+    device, which then draws what a fresh :func:`step_generator` of the
+    same seed draws), fills the diversity anneal's ``lam_scale`` (a 0-dim
+    tensor on the model's device) and sets the rate
+    (:func:`set_learning_rate`). :meth:`compute` is the device's part: the
+    draws and the pair, forward, backward, the gradient norm and the
+    update; it reads nothing from the host that :meth:`prepare` did not
+    set and changes no host state. ``step(state, batch, draws=None)`` runs
+    both and counts the step.
     """
-    loss_fn = make_loss_fn(cfg, loss)
-    schedule = make_schedule(cfg)
-    warp_mode = cfg.data.pair_mode == "warp"
-    wcfg = warp_config(cfg)
-    bf16_aug = cfg.train.compute_dtype == "bfloat16"
-    accum = cfg.train.grad_accum
-    if accum < 1:
-        raise ValueError(f"train.grad_accum must be >= 1, got {accum}")
-    if accum > 1 and cfg.train.batch_size % accum != 0:
-        raise ValueError(
-            f"train.batch_size {cfg.train.batch_size} is not divisible by "
-            f"train.grad_accum {accum}")
-    div_anneal = (cfg.train.keypoint_diversity > 0.0
-                  and cfg.train.diversity_steps > 0)
-    if group is not None:
-        import torch.distributed as dist
 
-        from keypoints_tpu_torch.parallel.dp import (all_reduce_mean,
-                                                     shard_generator)
-        rank, world = dist.get_rank(group), dist.get_world_size(group)
+    def __init__(self, cfg: Config, loss: Optional[Callable] = None,
+                 group=None):
+        self.cfg = cfg
+        self.loss_fn = make_loss_fn(cfg, loss)
+        self.schedule = make_schedule(cfg)
+        self.warp_mode = cfg.data.pair_mode == "warp"
+        self.wcfg = warp_config(cfg)
+        self.bf16_aug = cfg.train.compute_dtype == "bfloat16"
+        self.accum = accum = cfg.train.grad_accum
+        if accum < 1:
+            raise ValueError(f"train.grad_accum must be >= 1, got {accum}")
+        if accum > 1 and cfg.train.batch_size % accum != 0:
+            raise ValueError(
+                f"train.batch_size {cfg.train.batch_size} is not divisible "
+                f"by train.grad_accum {accum}")
+        self.div_anneal = (cfg.train.keypoint_diversity > 0.0
+                           and cfg.train.diversity_steps > 0)
+        self.group = group
+        self.rank, self.world = 0, 1
+        if group is not None:
+            import torch.distributed as dist
+            self.rank = dist.get_rank(group)
+            self.world = dist.get_world_size(group)
+        #: the warp draws' generator; the anneal's scale
+        self.generator: Optional[torch.Generator] = None
+        self.lam_scale: Optional[torch.Tensor] = None
 
-    def step(state: TrainState, batch, draws: Optional[PairDraws] = None):
-        model, opt = state.model, state.optimizer
-        lam_scale = 1.0
-        if div_anneal:
-            lam_scale = min(max(1.0 - state.step / cfg.train.diversity_steps,
-                                0.0), 1.0)
-        if warp_mode:
-            if bf16_aug:
+    def prepare(self, state: TrainState) -> None:
+        """The host's part of step ``state.step``; waits for nothing."""
+        t = self.cfg.train
+        device = _device_of(state.model)
+        if self.warp_mode:
+            if self.generator is None or self.generator.device != device:
+                self.generator = torch.Generator(device=device)
+            self.generator.manual_seed(step_seed(t.seed, state.step,
+                                                 self.rank, self.world))
+        if self.div_anneal:
+            if self.lam_scale is None or self.lam_scale.device != device:
+                self.lam_scale = torch.zeros((), device=device)
+            self.lam_scale.fill_(min(max(
+                1.0 - state.step / t.diversity_steps, 0.0), 1.0))
+        set_learning_rate(state.optimizer, self.schedule(state.step))
+
+    def compute(self, state: TrainState, batch,
+                draws: Optional[PairDraws] = None) -> dict:
+        """The device's part of a step on ``batch``: → ``{"loss",
+        "grad_norm"}`` as device tensors. Nothing here waits for the
+        device."""
+        model, opt, accum = state.model, state.optimizer, self.accum
+        lam_scale = self.lam_scale if self.div_anneal else 1.0
+        if self.warp_mode:
+            if self.bf16_aug:
                 batch = batch.to(torch.bfloat16)
             if draws is None:
-                gen = (step_generator(cfg.train.seed, state.step,
-                                      batch.device) if group is None else
-                       shard_generator(cfg.train.seed, state.step, rank,
-                                       world, batch.device))
-                draws = draw_pair(gen, tuple(batch.shape), wcfg, batch.dtype)
-            src, tgt = pair_from_draws(batch, draws, wcfg)
+                draws = draw_pair(self.generator, tuple(batch.shape),
+                                  self.wcfg, batch.dtype)
+            src, tgt = pair_from_draws(batch, draws, self.wcfg)
         else:
             src, tgt = batch
         opt.zero_grad(set_to_none=True)
@@ -266,7 +323,7 @@ def make_train_step(cfg: Config, loss: Optional[Callable] = None,
                                  f"divisible by train.grad_accum {accum}")
             value = torch.zeros((), device=src.device)
             for s, t in zip(src.chunk(accum), tgt.chunk(accum)):
-                v, _ = loss_fn(model, s, t, lam_scale)
+                v, _ = self.loss_fn(model, s, t, lam_scale)
                 v.backward()
                 value = value + v.detach()
             value = value / accum
@@ -274,20 +331,190 @@ def make_train_step(cfg: Config, loss: Optional[Callable] = None,
                 if p.grad is not None:
                     p.grad.div_(accum)
         else:
-            value, _ = loss_fn(model, src, tgt, lam_scale)
+            value, _ = self.loss_fn(model, src, tgt, lam_scale)
             value.backward()
             value = value.detach()
-        if group is not None:
-            value = all_reduce_mean(model.parameters(), value, group)
+        if self.group is not None:
+            from keypoints_tpu_torch.parallel.dp import all_reduce_mean
+            value = all_reduce_mean(model.parameters(), value, self.group)
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         grad_norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
-        for param_group in opt.param_groups:
-            param_group["lr"] = schedule(state.step)
         opt.step()
-        state.step += 1
-        return state, {"loss": value, "grad_norm": grad_norm}
+        return {"loss": value, "grad_norm": grad_norm}
 
-    return step
+    def __call__(self, state: TrainState, batch,
+                 draws: Optional[PairDraws] = None):
+        self.prepare(state)
+        metrics = self.compute(state, batch, draws)
+        state.step += 1
+        return state, metrics
+
+
+def make_train_step(cfg: Config, loss: Optional[Callable] = None,
+                    group=None) -> TrainStep:
+    """→ step(state, batch, draws=None) -> (state, metrics), a
+    :class:`TrainStep`.
+
+    ``batch`` is a raw image batch (warp mode: the (src, tgt) pair is made
+    on the batch's device inside the step, after the bf16 cast when the
+    compute dtype is bf16) or a (src, tgt) tuple (temporal mode). In warp
+    mode the draws come from the generator of :func:`step_seed` ``(seed,
+    step)`` unless ``draws`` (a ``PairDraws``) are given. With
+    ``train.grad_accum`` > 1 the batch is split into micro-batches whose
+    gradients sum and divide, which equals the full-batch gradient of the
+    mean loss. The gradients stay in the parameters' ``.grad`` after the
+    step. ``metrics`` holds ``loss`` and ``grad_norm`` (the global L2 norm
+    of the gradients) as device tensors.
+
+    With a process ``group`` (data parallelism, ``parallel.dp``) ``batch``
+    is this rank's rows, the warp draws are the rank's own (``step_seed``
+    of the rank, as ``parallel.dp.shard_generator`` draws), and after the
+    last micro-batch's backward the gradients and the loss are averaged
+    across the group (``parallel.dp.all_reduce_mean``), as JAX's
+    ``axis_name`` does; ``grad_norm`` is taken on the averaged gradients.
+    Micro-batches stay per rank. ``group=None`` is the single-process step.
+    """
+    return TrainStep(cfg, loss, group)
+
+
+class CaptureError(RuntimeError):
+    """The capture of the train step's CUDA graph failed. Nothing falls
+    back to the eager step."""
+
+
+def _batch_like(batch):
+    """A new tensor (or tuple of tensors) of ``batch``'s values."""
+    if isinstance(batch, torch.Tensor):
+        return batch.clone()
+    return tuple(b.clone() for b in batch)
+
+
+def _copy_batch(dst, src) -> None:
+    pairs = ((dst, src),) if isinstance(dst, torch.Tensor) else zip(dst, src)
+    for d, s in pairs:
+        if d.shape != s.shape or d.dtype != s.dtype:
+            raise ValueError(f"the graph was captured on a batch of "
+                             f"{tuple(d.shape)} {d.dtype}, got "
+                             f"{tuple(s.shape)} {s.dtype}")
+        d.copy_(s)
+
+
+class GraphedTrainStep:
+    """The train step as one CUDA graph a step (:func:`make_graphed_train_step`).
+
+    The first call takes a real step eagerly (it builds Adam's state, the
+    TPS constants, the kernels' library and cuDNN's plans) and then
+    captures one more step's device work (:meth:`TrainStep.compute`, with
+    the in-step ``source``'s sampling in front of it) on a side stream.
+    The capture runs nothing: ``state.step`` and the parameters stay as the
+    eager step left them, and only the kernels' launch counters see it.
+    Every later call does the host's part (:meth:`TrainStep.prepare`: the
+    warp draws' seed, the rate, the anneal), reseeds the source's
+    generator or copies the streamed ``batch`` into the captured input,
+    replays the graph and counts the step. The graph reads the
+    parameters, their gradients, Adam's state, the rate tensor and the
+    registered generators in place: nothing may rebind one of them after
+    the capture (``load_state_dict`` into the model copies in place;
+    restore before the first call). ``metrics`` are the graph's own
+    tensors, overwritten by each replay.
+    """
+
+    def __init__(self, cfg: Config, state: TrainState, source=None,
+                 loss: Optional[Callable] = None):
+        device = _device_of(state.model)
+        if device.type != "cuda":
+            raise ValueError(f"a CUDA graph of the train step needs the "
+                             f"model on a CUDA device, got {device}")
+        if not all(g.get("capturable") for g in
+                   state.optimizer.param_groups):
+            raise ValueError("a CUDA graph of the train step needs a "
+                             "capturable optimizer (training.make_optimizer "
+                             "on CUDA parameters)")
+        self.state = state
+        self.source = source
+        self.step = make_train_step(cfg, loss)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.inputs = None            # a streamed source's captured batch
+        self.metrics: Optional[dict] = None
+        #: host seconds of the capture, and the bytes it reserved
+        self.capture_seconds: Optional[float] = None
+        self.pool_bytes: Optional[int] = None
+
+    def __call__(self, state: TrainState, batch=None):
+        if state is not self.state:
+            raise ValueError("this graph updates the TrainState it was "
+                             "made with")
+        if (batch is None) != (self.source is not None):
+            raise ValueError("pass a batch exactly when the graph has no "
+                             "in-step source")
+        if self.graph is None:
+            if self.source is not None:
+                batch = self.source.sample_at(state.step)
+            state, metrics = self.step(state, batch)
+            self._capture(batch)
+            return state, metrics
+        self.step.prepare(state)
+        if self.source is not None:
+            self.source.generator_at(state.step)
+        else:
+            _copy_batch(self.inputs, batch)
+        self.graph.replay()
+        state.step += 1
+        return state, self.metrics
+
+    def _capture(self, batch) -> None:
+        state, step, source = self.state, self.step, self.source
+        device = _device_of(state.model)
+        step.prepare(state)
+        generators = [] if step.generator is None else [step.generator]
+        if source is not None:
+            source_gen = source.generator_at(state.step)
+            generators.append(source_gen)
+        else:
+            self.inputs = _batch_like(batch)
+        graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            graph.register_generator_state(gen)
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        t0 = time.perf_counter()
+        # thread_local: a streamed source's reader threads keep copying to
+        # the card while this thread captures
+        try:
+            with torch.cuda.graph(graph, stream=stream,
+                                  capture_error_mode="thread_local"):
+                inputs = (source.sample(source_gen, source.batch)
+                          if source is not None else self.inputs)
+                self.metrics = step.compute(state, inputs)
+        except RuntimeError as e:
+            raise CaptureError(f"the CUDA graph capture of the train step "
+                               f"failed: {e}") from e
+        torch.cuda.current_stream(device).wait_stream(stream)
+        self.capture_seconds = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        self.graph = graph
+
+
+def make_graphed_train_step(cfg: Config, state: TrainState, source=None,
+                            loss: Optional[Callable] = None
+                            ) -> GraphedTrainStep:
+    """→ step(state, batch=None) -> (state, metrics): the single-process
+    train step of ``state`` (on CUDA) replayed from one CUDA graph a step,
+    the counterpart of JAX's jitted step and its fused in-step chunk
+    (``keypoints_tpu/train.py`` ``run_chunk``). It computes what
+    :func:`make_train_step` computes, bit for bit.
+
+    ``source`` is an in-step batch source (``train.InStepBatches``: its
+    ``generator_at(step)``, ``sample(generator, n)`` and ``batch``); its
+    sampling goes into the graph and the step takes no ``batch``. Without
+    one, each call's ``batch`` (a streamed source's) is copied into the
+    graph's input. See :class:`GraphedTrainStep`; a failed capture raises
+    :class:`CaptureError`.
+    """
+    return GraphedTrainStep(cfg, state, source, loss)
 
 
 def make_extract_fn(model: KeypointModel) -> Callable:

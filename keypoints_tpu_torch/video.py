@@ -174,5 +174,12 @@ def main(argv=None) -> int:
     return written
 
 
+
+def _cli(argv=None) -> None:
+    """The ``keypoints-torch-video`` console script: :func:`main`, whose return
+    value would otherwise become the exit status."""
+    main(argv)
+
+
 if __name__ == "__main__":
     main()

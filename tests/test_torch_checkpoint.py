@@ -1,6 +1,7 @@
 """Weights and configs carried from the JAX package into the port (CPU)."""
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -177,3 +178,110 @@ def test_format_1_step_files_still_restore(tmp_path):
     with pytest.raises(ValueError, match="checkpoint format 3"):
         ckpt.CheckpointManager(str(path.parent)).restore(
             3, init_state(cfg, "cpu"))
+
+
+# --- reference-layout state dicts (keypoints-convert's counterpart) ---------
+
+def _golden(cfg, seed=0):
+    """The golden reference-layout autoencoder of ``cfg``, seeded."""
+    from tests.golden.torch_model import TorchKeypointAutoencoder
+    torch.manual_seed(seed)
+    m = cfg.model
+    return TorchKeypointAutoencoder(
+        num_keypoints=m.num_keypoints, in_channels=cfg.data.channels,
+        out_channels=m.out_channels, sigma=m.sigma,
+        temperature=m.temperature, variant=m.softmax_variant,
+        encoder_filters=m.encoder_filters,
+        encoder_strides=m.encoder_strides,
+        decoder_filters=m.decoder_filters,
+        decoder_upsample=m.decoder_upsample, groups=m.groups).eval()
+
+
+def test_convert_equals_jax_converter_then_state_dict_from_flax():
+    from keypoints_tpu.checkpoint import convert_torch_state_dict
+    from keypoints_tpu_torch.checkpoint import convert_state_dict
+    from tests.golden.torch_model import rename_map_for_flax
+
+    sd = _golden(configs.get_config("pong64").override(**NARROW)).state_dict()
+    got = convert_state_dict(sd, rename_map_for_flax())
+    want = state_dict_from_flax(convert_torch_state_dict(
+        sd, rename_map_for_flax()))
+    assert got.keys() == want.keys()
+    for key, value in want.items():
+        assert got[key].dtype == torch.float32, key
+        np.testing.assert_array_equal(got[key].numpy(), value, err_msg=key)
+
+
+def test_converted_golden_model_loads_strict_and_extracts_as_jax():
+    """The converted reference model loads strict into the port's, whose
+    extract meets JAX's on the same params within 1e-3 (docs/PARITY.md)."""
+    import jax.numpy as jnp
+
+    from keypoints_tpu.checkpoint import convert_torch_state_dict
+    from keypoints_tpu.training import build_model as jax_build_model
+    from keypoints_tpu.training import make_extract_fn as jax_extract_fn
+    from keypoints_tpu_torch.checkpoint import convert_state_dict
+    from keypoints_tpu_torch.testing import random_images
+    from keypoints_tpu_torch.training import make_extract_fn
+    from tests.golden.torch_model import rename_map_for_flax
+
+    cfg = configs.get_config("pong64").override(**NARROW)
+    sd = _golden(cfg, 3).state_dict()
+    model = build_model(cfg, "cpu")
+    load_model_state(model, convert_state_dict(sd, rename_map_for_flax()))
+    jcfg = jax_configs.get_config("pong64").override(**NARROW)
+    params = convert_torch_state_dict(sd, rename_map_for_flax())
+    images = random_images(4, cfg, 6)
+    want = jax.jit(jax_extract_fn(jcfg, jax_build_model(jcfg)))(
+        params, jnp.asarray(images))
+    got = make_extract_fn(model)(torch.from_numpy(images)).numpy()
+    assert float(np.linalg.norm(got - np.asarray(want), axis=-1).max()) < 1e-3
+
+
+def test_convert_and_export_torch_cli_round_trip(tmp_path, capsys):
+    """convert (--rename, --preset) writes what the CLIs' --checkpoint
+    load; a trainer directory's newest step exported with the inverse map
+    equals the reference model's state dict; a preset of other widths is
+    refused with its missing/extra/shape report."""
+    from keypoints_tpu_torch import checkpoint as ckpt
+    from keypoints_tpu_torch.training import init_state
+    from tests.golden.torch_model import rename_map_for_flax
+
+    cfg = configs.get_config("pong64")
+    ref = _golden(cfg, 1)
+    rename = rename_map_for_flax()
+    ref_path, out = tmp_path / "ref.pt", tmp_path / "kp.pt"
+    torch.save({"state_dict": ref.state_dict()}, ref_path)
+    (tmp_path / "map.json").write_text(json.dumps(rename))
+    (tmp_path / "inv.json").write_text(json.dumps(
+        {v: k for k, v in rename.items()}))
+    ckpt._cli(["convert", str(ref_path), str(out), "--rename",
+               str(tmp_path / "map.json"), "--preset", "pong64"])
+    assert "validated against preset 'pong64'" in capsys.readouterr().out
+    converted = load_checkpoint(str(out))
+    model = build_model(cfg, "cpu")
+    load_model_state(model, converted)
+
+    state = init_state(cfg, "cpu")
+    load_model_state(state.model, converted)
+    ckpt.CheckpointManager(str(tmp_path / "trainer")).save(7, state,
+                                                          "pong64")
+    back = tmp_path / "back.pt"
+    ckpt._cli(["export-torch", str(tmp_path / "trainer"), str(back),
+               "--preset", "pong64", "--rename", str(tmp_path / "inv.json")])
+    assert "(step 7)" in capsys.readouterr().out
+    exported = torch.load(back, weights_only=True)
+    assert exported.keys() == ref.state_dict().keys()
+    for key, value in ref.state_dict().items():
+        assert torch.equal(exported[key], value), key
+
+    with pytest.raises(ValueError, match=r"shape encoder\.Conv_0\.weight"):
+        ckpt._cli(["convert", str(ref_path), str(tmp_path / "x.pt"),
+                   "--rename", str(tmp_path / "map.json"), "--preset",
+                   "celeba128"])
+    with pytest.raises(ValueError, match=r"(?s)missing: .*extra: "):
+        ckpt._cli(["convert", str(ref_path), str(tmp_path / "x.pt"),
+                   "--preset", "pong64"])
+    with pytest.raises(SystemExit, match="no checkpoint"):
+        ckpt._cli(["export-torch", str(tmp_path / "none"), str(back),
+                   "--preset", "pong64"])

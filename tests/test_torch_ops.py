@@ -365,3 +365,25 @@ def test_field_warp_on_cpu_matches_pallas_field_kernel(case, tol):
     assert got.shape == (b, 3, size, size) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=tol)
+
+
+# --- affine_grid ---------------------------------------------------------------
+
+from keypoints_tpu.ops.warp import affine_grid as jax_affine_grid  # noqa: E402
+import keypoints_tpu_torch  # noqa: E402
+
+
+@pytest.mark.parametrize("align", [True, False])
+def test_affine_grid_matches_jax_and_torch(align):
+    """Seeded thetas (B, 2, 3) at a ragged 13x29 grid: JAX's affine_grid
+    within f32 rounding, and torch's own ``F.affine_grid``."""
+    theta = np.random.RandomState(11).randn(3, 2, 3).astype(np.float32)
+    got = keypoints_tpu_torch.affine_grid(torch.from_numpy(theta), 13, 29,
+                                          align)
+    assert got.shape == (3, 13, 29, 2) and got.dtype == torch.float32
+    want = np.asarray(jax_affine_grid(jnp.asarray(theta), 13, 29, align))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    torch_grid = F.affine_grid(torch.from_numpy(theta), (3, 1, 13, 29),
+                               align_corners=align)
+    np.testing.assert_allclose(got.numpy(), torch_grid.numpy(), rtol=0,
+                               atol=1e-6)
