@@ -21,8 +21,11 @@ checkpoints and bit-exact resume, its step one CUDA graph a step
 (``make_graphed_train_step``, held against the eager step bit for bit in
 phase 36), and store-backed eval of its checkpoint;
 data parallelism: dp_celeba's step (b256) through ``make_dp_train_step``
-in a one-rank NCCL group, the train CLI under ``torchrun`` with two ranks
-on the card, and the server on ``--devices 1``; the deployment path:
+in a one-rank NCCL group, eager and graphed (two CUDA graphs a step
+around the eager all-reduce, phase 37), the train CLI under ``torchrun``
+with two gloo ranks on the card (the same two graphs a step), and the
+server on ``--devices 1``, each bucket one CUDA graph (phase 38
+holds every serving bucket's graph to its eager answer); the deployment path:
 extractors exported with ``torch.export`` (``keypoints_tpu_torch.export``,
 K1 as the custom op ``keypoints_tpu_torch::spatial_softmax_fwd``) and
 their consumers, ``serve --artifact``, ``eval --artifact --overlay`` and
@@ -52,7 +55,9 @@ their consumers, ``serve --artifact``, ``eval --artifact --overlay`` and
    6. serve     ``make_server`` (celeba128, bf16, buckets 1 8 64 256) on a free
                 port, then a second one with ``--input-dtype uint8``; HTTP
                 requests, concurrent ones included, checked against the same
-                model with the plain soft-argmax; launch counts of the run
+                model with the plain soft-argmax; the wrappers' counts (a
+                bucket's eager warm-up and its capture), K1 once a replayed
+                bucket call (torch.profiler)
    7. train     full-width celeba128 in float32 (TF32 off), 3 train steps
      parity     on the warps and jitter factors JAX drew, on the card and on
                 the CPU, against tests/data/torch_port_celeba128_train.json
@@ -165,24 +170,31 @@ their consumers, ``serve --artifact``, ``eval --artifact --overlay`` and
   30. dp step   dp_celeba (b256 bf16) through ``make_dp_train_step`` in a
                 one-rank NCCL group: 3 steps equal the bare step's bit for
                 bit, launches of 20 steps, ms/step against the bare step
-                in turns, the gradient all-reduce alone (CUDA events and
-                torch.profiler), torch.profiler over 5 DP steps
+                in turns, the gradient all-reduce alone through the
+                persistent bucket (CUDA events and torch.profiler),
+                torch.profiler over 5 DP steps
   31. dp CLI    ``torchrun --nproc_per_node 2 -m keypoints_tpu_torch.train
-                --preset pong64`` (gloo, both ranks on the card): 20 steps
-                against 10 + a resumed 10, equal bits, both ranks' losses
-                equal, rank 0's files only; dp_celeba dry runs over an
-                empty data dir (rank 0 alone generates the store); the
-                gloo all-reduce's host time
+                --preset pong64`` (gloo, both ranks on the card, each step
+                two CUDA graphs around the eager all-reduce, as each rank
+                says): 20 steps against 10 + a resumed 10, equal bits,
+                both ranks' losses equal, rank 0's files only; dp_celeba
+                dry runs over an empty data dir (rank 0 alone generates
+                the store; both name the graphed dispatch); two gloo ranks
+                spawned here: the bucket's all-reduce host time, pong64's
+                graphed DP step against its eager DP step bit for bit,
+                ms/step of both in turns
   32. dp serve  the server on ``--devices 1`` at buckets 1/8/64/256, bit
                 for bit the one-device extract, n=1 p50; launches counted;
                 ``make_dp_extract`` over two replicas on the card at
-                8/64/256, bit for bit the one-device extract of each half
+                8/64/256, bit for bit the one-device extract of each half;
+                K1 once a replayed call a replica (torch.profiler)
   33. export    celeba128's bundle of buckets 1/8/64/256 (float32 and uint8
                 in) and transporter_atari at b64 exported on the card: the
                 seconds and MB; each graph holds the K1 op once and no
                 plain soft-argmax op; the artifact's keypoints against
                 ``make_live_extract``'s at each bucket (equal bits);
-                one K1 launch a bucket call, counted; b256 images/s of
+                one K1 launch a replayed bucket call (torch.profiler); the
+                wrappers count each bucket's first call and capture; b256 images/s of
                 artifact and live from the host in turns; K1's host µs
                 through the op and through the ctypes wrapper in turns
   34. artifact  ``python -m keypoints_tpu_torch.export`` of the bundle;
@@ -194,7 +206,8 @@ their consumers, ``serve --artifact``, ``eval --artifact --overlay`` and
                 beside phase 6's; the two eval records' keypoint metrics
                 within 1e-4; the video's frames/s in this process
   35. tools     ``utils.profiling.timed`` on a K1 call against CUDA
-                events; ``trace`` of an artifact call holds the K1 kernel;
+                events; ``trace`` of two artifact calls (graph replays)
+                holds the K1 kernel;
                 ``guard_metrics`` raises on a NaN loss; ``assert_finite``
                 names the non-finite tensor of a state dict on the card
   36. graph     ``make_graphed_train_step`` against ``make_train_step``:
@@ -207,6 +220,22 @@ their consumers, ``serve --artifact``, ``eval --artifact --overlay`` and
                 kernels a step from torch.profiler, eager and replayed;
                 the capture's seconds and bytes; ms/step in turns (eager,
                 graph, graph, eager) and the device's idle share
+  37. dp graph  dp_celeba b256 bf16 in a one-rank NCCL group on a fixed
+      step      batch: the DP step graphed (two graphs around the eager
+                all-reduce), the bare step graphed and the eager DP step, 1
+                eager + 3 replays against 4 eager steps, equal bits in
+                every parameter, Adam moment and metric; the captures'
+                seconds and bytes; kernels a step (torch.profiler), idle
+                share, ms/step in turns (eager, graph, graph, eager)
+  38. serving   each serving bucket's CUDA graph against the eager bucket
+      graphs    function it replaced (patched in the script only): live
+                celeba128 at 1/8/64/256, float32 and uint8, two replicas
+                at 8/64/256, phase 33's artifact, equal bits on new images
+                at every call; the captures' seconds and bytes; K1 once a
+                call and the idle share (torch.profiler), host ms a bucket
+                call and the n=1 HTTP p50 of ``--preset`` and
+                ``--artifact`` servers, eager and graphed in turns; a
+                bucket whose capture fails raises at every call
 
 Run from a checkout:  python3 chip_smoke.py
 The card's ``nvidia-smi`` line, then a JSON object of the kernels
@@ -299,6 +328,7 @@ TRAIN_RTOL = 1e-4      # train parity: loss and grad_norm per step
 TRAIN_KP_TOL = 1e-4    # train parity: step-1 keypoints
 FIELD_TOL = 3e-5       # TPS field from JAX's draws: JAX's own f32 error
 SERVE_TOL = 1e-4       # same bf16 heatmaps, kernel vs plain soft-argmax
+SERVE_PROFILED_CALLS = 5   # replayed bucket calls under torch.profiler
 BUCKETS = (1, 8, 64, 256)
 U8_BUCKETS = (1, 8)
 FIELD_WARP_TOL = 1e-4  # f32 field warp: JAX's bar for its field kernel
@@ -740,7 +770,6 @@ def serve_phase(tmp: str) -> dict:
     reset_counts()
     server = start_server(ckpt, BUCKETS)
     url = f"http://localhost:{server[0].server_address[1]}"
-    min_batches = len(BUCKETS)            # warm-up runs every bucket once
     try:
         meta = http_meta(url)
         check(set(meta) == META_KEYS, f"GET / keys {sorted(meta)}")
@@ -750,11 +779,9 @@ def serve_phase(tmp: str) -> dict:
             images = rs.rand(n, 3, 128, 128).astype(np.float32)
             verify(f"float32 n={n}", BUCKETS, images,
                    http_extract(url, images))
-            min_batches += 1
         images = rs.randint(0, 256, (3, 3, 128, 128)).astype(np.uint8)
         verify("uint8 n=3 (float32 server)", BUCKETS, images,
                http_extract(url, images))
-        min_batches += 1
 
         requests = [rs.rand(2, 3, 128, 128).astype(np.float32)
                     for _ in range(8)]
@@ -774,7 +801,6 @@ def serve_phase(tmp: str) -> dict:
         for i, (images, got) in enumerate(zip(requests, answers)):
             check(got is not None, f"concurrent request {i} got no answer")
             verify(f"concurrent n=2 #{i}", BUCKETS, images, got, in_flight)
-        min_batches += 1                  # eight requests, >= one batch
 
         one = rs.rand(1, 3, 128, 128).astype(np.float32)
         for _ in range(5):
@@ -783,7 +809,11 @@ def serve_phase(tmp: str) -> dict:
             t0 = time.perf_counter()
             http_extract(url, one)
             latencies.append(time.perf_counter() - t0)
-        min_batches += 35
+        # a bucket call replays its CUDA graph, which calls no wrapper:
+        # its launches come from the profiler
+        extract = server[1]._extract
+        replay, _, _ = profiled_launches(lambda: extract(one),
+                                         SERVE_PROFILED_CALLS)
     finally:
         stop_server(*server)
 
@@ -791,7 +821,6 @@ def serve_phase(tmp: str) -> dict:
     # rescaled /255 there
     server = start_server(ckpt, U8_BUCKETS, "--input-dtype", "uint8")
     url = f"http://localhost:{server[0].server_address[1]}"
-    min_batches += len(U8_BUCKETS)
     try:
         meta = http_meta(url)
         check(meta["input_dtype"] == "uint8", f"input_dtype {meta}")
@@ -799,16 +828,23 @@ def serve_phase(tmp: str) -> dict:
             images = rs.randint(0, 256, (n, 3, 128, 128)).astype(np.uint8)
             verify(f"uint8 n={n} (uint8 server)", U8_BUCKETS, images,
                    http_extract(url, images))
-            min_batches += 1
     finally:
         stop_server(*server)
 
     counts = read_counts()
     launches = counts["spatial_softmax_fwd"]
-    print(f"kernel launches during serving: {counts} (device batches >= "
-          f"{min_batches})", flush=True)
-    check(launches >= min_batches, f"kernel launched {launches} times for "
-          f">= {min_batches} device batches")
+    captures = len(BUCKETS) + len(U8_BUCKETS)
+    print(f"kernel launches during serving, by the wrappers: {counts} (each "
+          f"bucket's eager warm-up call and its capture, {captures} "
+          f"buckets); by torch.profiler, a replayed bucket call: {replay}",
+          flush=True)
+    check(launches == 2 * captures and all(
+        v == 0 for k, v in counts.items() if k != "spatial_softmax_fwd"),
+        f"wrapper counts {counts}: 2 a bucket expected (its eager call and "
+        f"its capture; a replay calls no wrapper)")
+    check(replay == {k: int(k == "spatial_softmax_fwd")
+                     for k in PROFILED_KERNELS},
+          f"a replayed bucket call launched {replay}, K1 once expected")
     return {"launches": launches, "serve_max_abs_err": worst,
             "http_p50_ms": float(np.median(latencies)) * 1e3}
 
@@ -2879,6 +2915,7 @@ DP_PER_STEP = {"warp_field": 2, "softargmax_raster_fwd": 1,
                "spatial_softmax_bwd": 1, "gaussian_bwd": 1}
 # phase 31: the train CLI under torchrun, two ranks on the card (gloo)
 DP_CLI_STEPS = 20
+GLOO_EQUAL_STEPS = 4       # 1 eager + 3 replays against 4 eager steps
 DP_CLI_OVERRIDES = ["train.checkpoint_every=10", "train.log_every=10",
                     "train.eval_every=10", "train.max_to_keep=1"]
 
@@ -2890,21 +2927,11 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def dp_step_phase(card: str) -> list:
-    """dp_celeba (celeba128's widths, b256, bf16) through
-    ``make_dp_train_step`` in a one-rank NCCL group in this process, cuDNN
-    deterministic as ``train()`` runs it: its first steps against
-    ``make_train_step``'s, bit for bit; its launches over 20 steps; its
-    ms/step against the bare step's in turns (dp, bare, bare, dp); the
-    gradient all-reduce alone (the bucket's fill, NCCL, the divide) and
-    NCCL alone on the bucket by CUDA events; torch.profiler over 5 DP
-    steps. → the counts of the 20 steps."""
+def _nccl_world_one() -> tuple:
+    """Join a one-rank NCCL group on card 0 in this process, cuDNN
+    deterministic as ``train()`` runs a step; → cuDNN's flags before, for
+    :func:`_leave_group`."""
     import torch.distributed as dist
-    from keypoints_tpu_torch.parallel import dp as dp_mod
-    phase(f"30 dp step: {DP_PRESET} b256 bf16, NCCL at world 1, on {card}")
-    cfg = get_config(DP_PRESET)
-    check(cfg.train.batch_size == 256 and cfg.train.data_parallel
-          and cfg.train.compute_dtype == "bfloat16", f"{DP_PRESET}: {cfg}")
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{_free_port()}", rank=0, world_size=1,
                             device_id=torch.device("cuda", 0))
@@ -2912,6 +2939,33 @@ def dp_step_phase(card: str) -> list:
              torch.backends.cudnn.benchmark)
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
+    return flags
+
+
+def _leave_group(flags: tuple) -> None:
+    import torch.distributed as dist
+    (torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = flags
+    dist.destroy_process_group()
+
+
+def dp_step_phase(card: str) -> list:
+    """dp_celeba (celeba128's widths, b256, bf16) through
+    ``make_dp_train_step`` in a one-rank NCCL group in this process, cuDNN
+    deterministic as ``train()`` runs it: its first steps against
+    ``make_train_step``'s, bit for bit; its launches over 20 steps; its
+    ms/step against the bare step's in turns (dp, bare, bare, dp); the
+    gradient all-reduce alone (``GradBucket.reduce_mean``: the loss copied
+    into the persistent bucket, NCCL, the divide) and NCCL alone on the
+    bucket by CUDA events; torch.profiler over 5 DP steps. → the counts of
+    the 20 steps."""
+    import torch.distributed as dist
+    from keypoints_tpu_torch.parallel import dp as dp_mod
+    phase(f"30 dp step: {DP_PRESET} b256 bf16, NCCL at world 1, on {card}")
+    cfg = get_config(DP_PRESET)
+    check(cfg.train.batch_size == 256 and cfg.train.data_parallel
+          and cfg.train.compute_dtype == "bfloat16", f"{DP_PRESET}: {cfg}")
+    flags = _nccl_world_one()
     try:
         group = dist.group.WORLD
         images = torch.from_numpy(random_images(256, cfg, 4)).cuda()
@@ -2964,29 +3018,31 @@ def dp_step_phase(card: str) -> list:
               f"{256 / np.mean(ms['dp']) * 1e3:.0f} frames/s  [{card}]",
               flush=True)
 
-        params = list(state.model.parameters())
         loss = torch.zeros((), device="cuda")
+        bucket = state.bucket
+        check(bucket is not None and bucket.flat.numel() == n_params + 1,
+              f"the DP state's gradient bucket: {bucket}")
 
         def reduce():
-            dp_mod.all_reduce_mean(params, loss, group)
-        # one call a run queued behind the sleep: its ~0.6 ms of host time
-        # stays inside the sleep, so the events see device time only
+            bucket.reduce_mean(loss, group)
+        # one call a run queued behind the sleep: its host time stays
+        # inside the sleep, so the events see device time only
         reduce_ms = cuda_median_ms(reduce)
         reduce_host_ms = cuda_median_ms(reduce, reps=10,
                                         queue_behind_sleep=False)
-        bucket = torch.zeros(n_params + 1, device="cuda")
-        nccl_ms = cuda_median_ms(lambda: dist.all_reduce(bucket, group=group))
+        flat = torch.zeros(n_params + 1, device="cuda")
+        nccl_ms = cuda_median_ms(lambda: dist.all_reduce(flat, group=group))
         print(f"gradient all-reduce ({n_params + 1:,} float32, "
               f"{(n_params + 1) * 4 / 1e6:.2f} MB; CUDA events, medians of "
-              f"25): all_reduce_mean {reduce_ms * 1e3:.2f} us of device "
-              f"time (fill, NCCL, divide; one call queued), "
-              f"{reduce_host_ms * 1e3:.2f} us a call back to back (host "
-              f"bound); NCCL alone {nccl_ms * 1e3:.2f} us  [{card}]",
+              f"25): GradBucket.reduce_mean {reduce_ms * 1e3:.2f} us of "
+              f"device time (loss copy, NCCL, divide, loss clone; one call "
+              f"queued), {reduce_host_ms * 1e3:.2f} us a call back to back "
+              f"(host bound); NCCL alone {nccl_ms * 1e3:.2f} us  [{card}]",
               flush=True)
-        _profile("all_reduce_mean alone (wall = CUDA events a call)", reduce,
-                 20, card, reduce_host_ms,
-                 {"bucket fill (cat)": ("CatArrayBatchedCopy",),
-                  "NCCL": ("nccl",)})
+        _profile("GradBucket.reduce_mean alone (wall = CUDA events a call)",
+                 reduce, 20, card, reduce_host_ms,
+                 {"loss copy and clone": ("copy",), "NCCL": ("nccl",),
+                  "divide": ("Div",)})
 
         def dp_step():
             step(state, images)
@@ -2996,35 +3052,88 @@ def dp_step_phase(card: str) -> list:
                   "field warp": ("warp_field",),
                   "fused bottleneck": ("fused_fwd",)})
     finally:
-        (torch.backends.cudnn.deterministic,
-         torch.backends.cudnn.benchmark) = flags
-        dist.destroy_process_group()
+        _leave_group(flags)
     return [counts]
 
 
-def _dp_reduce_rank(rank: int, world: int, port: int, out: str) -> None:
-    """One of two gloo ranks on card 0: the host time of
-    ``all_reduce_mean`` over dp_celeba's gradients (median of 20)."""
+def _dp_gloo_rank(rank: int, world: int, port: int, out: str) -> None:
+    """One of two gloo ranks on card 0, cuDNN deterministic: the host time
+    of ``GradBucket.reduce_mean`` over dp_celeba's gradients (median of
+    20); pong64's DP step (full width, b64 over the two ranks, scripted
+    Pong drawn on the card) graphed (two CUDA graphs around the eager
+    all-reduce: 1 eager + GLOO_EQUAL_STEPS - 1 replays) against eager
+    (GLOO_EQUAL_STEPS steps), the two held equal bit for bit here; then
+    ms/step of each by CUDA events and the host clock in turns (eager,
+    graph, graph, eager). Writes ``{out}/{rank}.json`` and the graphed
+    run's state to ``{out}/{rank}.pt``."""
     import torch.distributed as dist
+    from keypoints_tpu_torch import train as train_mod
     from keypoints_tpu_torch.parallel import dp as dp_mod
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
+    group = dist.group.WORLD
     try:
         model = build_model(get_config(DP_PRESET), "cuda")
-        params = list(model.parameters())
-        for p in params:
+        for p in model.parameters():
             p.grad = torch.randn_like(p)
+        bucket = dp_mod.GradBucket(model.parameters())
         loss = torch.ones((), device="cuda")
-        times = []
+        reduce_s = []
         for i in range(23):
             torch.cuda.synchronize()
             dist.barrier()
             t0 = time.perf_counter()
-            dp_mod.all_reduce_mean(params, loss, dist.group.WORLD)
+            bucket.reduce_mean(loss, group)
             torch.cuda.synchronize()
             if i >= 3:
-                times.append(time.perf_counter() - t0)
-        Path(out, f"{rank}.json").write_text(json.dumps(times))
+                reduce_s.append(time.perf_counter() - t0)
+        del model, bucket
+
+        cfg = get_config("pong64")
+        runs, metrics = {}, {}
+        for kind in ("eager", "graph"):
+            source = train_mod.make_batch_iterator(cfg, device="cuda")
+            state = init_state(cfg, "cuda")
+            dp_mod.replicate(state.model, state.optimizer)
+            if kind == "graph":
+                graph = make_graphed_train_step(cfg, state, source=source,
+                                                group=group)
+                fn = graph
+            else:
+                step = make_train_step(cfg, group=group)
+
+                def fn(st, step=step, source=source):
+                    return step(st, source.sample_at(st.step))
+            metrics[kind] = []
+            for _ in range(GLOO_EQUAL_STEPS):
+                state, m = fn(state)
+                metrics[kind].append({k: v.clone() for k, v in m.items()})
+            runs[kind] = (state, fn)
+        n = _same_tensors(runs["graph"][0].model.state_dict(),
+                          runs["eager"][0].model.state_dict(), "model")
+        n += _same_tensors(runs["graph"][0].optimizer.state_dict()["state"],
+                           runs["eager"][0].optimizer.state_dict()["state"],
+                           "Adam state")
+        n += _same_tensors(metrics["graph"], metrics["eager"], "metrics")
+        torch.save({k: v.cpu() for k, v in
+                    runs["graph"][0].model.state_dict().items()},
+                   os.path.join(out, f"{rank}.pt"))
+        ms = {"eager": [], "graph": []}
+        for kind in ("eager", "graph", "graph", "eager"):
+            state, fn = runs[kind]
+            box = [state]
+
+            def one(fn=fn, box=box):
+                box[0], _ = fn(box[0])
+            ms[kind].append(_step_ms(one, 20))
+        Path(out, f"{rank}.json").write_text(json.dumps({
+            "reduce_s": reduce_s, "tensors": n, "ms": ms,
+            "losses": [float(m["loss"]) for m in metrics["graph"]],
+            "dispatch": graph.dispatch, "graphs": len(graph.graphs),
+            "capture_s": graph.capture_seconds,
+            "pool_bytes": graph.pool_bytes}))
     finally:
         dist.destroy_process_group()
 
@@ -3072,6 +3181,10 @@ def _check_torchrun(proc, logdir: str, t0: float, run: str, steps: int,
           f"{run} {steps}: metrics.jsonl rows {rows}")
     check(not start or f"resumed from step {start}" in out,
           "the second torchrun did not resume")
+    captured = (f"train step captured as two CUDA graphs around an eager "
+                f"all-reduce after step {start + 1}")
+    check(all(f"[rank {r}/2] {captured}" in out for r in range(2)),
+          f"{run} {steps}: no rank said '{captured}': {out[-2000:]}")
     print(f"pong64 dp {run} {steps} steps: {wall:.2f}s wall (torchrun, 2 "
           f"processes, kernel load, steps); "
           f"{' | '.join(f'{k}: {v}' for k, v in sorted(logged.items()))}",
@@ -3110,7 +3223,9 @@ def _check_torchrun_store(proc, data: str, log: str) -> None:
     check(all(f"[rank {rank}/2] dry run: preset '{DP_PRESET}'" in out
               for rank in range(2))
           and out.count("source DeviceResidentBatches") == 2
-          and out.count("dp=True (2 rank(s))") == 2,
+          and out.count("dp=True (2 rank(s))") == 2
+          and out.count("2 CUDA graphs/step around an eager gloo "
+                        "all-reduce (captured after step 1)") == 2,
           f"the ranks' dry runs: {out[-3000:]}")
     print(f"{DP_PRESET} --dry-run at world 2 over an empty data dir: rank 0 "
           f"generated the face store once, both ranks took it resident "
@@ -3124,8 +3239,11 @@ def dp_cli_phase(card: str, tmp: str) -> None:
     resumed 10; the step-20 checkpoints equal in every tensor, each rank's
     logged loss the same, rank 0's files only. Beside them, two dp_celeba
     dry runs over an empty data dir: the store generated by rank 0 alone.
-    Then the host time of the gradient all-reduce between two gloo ranks
-    on the card."""
+    Every trainer rank replays its step as two CUDA graphs around the
+    eager gloo all-reduce, and says so. Then two gloo ranks spawned here:
+    the host time of the gradient all-reduce through the bucket, and
+    pong64's graphed DP step against its eager DP step, bit for bit, and
+    their ms/step in turns."""
     phase(f"31 dp train CLI: torchrun, 2 ranks of pong64 on {card} (gloo)")
     half = DP_CLI_STEPS // 2
     store = _torchrun_store(tmp)
@@ -3156,25 +3274,51 @@ def dp_cli_phase(card: str, tmp: str) -> None:
           f"tensors); rank 0 wrote every file, once", flush=True)
 
     import torch.multiprocessing as mp
-    out_dir = os.path.join(tmp, "dp_reduce")
+    out_dir = os.path.join(tmp, "dp_gloo")
     os.makedirs(out_dir)
-    mp.spawn(_dp_reduce_rank, args=(2, _free_port(), out_dir), nprocs=2)
-    times = [json.loads(Path(out_dir, f"{r}.json").read_text())
-             for r in range(2)]
-    print(f"gradient all-reduce between two gloo ranks on one card "
-          f"({DP_PRESET}'s gradients, host clock to a synchronise, median "
-          f"of 20): rank 0 {np.median(times[0]) * 1e3:.3f} ms, rank 1 "
-          f"{np.median(times[1]) * 1e3:.3f} ms  [{card}]", flush=True)
+    mp.spawn(_dp_gloo_rank, args=(2, _free_port(), out_dir), nprocs=2)
+    res = [json.loads(Path(out_dir, f"{r}.json").read_text())
+           for r in range(2)]
+    print(f"gradient all-reduce through the bucket between two gloo ranks "
+          f"on one card ({DP_PRESET}'s gradients, host clock to a "
+          f"synchronise, median of 20): rank 0 "
+          f"{np.median(res[0]['reduce_s']) * 1e3:.3f} ms, rank 1 "
+          f"{np.median(res[1]['reduce_s']) * 1e3:.3f} ms  [{card}]",
+          flush=True)
+    check(all(r["dispatch"] == "2 CUDA graphs/step around an eager gloo "
+              "all-reduce" and r["graphs"] == 2 for r in res),
+          f"gloo dispatch {res}")
+    graphs = [torch.load(os.path.join(out_dir, f"{r}.pt"),
+                         weights_only=True) for r in range(2)]
+    n = _same_tensors(graphs[0], graphs[1], "rank 1's graphed pong64")
+    check(res[0]["losses"] == res[1]["losses"],
+          f"the ranks' losses {res[0]['losses']} / {res[1]['losses']}")
+    ms = res[0]["ms"]
+    line = "; ".join(
+        f"{kind} {' / '.join(f'{e:.3f}' for e, _ in ms[kind])} ms (host "
+        f"{' / '.join(f'{h:.3f}' for _, h in ms[kind])})"
+        for kind in ("eager", "graph"))
+    print(f"pong64 b64 at two gloo ranks on the card: {GLOO_EQUAL_STEPS} "
+          f"steps graphed (1 eager + {GLOO_EQUAL_STEPS - 1} replays of two "
+          f"graphs around the eager all-reduce) equal {GLOO_EQUAL_STEPS} "
+          f"eager DP steps bit for bit on each rank ({res[0]['tensors']} "
+          f"tensors: parameters, Adam moments and counts, metrics), the "
+          f"ranks' parameters equal ({n} tensors); capture "
+          f"{res[0]['capture_s']:.3f}s, {res[0]['pool_bytes'] / 2 ** 20:.1f} "
+          f"MiB; rank 0 ms/step, CUDA events over 20 steps, median of 3, in "
+          f"turns eager, graph, graph, eager: {line}  [{card}]", flush=True)
 
 
 def dp_serve_phase(card: str, tmp: str) -> list:
     """The server on ``--devices 1`` (``make_dp_extract`` over the card):
     requests that fill each bucket, answered bit for bit as
     ``make_live_extract`` answers them at the same bucket, then the n=1
-    p50 over 30 requests. Then ``make_dp_extract`` over two replicas on the
-    card (the slab split and the ordered gather) at buckets 8/64/256,
-    bit for bit the one-device extract of each half at the same slab.
-    → the counts of the server's run."""
+    p50 over 30 requests; a replayed bucket call launches K1 once (from
+    torch.profiler: a replay calls no wrapper). Then ``make_dp_extract``
+    over two replicas on the card (the slab split and the ordered gather)
+    at buckets 8/64/256, bit for bit the one-device extract of each half
+    at the same slab, K1 once a replica a call. → the counts of the
+    server's run."""
     from keypoints_tpu_torch.parallel.dp import make_dp_extract
 
     phase(f"32 dp serve: --devices 1 on buckets "
@@ -3209,10 +3353,12 @@ def dp_serve_phase(card: str, tmp: str) -> list:
             http_extract(url, one_row)
             if i >= 5:
                 latencies.append(time.perf_counter() - t0)
+        counts = read_counts()
+        extract = server[1]._extract
+        replay, _, _ = profiled_launches(lambda: extract(requests[8]),
+                                         SERVE_PROFILED_CALLS)
     finally:
         stop_server(*server)
-    counts = read_counts()
-    calls = 2 * len(BUCKETS) + 35
     split = (8, 64, 256)
     two = make_dp_extract(cfg, state, split, ["cuda:0", "cuda:0"])
     check(two.meta["data_parallel_devices"] == 2, f"meta {two.meta}")
@@ -3224,16 +3370,27 @@ def dp_serve_phase(card: str, tmp: str) -> list:
         check(got.shape == want2.shape and np.array_equal(got, want2),
               f"two replicas at b{b} differ from the one-device extract of "
               f"each b{b // 2} half by {np.abs(got - want2).max()}")
+    replicas, _, _ = profiled_launches(lambda: two(requests[64]),
+                                       SERVE_PROFILED_CALLS)
     del two, half
-    print("two replicas on the card: answers at b8, b64, b256 equal the "
-          "one-device extract of each half bit for bit", flush=True)
+    print(f"two replicas on the card: answers at b8, b64, b256 equal the "
+          f"one-device extract of each half bit for bit; a replayed b64 "
+          f"call launches {replicas} (torch.profiler)", flush=True)
+    check(replicas == {k: 2 * int(k == "spatial_softmax_fwd")
+                       for k in PROFILED_KERNELS},
+          f"two replicas' call launched {replicas}, K1 twice expected")
     print(f"--devices 1: answers at b{', b'.join(map(str, BUCKETS))} equal "
           f"the one-device extract bit for bit; http n=1 p50 "
           f"{np.median(latencies) * 1e3:.3f} ms (30 requests, host clock); "
-          f"launches {counts} ({calls} bucket calls)  [{card}]", flush=True)
-    check(counts["spatial_softmax_fwd"] >= calls and all(
-        v == 0 for k, v in counts.items() if k != "spatial_softmax_fwd"),
-        f"dp serving launches {counts}")
+          f"wrapper counts {counts} (each bucket's eager warm-up and "
+          f"capture); a replayed bucket call launches {replay} "
+          f"(torch.profiler)  [{card}]", flush=True)
+    check(counts == {k: 2 * len(BUCKETS) * int(k == "spatial_softmax_fwd")
+                     for k in KERNELS},
+          f"dp serving wrapper counts {counts}: 2 a bucket expected")
+    check(replay == {k: int(k == "spatial_softmax_fwd")
+                     for k in PROFILED_KERNELS},
+          f"a replayed bucket call launched {replay}, K1 once expected")
     return [counts]
 
 
@@ -3284,7 +3441,9 @@ def export_phase(card: str, tmp: str) -> tuple[list, dict]:
     BUCKETS, float32 and uint8 in, and transporter_atari at b64. Each
     graph holds the K1 op once and no plain soft-argmax op; each bucket's
     answers equal ``make_live_extract``'s at that bucket; one K1 launch a
-    bucket call (counted); images/s of artifact and live at b256 in turns;
+    replayed bucket call (torch.profiler; the wrappers count each bucket's
+    eager first call and its capture); images/s of artifact and live at
+    b256 in turns;
     host µs of a K1 call through the op and through the ctypes wrapper, in
     turns. → (the counts of the artifact calls, paths phase 34 reuses)."""
     from keypoints_tpu_torch import export
@@ -3320,28 +3479,34 @@ def export_phase(card: str, tmp: str) -> tuple[list, dict]:
         live = make_live_extract(cfg, state, BUCKETS, "cuda", dtype)
         reset_counts()
         diffs = {}
+        replays = {}
         for b in BUCKETS:
             x = rs.rand(b, 3, 128, 128).astype(np.float32)
             if dtype == "uint8":
                 x = (x * 255).astype(np.uint8)
-            before = ssc.launches
             got = art(x)
-            check(ssc.launches == before + 1, f"artifact b{b} {dtype}: "
-                  f"{ssc.launches - before} K1 launches for one call")
             want = live(x)
             check(got.shape == (b, 10, 2) and bool(np.isfinite(got).all()),
                   f"artifact b{b} {dtype}: shape {got.shape} or non-finite")
             diffs[b] = float(np.abs(got - want).max())
+            replays[b], _, _ = profiled_launches(lambda: art(x),
+                                                 SERVE_PROFILED_CALLS)
+            check(replays[b] == {k: int(k == "spatial_softmax_fwd")
+                                 for k in PROFILED_KERNELS},
+                  f"artifact b{b} {dtype}: a replayed call launched "
+                  f"{replays[b]}, K1 once expected")
         run = read_counts()
         counts.append(run)
-        calls = 2 * len(BUCKETS)          # the artifact's and the live's
+        calls = 4 * len(BUCKETS)   # the artifact's and the live's, 2 each
         check(run["spatial_softmax_fwd"] == calls and all(
             v == 0 for k, v in run.items() if k != "spatial_softmax_fwd"),
-            f"{dtype} artifact and live: launches {run} for {calls} calls")
+            f"{dtype} artifact and live: wrapper counts {run}, {calls} "
+            f"expected (each bucket's eager first call and its capture)")
         print(f"celeba128 {dtype}: artifact vs make_live_extract at each "
-              f"bucket, max|d| {diffs} (0 = equal bits); launches {run} "
-              f"over {len(BUCKETS)} artifact + {len(BUCKETS)} live bucket "
-              f"calls  [{card}]", flush=True)
+              f"bucket, max|d| {diffs} (0 = equal bits); wrapper counts "
+              f"{run} over {len(BUCKETS)} artifact + {len(BUCKETS)} live "
+              f"first calls; K1 once a replayed artifact call at every "
+              f"bucket (torch.profiler)  [{card}]", flush=True)
         check(max(diffs.values()) <= SERVE_TOL,
               f"artifact vs live {dtype}: {diffs}")
         if dtype == "float32":
@@ -3366,8 +3531,9 @@ def export_phase(card: str, tmp: str) -> tuple[list, dict]:
     reset_counts()
     got, want = t_art(x), t_live(x)
     counts.append(read_counts())
-    check(counts[-1]["spatial_softmax_fwd"] == 2,
-          f"transporter artifact launches {counts[-1]}")
+    check(counts[-1]["spatial_softmax_fwd"] == 4,
+          f"transporter artifact and live: wrapper counts {counts[-1]}, 4 "
+          f"expected (two first calls and their captures)")
     t_err = float(np.abs(got - want).max())
     print(f"transporter_atari b{VIDEO_BUCKET}: exported in {secs:.2f}s, "
           f"{len(t_data) / 1e6:.3f} MB, graph holds the K1 op once; vs "
@@ -3587,12 +3753,13 @@ def tools_phase(card: str, tmp: str, bundle: bytes) -> None:
     logdir = os.path.join(tmp, "prof")
     with profiling.trace(logdir) as prof:
         art(x)
+        art(x)
     trace_file = os.path.join(logdir, "trace.json")
     kernels = [e for e in prof.key_averages()
                if "marginal_fwd" in e.key and e.device_time_total > 0]
     check(os.path.getsize(trace_file) > 0 and kernels,
           f"trace {trace_file}: no soft-argmax kernel with device time")
-    print(f"trace of one b64 artifact call: {trace_file} "
+    print(f"trace of two b64 artifact calls (graph replays): {trace_file} "
           f"({os.path.getsize(trace_file)} bytes); "
           + ", ".join(f"{e.key[:60]} {e.device_time_total:.1f} us"
                       for e in kernels[:2]) + f"  [{card}]", flush=True)
@@ -3647,6 +3814,8 @@ GRAPH_CASES = {
 GRAPH_EQUAL_STEPS = 4      # 1 eager + 3 replays against 4 eager steps
 GRAPH_TIMED_STEPS = {"pose256 b128": 5, "celeba128 b128": 10}   # else 20
 GRAPH_PROFILED_STEPS = 3
+# the card's spin at each edge of a profiled window (~10 ms at 1.98 GHz)
+PROFILE_EDGE_CYCLES = 20_000_000
 # each counted kernel's function names, as torch.profiler shows them
 PROFILED_KERNELS = {
     "spatial_softmax_fwd": {"marginal_fwd", "joint_fwd", "block_fwd"},
@@ -3704,8 +3873,10 @@ def profiled_launches(fn, calls: int, warmup=None
     counted kernel a call, from the kernel events' names; device ms a call,
     the sum of the kernels and copies on the card; host ms a call around
     the profiled calls, to a synchronise). The profiler traces a first
-    ``warmup()`` (default: a call of ``fn``) without recording it: kernels
-    at the very start of a trace can be missed."""
+    ``warmup()`` (default: a call of ``fn``) without recording it, and the
+    card spins ~10 ms at each end of the recorded window before the calls
+    and after them: kernels at the very edges of a trace can be missed
+    (the first K2 and K3 launches of a window have been)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
@@ -3714,14 +3885,20 @@ def profiled_launches(fn, calls: int, warmup=None
         (warmup or fn)()
         torch.cuda.synchronize()
         prof.step()
+        torch.cuda._sleep(PROFILE_EDGE_CYCLES)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) / calls * 1e3
-    # the kernels and copies; not the step's annotation on the card's line
+        torch.cuda._sleep(PROFILE_EDGE_CYCLES)
+        torch.cuda.synchronize()
+    # the kernels and copies; not the step's annotation on the card's line,
+    # nor the edges' spins
     on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not e.name.startswith("ProfilerStep")]
+               and not e.name.startswith("ProfilerStep")
+               and "spin_kernel" not in e.name]
     names = [_kernel_name(e.name) for e in on_card]
     counts = {}
     for kernel, fns in PROFILED_KERNELS.items():
@@ -3923,6 +4100,342 @@ def graph_step_phase(card: str) -> list:
     return path_counts
 
 
+# phase 37: dp_celeba's DP step graphed in a one-rank NCCL group
+DP_GRAPH_EQUAL_STEPS = 4   # 1 eager + 3 replays against 4 eager steps
+DP_GRAPH_TIMED_STEPS = 10
+
+
+def dp_graph_phase(card: str) -> list:
+    """dp_celeba (b256 bf16) in a one-rank NCCL group in this process, cuDNN
+    deterministic, on one fixed batch copied into the graphs' input: the
+    DP step through ``make_graphed_train_step(..., group=...)`` (two CUDA
+    graphs a step around the eager NCCL all-reduce), the bare step
+    graphed, and the eager DP step: after 1 eager + 3 replayed steps
+    against 4 eager ones every parameter, Adam moment and count and every
+    step's metrics equal bit for bit, all three. The capture's seconds and
+    bytes; kernels a step from torch.profiler, eager and replayed, and the
+    device's idle share; ms a step by CUDA events and the host clock in
+    turns (eager, graph, graph, eager). → the wrapper counts of the run."""
+    import torch.distributed as dist
+    from keypoints_tpu_torch.parallel import dp as dp_mod
+    phase(f"37 dp graph step: {DP_PRESET} b256 bf16, NCCL at world 1, two "
+          f"CUDA graphs a step around the eager all-reduce, on {card}")
+    cfg = get_config(DP_PRESET)
+    flags = _nccl_world_one()
+    try:
+        group = dist.group.WORLD
+        images = torch.from_numpy(random_images(256, cfg, 4)).cuda()
+        states = {kind: init_state(cfg, "cuda")
+                  for kind in ("graph", "bare", "eager")}
+        steps = {"graph": make_graphed_train_step(cfg, states["graph"],
+                                                  group=group),
+                 "bare": make_graphed_train_step(cfg, states["bare"]),
+                 "eager": dp_mod.make_dp_train_step(cfg, group)}
+        check(steps["graph"].dispatch ==
+              "2 CUDA graphs/step around an eager nccl all-reduce",
+              f"dispatch {steps['graph'].dispatch}")
+
+        def stepper(kind):
+            def once():
+                states[kind], m = steps[kind](states[kind], images)
+                return m
+            return once
+
+        ones = {kind: stepper(kind) for kind in states}
+        reset_counts()
+        got = {kind: [{k: v.clone() for k, v in ones[kind]().items()}
+                      for _ in range(DP_GRAPH_EQUAL_STEPS)]
+               for kind in states}
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check(counts == {k: 8 * DP_PER_STEP.get(k, 0) for k in KERNELS},
+              f"wrapper counts {counts}: the two graphs' eager steps and "
+              f"captures and 4 eager DP steps of {DP_PER_STEP} expected")
+        n = 0
+        for kind in ("bare", "eager"):
+            n = _same_tensors(states["graph"].model.state_dict(),
+                              states[kind].model.state_dict(),
+                              f"graphed DP vs {kind} model")
+            n += _same_tensors(states["graph"].optimizer.state_dict()["state"],
+                               states[kind].optimizer.state_dict()["state"],
+                               f"graphed DP vs {kind} Adam state")
+            n += _same_tensors(got["graph"], got[kind],
+                               f"graphed DP vs {kind} metrics")
+        check(all(st.step == DP_GRAPH_EQUAL_STEPS for st in states.values()),
+              f"steps {[st.step for st in states.values()]}")
+        check(len(steps["graph"].graphs) == 2
+              and states["graph"].bucket is not None,
+              "the NCCL DP step is not two graphs over a bucket")
+        print(f"{DP_GRAPH_EQUAL_STEPS} steps: the graphed DP step (1 eager + "
+              f"{DP_GRAPH_EQUAL_STEPS - 1} replays around the eager NCCL "
+              f"all-reduce), the "
+              f"graphed bare step and the eager DP step equal bit for bit "
+              f"({n} tensors a pair: parameters, Adam moments and counts, "
+              f"metrics; losses "
+              f"{[round(float(m['loss']), 6) for m in got['graph']]}); "
+              f"capture: DP {steps['graph'].capture_seconds:.3f}s, "
+              f"{steps['graph'].pool_bytes / 2 ** 20:.1f} MiB, bare "
+              f"{steps['bare'].capture_seconds:.3f}s, "
+              f"{steps['bare'].pool_bytes / 2 ** 20:.1f} MiB  [{card}]",
+              flush=True)
+
+        launches = {}
+        for kind in ("eager", "graph"):
+            launches[kind], device_ms, _ = profiled_launches(
+                ones[kind], GRAPH_PROFILED_STEPS)
+            check(all(launches[kind][k] == DP_PER_STEP.get(k, 0)
+                      for k in PROFILED_KERNELS),
+                  f"DP {kind}: {launches[kind]} kernels a step, "
+                  f"{DP_PER_STEP} expected")
+            launches[kind]["device_ms"] = device_ms
+        ms = {"eager": [], "graph": []}
+        for kind in ("eager", "graph", "graph", "eager"):
+            ms[kind].append(_step_ms(ones[kind], DP_GRAPH_TIMED_STEPS))
+        line = "; ".join(
+            f"{kind} {' / '.join(f'{e:.3f}' for e, _ in ms[kind])} ms "
+            f"(host {' / '.join(f'{h:.3f}' for _, h in ms[kind])}), "
+            f"device {launches[kind]['device_ms']:.3f} ms, idle "
+            f"{1 - launches[kind]['device_ms'] / np.mean([e for e, _ in ms[kind]]):.1%}"
+            for kind in ("eager", "graph"))
+        print(f"{DP_PRESET} b256 bf16 DP ms/step at one NCCL rank, CUDA "
+              f"events over {DP_GRAPH_TIMED_STEPS} steps, median of 3, in "
+              f"turns eager, graph, graph, eager: {line}; graph - eager "
+              f"{np.mean([e for e, _ in ms['graph']]) - np.mean([e for e, _ in ms['eager']]):+.3f} "
+              f"ms; kernels a replay {launches['graph']}  [{card}]",
+              flush=True)
+        del states, steps, ones
+        torch.cuda.empty_cache()
+    finally:
+        _leave_group(flags)
+    return [counts]
+
+
+class _EagerBucket:
+    """The eager bucket function the CUDA graphs replaced (phase 38 patches
+    it in here only): the numpy batch uploaded from pageable memory, then
+    ``run``, one aten op and kernel launch at a time; it captures
+    nothing."""
+
+    def __init__(self, run, batch, item_shape, dtype, device, pools):
+        self.run, self.device = run, torch.device(device)
+
+    def enqueue(self, images: np.ndarray) -> torch.Tensor:
+        return self.run(torch.from_numpy(images).to(self.device))
+
+    def __call__(self, images: np.ndarray) -> np.ndarray:
+        return self.enqueue(images).cpu().numpy()
+
+
+def _buckets_as(cls):
+    """A context in which the serving paths build their buckets as
+    ``cls``."""
+    import contextlib
+    from keypoints_tpu_torch import export
+    from keypoints_tpu_torch.parallel import dp as dp_mod
+
+    @contextlib.contextmanager
+    def patched():
+        saved = export.GraphedBucket, dp_mod.GraphedBucket
+        export.GraphedBucket = dp_mod.GraphedBucket = cls
+        try:
+            yield
+        finally:
+            export.GraphedBucket, dp_mod.GraphedBucket = saved
+    return patched()
+
+
+def _eager_buckets():
+    """A context in which the serving paths build :class:`_EagerBucket`s."""
+    return _buckets_as(_EagerBucket)
+
+
+def _recorded_buckets(made: list):
+    """A context in which the serving paths' ``GraphedBucket``s are also
+    appended to ``made``, for their capture's seconds and bytes."""
+    from keypoints_tpu_torch.export import GraphedBucket
+
+    class Recorded(GraphedBucket):
+        def __init__(self, *args):
+            super().__init__(*args)
+            made.append(self)
+    return _buckets_as(Recorded)
+
+
+def _served_p50(argv: list, eager: bool) -> float:
+    """``make_server`` of ``argv`` (eager buckets patched in, or its CUDA
+    graphs), warmed; → the median ms of 30 n=1 HTTP requests after 5."""
+    import contextlib
+    with _eager_buckets() if eager else contextlib.nullcontext():
+        httpd, batcher = make_server(build_parser().parse_args(
+            [*argv, "--port", "0"]))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://localhost:{httpd.server_address[1]}"
+    one = np.random.RandomState(38).rand(1, 3, 128, 128).astype(np.float32)
+    latencies = []
+    try:
+        for i in range(35):
+            t0 = time.perf_counter()
+            http_extract(url, one)
+            if i >= 5:
+                latencies.append(time.perf_counter() - t0)
+    finally:
+        stop_server(httpd, batcher, thread)
+    return float(np.median(latencies)) * 1e3
+
+
+def serving_graphs_phase(card: str, bundle: bytes) -> list:
+    """Each serving bucket replayed from its CUDA graph against the eager
+    bucket function it replaced (patched in here only), on new images at
+    every call: celeba128 (bf16) live at buckets 1/8/64/256, float32 and
+    uint8 in; two replicas on the card at 8/64/256; phase 33's float32
+    artifact bundle. Equal bits everywhere. The captures' seconds and
+    bytes; K1 once a replayed call and the device's idle share
+    (torch.profiler) at each bucket; host ms a bucket call, eager and
+    graphed in turns; the n=1 HTTP p50 of ``--preset`` and ``--artifact``
+    servers, eager and graphed in turns. A bucket whose capture fails
+    raises ``CaptureError`` at every call and answers nothing. → the
+    wrapper counts of the live extracts, eager and graphed."""
+    from keypoints_tpu_torch import export
+    from keypoints_tpu_torch.parallel.dp import make_dp_extract
+    from keypoints_tpu_torch.export import GraphedBucket
+    from keypoints_tpu_torch.training import CaptureError
+
+    phase(f"38 serving graphs: celeba128 buckets "
+          f"{'/'.join(map(str, BUCKETS))} (float32, uint8), two replicas, "
+          f"the artifact, on {card}")
+    t_phase = time.perf_counter()
+    cfg = get_config("celeba128")
+    state = {k: torch.from_numpy(v) for k, v in
+             state_dict_from_flax(random_flax_params(cfg, 0)).items()}
+    rs = np.random.RandomState(38)
+
+    def images(b: int, dtype: str) -> np.ndarray:
+        x = rs.rand(b, 3, 128, 128).astype(np.float32)
+        return (x * 255).astype(np.uint8) if dtype == "uint8" else x
+
+    def pair(build):
+        """→ (eager, graphed) extracts of ``build``, and the graphed
+        one's buckets."""
+        made = []
+        with _eager_buckets():
+            eager = build()
+        with _recorded_buckets(made):
+            graph = build()
+        return eager, graph, made
+
+    def same(eager, graph, made, buckets, dtype: str, what: str) -> None:
+        for b in buckets:
+            for call in range(3):
+                x = images(b, dtype)
+                want, got = eager(x), graph(x)
+                check(np.array_equal(got, want), f"{what} b{b} call "
+                      f"{call}: graph vs eager max|d| "
+                      f"{np.abs(got - want).max()}")
+        check(made and all(g.graph is not None for g in made),
+              f"{what}: a bucket was not captured")
+
+    reset_counts()
+    lives = {}
+    for dtype in ("float32", "uint8"):
+        eager, graph, made = pair(lambda: make_live_extract(
+            cfg, state, BUCKETS, "cuda", dtype))
+        same(eager, graph, made, BUCKETS, dtype, f"live {dtype}")
+        lives[dtype] = (eager, graph, made)
+    counts = read_counts()
+    check(counts == {k: 2 * 5 * len(BUCKETS) * int(k == "spatial_softmax_fwd")
+                     for k in KERNELS},
+          f"wrapper counts {counts}: a bucket's 3 eager calls, the graphed "
+          f"bucket's eager first call and its capture (a replay calls no "
+          f"wrapper) expected")
+    eager, graph, made = pair(lambda: make_dp_extract(
+        cfg, state, (8, 64, 256), ["cuda:0", "cuda:0"]))
+    same(eager, graph, made, (8, 64, 256), "float32", "two replicas")
+    del eager, graph, made
+    eager, graph, made = pair(lambda: export.load_extract(bundle))
+    same(eager, graph, made, BUCKETS, "float32", "artifact")
+    del eager, graph, made
+    print(f"graph vs eager, equal bits at every bucket and call: live "
+          f"float32 and uint8 at b{'/'.join(map(str, BUCKETS))}, two "
+          f"replicas at b8/64/256, the artifact at "
+          f"b{'/'.join(map(str, BUCKETS))} (3 calls a bucket, new images "
+          f"each)  [{card}]", flush=True)
+
+    eager, graph, made = lives["float32"]
+    caps = {g.shape[0]: g for g in made}
+    print("captures, live float32: " + ", ".join(
+        f"b{b} {g.capture_seconds:.3f}s {g.pool_bytes / 2 ** 20:.1f} MiB"
+        for b, g in caps.items()) + f"  [{card}]", flush=True)
+    rows = []
+    for b in BUCKETS:
+        x = images(b, "float32")
+        prof = {}
+        for kind, fn in (("eager", eager), ("graph", graph)):
+            prof[kind] = profiled_launches(lambda: fn(x), SERVE_PROFILED_CALLS)
+            check(prof[kind][0] == {k: int(k == "spatial_softmax_fwd")
+                                    for k in PROFILED_KERNELS},
+                  f"{kind} b{b}: a call launched {prof[kind][0]}, K1 once "
+                  f"expected")
+        host = {"eager": [], "graph": []}
+        for kind in ("eager", "graph", "graph", "eager"):
+            fn = eager if kind == "eager" else graph
+            host[kind].append(_host_ms(lambda: fn(x), calls=30))
+        rows.append(f"b{b}: " + "; ".join(
+            f"{kind} {' / '.join(f'{t:.3f}' for t in host[kind])} ms, "
+            f"device {prof[kind][1]:.3f} ms, idle "
+            f"{1 - prof[kind][1] / np.mean(host[kind]):.1%}"
+            for kind in ("eager", "graph")))
+    print(f"live float32 bucket call from the host (upload, replay, read "
+          f"back; eager: upload, then dispatch op by op), host clock, "
+          f"median of 30, in turns eager, graph, graph, eager; K1 once a "
+          f"call (torch.profiler): " + " | ".join(rows) + f"  [{card}]",
+          flush=True)
+    del lives, eager, graph, made
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "celeba128_seed0.pt")
+        torch.save(state, ckpt)
+        art = os.path.join(tmp, "extract.zip")
+        Path(art).write_bytes(bundle)
+        servers = {"--preset": ["--preset", "celeba128", "--checkpoint",
+                                ckpt, "--batch", *map(str, BUCKETS)],
+                   "--artifact": ["--artifact", art]}
+        p50 = {}
+        for name, argv in servers.items():
+            p50[name] = {"eager": [], "graph": []}
+            for kind in ("eager", "graph", "graph", "eager"):
+                p50[name][kind].append(_served_p50(argv, kind == "eager"))
+    print("http n=1 p50, 30 requests after 5, host clock, in turns eager, "
+          "graph, graph, eager: " + "; ".join(
+              f"{name} eager {' / '.join(f'{t:.3f}' for t in v['eager'])} "
+              f"ms, graph {' / '.join(f'{t:.3f}' for t in v['graph'])} ms"
+              for name, v in p50.items()) + f"  [{card}]", flush=True)
+
+    calls = []
+
+    def reads_the_card(x):
+        calls.append(x.shape)
+        return x * float(x.sum())
+
+    failing = GraphedBucket(reads_the_card, 2, (3, 8, 8), "float32", "cuda",
+                            {})
+    raised = []
+    for _ in range(2):
+        try:
+            failing(np.ones((2, 3, 8, 8), np.float32))
+        except CaptureError as e:
+            raised.append(str(e).splitlines()[0][:100])
+    check(len(raised) == 2 and len(calls) == 2,
+          f"a bucket that reads the card: {len(raised)} CaptureErrors in 2 "
+          f"calls, its function run {len(calls)} times (the eager call and "
+          f"the capture expected)")
+    print(f"a bucket whose function reads the card: CaptureError at both "
+          f"calls, its function run {len(calls)} times (the first call's "
+          f"eager run and the capture; no answer): {raised[0]}", flush=True)
+    print(f"phase 38 took {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return [counts]
+
+
 def main() -> int:
     card = device_phase()
     build_phase()
@@ -3993,6 +4506,9 @@ def main() -> int:
         artifact_cli_phase(card, tmp, paths, served["http_p50_ms"])
         tools_phase(card, tmp, paths["bundle"])
     path_counts.extend(graph_step_phase(card))
+    torch.cuda.empty_cache()
+    path_counts.extend(dp_graph_phase(card))
+    path_counts.extend(serving_graphs_phase(card, paths["bundle"]))
 
     errs["spatial_softmax_fwd"] = max(errs["spatial_softmax_fwd"],
                                       served["serve_max_abs_err"])

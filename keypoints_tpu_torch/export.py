@@ -22,6 +22,10 @@ builds no model and reads no checkpoint.
   covering bucket, splits oversize requests into max-bucket chunks and
   coerces uint8/float32 inputs (``:153-211``). Both formats are zips, so a
   bundle is told from a single ``.pt2`` by its top-level ``meta.json``.
+* On CUDA each bucket's program is replayed from one CUDA graph
+  (:class:`GraphedBucket`), as JAX's artifact is one compiled program a
+  bucket; the live extract (``parallel.dp.make_dp_extract``) takes the
+  same class. On the CPU a bucket runs eagerly.
 * ``python -m keypoints_tpu_torch.export`` (``_cli``, ``:235``).
 
 On CUDA the exported graph holds the soft-argmax kernel K1 as one node of
@@ -56,6 +60,7 @@ import torch
 from torch import nn
 
 from keypoints_tpu_torch.configs import Config
+from keypoints_tpu_torch.training import CaptureError
 # registers keypoints_tpu_torch::spatial_softmax_fwd, which CUDA artifacts call
 from keypoints_tpu_torch.kernels import spatial_softmax_cuda  # noqa: F401
 
@@ -108,6 +113,95 @@ class BucketedExtract:
                 [images, np.zeros((bucket - n,) + images.shape[1:],
                                   images.dtype)])
         return self._fns[bucket](images)[:n]
+
+
+class GraphedBucket:
+    """One bucket of a serving path replayed from one CUDA graph: numpy
+    images of exactly ``(batch, *item_shape)`` and ``dtype`` → numpy
+    keypoints, computed as ``run`` (device images → device keypoints, a
+    uint8 rescale included) computes them.
+
+    The first call runs ``run`` eagerly on its input (that builds the
+    kernels' library and cuDNN's plans) and answers with that result, then
+    captures ``run`` on a side stream, reading a static input on the card,
+    into the device's memory pool in ``pools`` (device → a
+    ``torch.cuda.graph_pool_handle()``, made at the device's first capture
+    and shared by the buckets of one extractor, whose replays never
+    overlap). Every later call uploads the images
+    into the static input straight from the array (the driver stages a
+    pageable copy in pipelined chunks; copying the batch into a pinned
+    buffer first costs the host a whole extra pass over it), replays the
+    graph and reads its output back. :meth:`enqueue` stops before the
+    read, so several devices' slabs are all queued before the first is
+    read. ``run`` runs under ``inference_mode`` (or ``no_grad``)
+    of its own, inside the capture as on an eager call. A failed capture
+    raises :class:`~keypoints_tpu_torch.training.CaptureError`, then and
+    at every later call: nothing runs eagerly in its place.
+    """
+
+    def __init__(self, run: Callable, batch: int, item_shape: Sequence[int],
+                 dtype: str, device: torch.device | str, pools: dict):
+        self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, got "
+                             f"{self.device}")
+        self.run = run
+        self.shape = (int(batch), *map(int, item_shape))
+        self.dtype = np.dtype(dtype)
+        self.pools = pools
+        self.input: torch.Tensor | None = None    # the graph's, on the card
+        self.output: torch.Tensor | None = None
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.failure: CaptureError | None = None
+        #: host seconds of the capture, and the bytes it reserved
+        self.capture_seconds: float | None = None
+        self.pool_bytes: int | None = None
+
+    def enqueue(self, images: np.ndarray) -> torch.Tensor:
+        """Upload ``images`` and queue the bucket's work: → its keypoints on
+        the card (the graph's output: read it before the next call)."""
+        if images.shape != self.shape or images.dtype != self.dtype:
+            raise ValueError(f"this bucket takes {self.shape} {self.dtype}, "
+                             f"got {images.shape} {images.dtype}")
+        if self.failure is not None:
+            raise self.failure
+        if self.graph is None:
+            return self._first(images)
+        with torch.cuda.device(self.device):
+            self.input.copy_(torch.from_numpy(images), non_blocking=True)
+            self.graph.replay()
+        return self.output
+
+    def __call__(self, images: np.ndarray) -> np.ndarray:
+        return self.enqueue(images).cpu().numpy()
+
+    def _first(self, images: np.ndarray) -> torch.Tensor:
+        """The eager call, then the capture."""
+        device = self.device
+        self.input = torch.from_numpy(images).to(device)
+        answer = self.run(self.input)
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        if device not in self.pools:
+            self.pools[device] = torch.cuda.graph_pool_handle()
+        stream = torch.cuda.Stream(device)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, pool=self.pools[device],
+                                  stream=stream,
+                                  capture_error_mode="thread_local"):
+                self.output = self.run(self.input)
+        except RuntimeError as e:
+            self.failure = CaptureError(
+                f"the CUDA graph capture of bucket {self.shape[0]} on "
+                f"{device} failed: {e}")
+            raise self.failure from e
+        self.capture_seconds = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        self.graph = graph
+        return answer
 
 
 def bundle_meta(cfg: Config, batches: Sequence[int],
@@ -244,9 +338,11 @@ def _run_on(own: torch.device, device: torch.device | str | None
     return own
 
 
-def _load_program(data: bytes, device: torch.device | str | None
-                  ) -> tuple[Callable, dict]:
-    """One ``.pt2`` → (fn(numpy images) -> numpy keypoints, its meta)."""
+def _load_program(data: bytes, device: torch.device | str | None,
+                  pools: dict) -> tuple[Callable, dict]:
+    """One ``.pt2`` → (fn(numpy images) -> numpy keypoints, its meta): a
+    :class:`GraphedBucket` on CUDA (``pools`` as it takes them), the
+    program called eagerly on the CPU."""
     with zipfile.ZipFile(io.BytesIO(data)) as z:
         own = _run_on(torch.device(_extra(z, "device")), device)
         meta = json.loads(_extra(z, "meta.json"))
@@ -256,10 +352,18 @@ def _load_program(data: bytes, device: torch.device | str | None
         warnings.filterwarnings("ignore", "The given buffer is not writable")
         module = torch.export.load(io.BytesIO(data)).module()
 
-    def fn(images: np.ndarray) -> np.ndarray:
+    def run(images: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
-            kp = module(torch.from_numpy(images).to(own))
-        return kp.cpu().numpy()
+            return module(images)
+
+    if own.type == "cuda":
+        size = meta["image_size"]
+        return GraphedBucket(run, meta["batches"][0],
+                             (meta["channels"], size, size),
+                             meta["input_dtype"], own, pools), meta
+
+    def fn(images: np.ndarray) -> np.ndarray:
+        return run(torch.from_numpy(images)).numpy()
     return fn, meta
 
 
@@ -279,7 +383,7 @@ def load_extract(path_or_bytes, device: torch.device | str | None = None
     data = _read(path_or_bytes)
     if is_bundle(data):
         return load_extract_bundle(data, device)
-    fn, meta = _load_program(data, device)
+    fn, meta = _load_program(data, device, {})
     return BucketedExtract({meta["batches"][0]: fn}, meta)
 
 
@@ -287,11 +391,12 @@ def load_extract_bundle(path_or_bytes,
                         device: torch.device | str | None = None
                         ) -> BucketedExtract:
     """An :func:`export_extract_bundle` zip → a :class:`BucketedExtract`."""
-    fns = {}
+    fns, pools = {}, {}
     with zipfile.ZipFile(io.BytesIO(_read(path_or_bytes))) as z:
         meta = json.loads(z.read("meta.json"))
         for b in meta["batches"]:
-            fns[int(b)], _ = _load_program(z.read(f"b{b}.pt2"), device)
+            fns[int(b)], _ = _load_program(z.read(f"b{b}.pt2"), device,
+                                           pools)
     return BucketedExtract(fns, meta)
 
 

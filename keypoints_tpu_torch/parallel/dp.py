@@ -4,7 +4,7 @@ The one parallelism strategy this model family needs (no attention, so no
 tensor, pipeline, sequence or expert parallelism): every rank holds the
 whole model, takes ``batch / world`` rows of each global batch, and the
 only collective of a step is the mean of the gradients and the loss, one
-all-reduce over a flat float32 bucket (:func:`all_reduce_mean`). One
+all-reduce over a persistent flat float32 bucket (:class:`GradBucket`). One
 process per card, launched by ``torchrun`` (``multihost.initialize``);
 NCCL between cards, gloo on the CPU or where ranks share a card.
 
@@ -16,18 +16,22 @@ NCCL between cards, gloo on the CPU or where ranks share a card.
 * Parameters stay equal on every rank: they start equal
   (:func:`replicate` broadcasts rank 0's, after a resume too), and every
   rank applies the same averaged gradients.
-* In-step sampling (JAX's ``make_dp_fused_chunk``): rank r draws its
-  ``batch / world`` rows of batch i from ``shard_generator(seed + salt, i,
-  r, world)``'s seed (``train.InStepBatches.sample_at``). The DP step is
-  dispatched eagerly, one aten op and kernel launch at a time: the
-  single-process step's CUDA graph (``training.make_graphed_train_step``)
-  is not ported to it yet, since :func:`all_reduce_mean` rebinds the
-  gradients as views of its bucket and a gloo all-reduce cannot be
-  captured. The scan's chunking (``capped_chunk``) is not ported: a graph
-  replays one step.
+* One dispatch a step, as JAX's jitted ``make_dp_train_step`` and its
+  ``make_dp_fused_chunk``: on CUDA the train loop replays the DP step from
+  CUDA graphs (``training.make_graphed_train_step(..., group=...)``), an
+  in-step source's sampling inside (rank r draws its ``batch / world``
+  rows of batch i from ``shard_generator(seed + salt, i, r, world)``'s
+  seed, ``train.InStepBatches.sample_at``). The step is two graphs
+  around one eager all-reduce, under NCCL and gloo alike (gloo's cannot
+  be captured; NCCL's stays outside the graph until a multi-card run
+  shows it reduces there and gains). The graphs read the
+  gradients in place, which is why the bucket is persistent: the
+  gradients are bound to it once and never rebound. The scan's chunking
+  (``capped_chunk``) is not ported: a graph replays one step.
 * Serving (:func:`make_dp_extract`) is row-parallel with no collective: one
   process, a frozen replica per device, each device given an equal slab of
-  the padded request.
+  the padded request, each (device, bucket) replayed from one CUDA graph
+  (``export.GraphedBucket``).
 """
 
 from __future__ import annotations
@@ -41,7 +45,8 @@ import torch
 import torch.distributed as dist
 
 from keypoints_tpu_torch.configs import Config
-from keypoints_tpu_torch.export import BucketedExtract, bundle_meta
+from keypoints_tpu_torch.export import (BucketedExtract, GraphedBucket,
+                                        bundle_meta)
 from keypoints_tpu_torch.training import (build_model, freeze_for_inference,
                                           make_extract_fn, make_train_step,
                                           step_seed)
@@ -96,30 +101,67 @@ def shard_batch(batch, rank: int, world: int):
     return batch[rank * n // world:(rank + 1) * n // world]
 
 
-def all_reduce_mean(params: Sequence[torch.Tensor], loss: torch.Tensor,
-                    group) -> torch.Tensor:
-    """Average the parameters' gradients and ``loss`` over ``group`` in one
-    all-reduce; → the averaged loss.
+class GradBucket:
+    """The gradients of a model's parameters and the step's loss, in one
+    flat float32 buffer that lives as long as the model: DDP's
+    ``gradient_as_bucket_view``, written out.
 
-    The gradients and the loss go into one flat float32 bucket on the
-    current stream (the stream the collective orders itself after), are
-    summed and divided by the world size (gloo has no average), and each
-    ``.grad`` becomes its slice of the bucket. A parameter without a
-    gradient goes in as zeros, so every rank reduces the same layout, and
-    keeps ``None``: one graph gives every rank the same set.
+    Made from the gradients of a first backward: the parameters that got a
+    gradient are the bucket's, in parameter order, their values copied in
+    and each ``.grad`` rebound once as its view of the buffer; the last
+    slot holds the loss. Every later backward accumulates into the views in
+    place (autograd adds into an existing ``.grad``), so no tensor is
+    rebound again and a CUDA graph may read and write them. A parameter
+    that got no gradient keeps ``.grad = None``. Every rank takes the same
+    set, since one model's graph gives every rank the same one.
+
+    :meth:`reduce_mean` is :meth:`put_loss`, :meth:`all_reduce` and
+    :meth:`mean`: the graphed step runs the three apart, the middle one
+    eagerly between two CUDA graphs.
     """
-    params = list(params)
-    bucket = torch.cat([
-        (p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
-        for p in params] + [loss.detach().reshape(1).float()])
-    dist.all_reduce(bucket, op=dist.ReduceOp.SUM, group=group)
-    bucket.div_(dist.get_world_size(group))
-    offset = 0
-    for p in params:
-        if p.grad is not None:
-            p.grad = bucket[offset:offset + p.numel()].view_as(p)
-        offset += p.numel()
-    return bucket[-1]
+
+    def __init__(self, params: Sequence[torch.Tensor]):
+        self.params = [p for p in params if p.grad is not None]
+        if not self.params:
+            raise ValueError("no parameter has a gradient: run a backward "
+                             "before making the bucket")
+        bad = [p.grad.dtype for p in self.params
+               if p.grad.dtype != torch.float32]
+        if bad:
+            raise ValueError(f"the bucket holds float32 gradients, got {bad}")
+        loss = torch.zeros(1, device=self.params[0].grad.device)
+        self.flat = torch.cat([p.grad.reshape(-1) for p in self.params]
+                              + [loss])
+        offset = 0
+        for p in self.params:
+            p.grad = self.flat[offset:offset + p.numel()].view_as(p)
+            offset += p.numel()
+
+    def zero_(self) -> None:
+        """Zero every gradient and the loss: one fill of the buffer."""
+        self.flat.zero_()
+
+    def put_loss(self, loss: torch.Tensor) -> None:
+        """Copy this rank's ``loss`` into the last slot."""
+        self.flat[-1:].copy_(loss.detach().reshape(1))
+
+    def all_reduce(self, group) -> None:
+        """Sum the buffer over ``group``, in place, on the current stream."""
+        dist.all_reduce(self.flat, op=dist.ReduceOp.SUM, group=group)
+
+    def mean(self, group) -> torch.Tensor:
+        """Divide the summed buffer by the world size (gloo has no
+        average); → the averaged loss, a tensor of its own (the buffer is
+        zeroed by the next step)."""
+        self.flat.div_(dist.get_world_size(group))
+        return self.flat[-1].clone()
+
+    def reduce_mean(self, loss: torch.Tensor, group) -> torch.Tensor:
+        """Average the gradients and ``loss`` over ``group`` in one
+        all-reduce; → the averaged loss."""
+        self.put_loss(loss)
+        self.all_reduce(group)
+        return self.mean(group)
 
 
 def make_dp_train_step(cfg: Config, group,
@@ -150,12 +192,16 @@ def make_dp_extract(cfg: Config, state_dict: dict | None,
 
     One model per device (``state_dict`` as ``checkpoint.load_model_state``
     takes it; None keeps the seeded random init), frozen for inference. A
-    bucket is split into one equal slab per device; each slab is uploaded,
-    rescaled from uint8 on its device when ``input_dtype`` is uint8, and
-    run through Ψ and the soft-argmax on that device's current stream, all
-    slabs queued before the first result is read back; the rows come back
-    in order. Every bucket must divide by the device count (each device
-    gets a fixed slab).
+    bucket is split into one equal slab per device; each slab runs Ψ and
+    the soft-argmax on its device (rescaled from uint8 there first when
+    ``input_dtype`` is uint8), all slabs queued before the first result is
+    read back; the rows come back in order. On a CUDA device each (device,
+    bucket) is one ``export.GraphedBucket``: the slab is copied from the
+    array straight into the graph's static input and one CUDA graph
+    replayed, as JAX compiles one program
+    a bucket; the device's buckets share one memory pool. On the CPU the
+    slab runs eagerly. Every bucket must divide by the device count (each
+    device gets a fixed slab).
     """
     from keypoints_tpu_torch.checkpoint import load_model_state
 
@@ -172,26 +218,41 @@ def make_dp_extract(cfg: Config, state_dict: dict | None,
     if input_dtype not in ("float32", "uint8"):
         raise ValueError(f"input_dtype must be float32|uint8, "
                          f"got {input_dtype!r}")
-    replicas = []
+    d = cfg.data
+    item = (d.channels, d.image_size, d.image_size)
+    pools: dict = {}
+    enqueues: dict[int, list[Callable]] = {b: [] for b in sizes}
     for device in devices:
         model = build_model(cfg, device)
         if state_dict is not None:
             load_model_state(model, state_dict)
-        replicas.append((device, make_extract_fn(freeze_for_inference(model))))
+        extract = make_extract_fn(freeze_for_inference(model))
 
-    def fn(images: np.ndarray) -> np.ndarray:
-        outs = []
-        for (device, extract), slab in zip(replicas,
-                                           np.split(images, n_dev)):
-            x = torch.from_numpy(slab).to(device)
+        def run(x: torch.Tensor, extract=extract) -> torch.Tensor:
             if x.dtype == torch.uint8:
                 x = x.float() / 255.0
-            outs.append(extract(x))
-        return np.concatenate([kp.cpu().numpy() for kp in outs])
+            return extract(x)
+
+        for b in sizes:
+            if device.type == "cuda":
+                enqueues[b].append(GraphedBucket(
+                    run, b // n_dev, item, input_dtype, device,
+                    pools).enqueue)
+            else:
+                enqueues[b].append(
+                    lambda slab, run=run: run(torch.from_numpy(slab)))
+
+    def bucket_fn(slab_fns: list[Callable]) -> Callable:
+        def fn(images: np.ndarray) -> np.ndarray:
+            outs = [enqueue(slab) for enqueue, slab in
+                    zip(slab_fns, np.split(images, n_dev))]
+            return np.concatenate([kp.cpu().numpy() for kp in outs])
+        return fn
 
     meta = {**bundle_meta(cfg, sizes, input_dtype),
             "data_parallel_devices": n_dev}
-    return BucketedExtract({b: fn for b in sizes}, meta)
+    return BucketedExtract({b: bucket_fn(fns) for b, fns in enqueues.items()},
+                           meta)
 
 
 # --- a multi-process dry run (``__graft_entry__.dryrun_multichip``) ----------

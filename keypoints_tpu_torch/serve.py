@@ -12,6 +12,9 @@ visible card), each taking an equal slab of every padded bucket;
 ``make_live_extract`` is its one-device case. With ``--artifact`` it serves
 an exported extractor (``keypoints_tpu_torch.export``: a single ``.pt2`` or
 a bucket bundle) on the device it was exported for, in the dtype it takes.
+On CUDA, both serve each bucket from one CUDA graph a device
+(``export.GraphedBucket``), captured at warm-up, as JAX compiles one
+program a bucket at its warm-up.
 
     # serve celeba128 on the GPU from a state dict (keypoints-convert export-torch)
     python -m keypoints_tpu_torch.serve --preset celeba128 --checkpoint kp.pt
@@ -276,8 +279,8 @@ def make_live_extract(cfg: Config, state_dict: dict | None,
     init), and the conv weights are cast to the compute dtype once
     (``training.freeze_for_inference``). Each bucket's function uploads the
     padded request host→device, rescales uint8 /255 on the device, runs Ψ
-    and the soft-argmax, and returns the (n, K, 2) keypoints as a numpy
-    array.
+    and the soft-argmax (on CUDA as one CUDA graph replay), and returns the
+    (n, K, 2) keypoints as a numpy array.
     """
     return make_dp_extract(cfg, state_dict, batches, [device], input_dtype)
 
@@ -368,7 +371,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-warmup", action="store_true",
                    help="skip running every bucket once before accepting "
                         "traffic (the first request per bucket then pays "
-                        "the kernel build and cuDNN set-up)")
+                        "the kernel build, cuDNN set-up and the CUDA graph "
+                        "capture)")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (an artifact's own "
                         "device); only an explicit --device cpu runs on the "
@@ -389,14 +393,17 @@ def make_server(args: argparse.Namespace):
     max_batch, meta = extract.max_batch, extract.meta
     want_dtype = np.dtype(meta["input_dtype"])
     if not args.no_warmup:
-        # run every bucket up front: the first launch builds the kernel
-        # library and sets up cuDNN, which would stall the first request
-        # (and everything queued behind it)
+        # run every bucket up front: the first call builds the kernel
+        # library, sets up cuDNN and captures the bucket's CUDA graphs,
+        # which would stall the first request (and everything queued
+        # behind it)
+        what = ("warmed and captured" if torch.device(args.device).type
+                == "cuda" else "warmed")
         for b in meta["batches"]:
             t0 = time.monotonic()
             extract(np.zeros((b, meta["channels"], meta["image_size"],
                               meta["image_size"]), want_dtype))
-            print(f"warmed bucket b{b} in {time.monotonic() - t0:.1f}s",
+            print(f"{what} bucket b{b} in {time.monotonic() - t0:.1f}s",
                   flush=True)
     batcher = BatchingExtractor(
         extract, max_batch, args.max_delay_ms,

@@ -15,14 +15,16 @@ resume from the newest checkpoint.
   function of ``(seed, i)`` too. The train step's own draws are a function
   of ``(seed, step)``, so a resumed run continues the uninterrupted run's
   trajectory bit for bit.
-* One dispatch a step, as JAX's jitted step (``run_chunk``): on CUDA the
-  single-process step is one CUDA graph, captured after the first step and
-  replayed every step after it (``training.make_graphed_train_step``); an
-  in-step source's sampling is inside the graph, a streamed batch is
-  copied into the graph's input. The CPU (``--device cpu``) and data
-  parallelism (whose gloo or NCCL all-reduce rebinds the gradients) take
-  the eager step. A failed capture raises; nothing falls back to the
-  eager step on CUDA.
+* One dispatch a step, as JAX's jitted step (``run_chunk``) and its
+  data-parallel forms (``make_dp_train_step``, ``make_dp_fused_chunk``):
+  on CUDA the step is captured after the first step, which runs eagerly,
+  and replayed every step after it (``training.make_graphed_train_step``);
+  an in-step source's sampling is inside the graph, a streamed batch is
+  copied into the graph's input. A single process replays one graph a
+  step; a process group (NCCL, or gloo for ranks sharing one card)
+  replays two graphs around one eager all-reduce. The CPU (``--device
+  cpu``) takes the eager step. A failed capture raises; nothing falls
+  back to the eager step on CUDA.
 * The step counter lives on the host, and the metrics are read (a device
   sync) only at ``log_every``. Eval, viz, the checks and the saves run
   eagerly between steps, on the parameters the graph updates in place.
@@ -532,11 +534,12 @@ def _train(cfg: Config, logdir: str | None, dry_run: bool,
     batches = make_batch_iterator(cfg, start_step=state.step, device=device)
     in_step = isinstance(batches, InStepBatches)
     # one dispatch a step: JAX's jitted step and fused in-step chunk
-    graphed = device.type == "cuda" and not dp
+    graphed = device.type == "cuda"
     if graphed:
         step_fn = make_graphed_train_step(
-            cfg, state, source=batches if in_step else None, loss=loss)
-        dispatch = "1 step/CUDA graph replay (captured after step 1)"
+            cfg, state, source=batches if in_step else None, loss=loss,
+            group=dist.group.WORLD if dp else None)
+        dispatch = f"{step_fn.dispatch} (captured after step 1)"
     else:
         step_fn = (make_train_step(cfg, loss=loss, group=dist.group.WORLD)
                    if dp else make_train_step(cfg, loss=loss))
@@ -591,7 +594,9 @@ def _train(cfg: Config, logdir: str | None, dry_run: bool,
             mid_step = False
             if graphed and not announced:
                 announced = True
-                print(f"train step captured as one CUDA graph after step "
+                graphs = ("two CUDA graphs around an eager all-reduce"
+                          if step_fn.split else "one CUDA graph")
+                print(f"{tag}train step captured as {graphs} after step "
                       f"{step} ({step_fn.capture_seconds:.2f}s, "
                       f"{step_fn.pool_bytes / 2 ** 20:.0f} MiB reserved); "
                       f"each later step replays it", flush=True)

@@ -18,14 +18,18 @@ conv weights to the compute dtype once, for serving.
 Transporter trains through the temporal mode of the same step.
 
 The train step (:class:`TrainStep`) is augmentation (in warp mode) → Φ/Ψ
-→ soft-argmax → raster → decoder → L2 → backward → Adam, each on the
-device of the batch, in two parts: the host's (the step's seed, rate and
-anneal) and the device's. The step's metrics stay on the device; the step
-never waits for it. Eagerly it dispatches one aten op or kernel launch at
-a time. :func:`make_graphed_train_step` captures the device's part once as
-a CUDA graph and replays it every step, which is how the train loop runs
-on CUDA: JAX's jitted step (``jax.jit(make_train_step)``, ``run_chunk``),
-bit for bit the eager step's result.
+→ soft-argmax → raster → decoder → L2 → backward → (under data
+parallelism, the gradients' all-reduce) → Adam, each on the device of the
+batch, in two parts: the host's (the step's seed, rate and anneal) and the
+device's, which is split again at the all-reduce. The step's metrics stay
+on the device; the step never waits for it. Eagerly it dispatches one aten
+op or kernel launch at a time. :func:`make_graphed_train_step` captures
+the device's part once and replays it every step, which is how the train
+loop runs on CUDA, single-process and data-parallel alike: JAX's jitted
+step (``jax.jit(make_train_step)``, ``run_chunk``, ``make_dp_train_step``,
+``make_dp_fused_chunk``), bit for bit the eager step's result. Without a
+group that is one graph a step; under a group (NCCL or gloo) it is two
+graphs around one eager all-reduce.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from keypoints_tpu_torch.configs import Config
@@ -170,10 +175,13 @@ class TrainState:
     """The model (float32 parameters), its optimizer and the count of
     updates taken. The step's random draws are a function of
     ``cfg.train.seed`` and this count (:func:`step_seed`), as JAX folds
-    the step into its key. The count lives on the host."""
+    the step into its key. The count lives on the host. ``bucket`` is the
+    data-parallel step's ``parallel.dp.GradBucket`` of the model's
+    gradients, made at its first all-reduce (None otherwise)."""
     model: KeypointModel
     optimizer: torch.optim.Optimizer
     step: int = 0
+    bucket: Optional[object] = None
 
 
 def init_state(cfg: Config, device: torch.device | str = "cuda"
@@ -250,11 +258,13 @@ class TrainStep:
     device, which then draws what a fresh :func:`step_generator` of the
     same seed draws), fills the diversity anneal's ``lam_scale`` (a 0-dim
     tensor on the model's device) and sets the rate
-    (:func:`set_learning_rate`). :meth:`compute` is the device's part: the
-    draws and the pair, forward, backward, the gradient norm and the
-    update; it reads nothing from the host that :meth:`prepare` did not
-    set and changes no host state. ``step(state, batch, draws=None)`` runs
-    both and counts the step.
+    (:func:`set_learning_rate`). :meth:`compute` is the device's part,
+    :meth:`compute_grads` (the draws and the pair, forward, backward),
+    :meth:`reduce` (under a group, the all-reduce) and :meth:`apply` (the
+    gradient norm and the update); it reads nothing from the host that
+    :meth:`prepare` did not set and changes no host state beyond making
+    the state's gradient bucket once. ``step(state, batch, draws=None)``
+    runs both and counts the step.
     """
 
     def __init__(self, cfg: Config, loss: Optional[Callable] = None,
@@ -277,7 +287,6 @@ class TrainStep:
         self.group = group
         self.rank, self.world = 0, 1
         if group is not None:
-            import torch.distributed as dist
             self.rank = dist.get_rank(group)
             self.world = dist.get_world_size(group)
         #: the warp draws' generator; the anneal's scale
@@ -305,6 +314,14 @@ class TrainStep:
         """The device's part of a step on ``batch``: → ``{"loss",
         "grad_norm"}`` as device tensors. Nothing here waits for the
         device."""
+        value = self.compute_grads(state, batch, draws)
+        return self.apply(state, self.reduce(state, value))
+
+    def compute_grads(self, state: TrainState, batch,
+                      draws: Optional[PairDraws] = None) -> torch.Tensor:
+        """The draws and the pair, forward and backward: → this rank's loss.
+        The gradients go into fresh ``.grad`` tensors, or, once the state
+        has a gradient bucket, into its views, zeroed first."""
         model, opt, accum = state.model, state.optimizer, self.accum
         lam_scale = self.lam_scale if self.div_anneal else 1.0
         if self.warp_mode:
@@ -316,7 +333,10 @@ class TrainStep:
             src, tgt = pair_from_draws(batch, draws, self.wcfg)
         else:
             src, tgt = batch
-        opt.zero_grad(set_to_none=True)
+        if state.bucket is not None:
+            state.bucket.zero_()
+        else:
+            opt.zero_grad(set_to_none=True)
         if accum > 1:
             if src.shape[0] % accum != 0:
                 raise ValueError(f"per-step batch {src.shape[0]} is not "
@@ -330,16 +350,29 @@ class TrainStep:
             for p in model.parameters():
                 if p.grad is not None:
                     p.grad.div_(accum)
-        else:
-            value, _ = self.loss_fn(model, src, tgt, lam_scale)
-            value.backward()
-            value = value.detach()
-        if self.group is not None:
-            from keypoints_tpu_torch.parallel.dp import all_reduce_mean
-            value = all_reduce_mean(model.parameters(), value, self.group)
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
+            return value
+        value, _ = self.loss_fn(model, src, tgt, lam_scale)
+        value.backward()
+        return value.detach()
+
+    def reduce(self, state: TrainState, value: torch.Tensor) -> torch.Tensor:
+        """Under a group, the gradients and ``value`` averaged across it
+        (``parallel.dp.GradBucket.reduce_mean``; the state's bucket is made
+        from this first backward's gradients) → the averaged loss;
+        ``value`` itself without a group."""
+        if self.group is None:
+            return value
+        if state.bucket is None:
+            from keypoints_tpu_torch.parallel.dp import GradBucket
+            state.bucket = GradBucket(state.model.parameters())
+        return state.bucket.reduce_mean(value, self.group)
+
+    def apply(self, state: TrainState, value: torch.Tensor) -> dict:
+        """The gradient norm and the optimizer's update: → the metrics."""
+        grads = [p.grad for p in state.model.parameters()
+                 if p.grad is not None]
         grad_norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
-        opt.step()
+        state.optimizer.step()
         return {"loss": value, "grad_norm": grad_norm}
 
     def __call__(self, state: TrainState, batch,
@@ -370,16 +403,18 @@ def make_train_step(cfg: Config, loss: Optional[Callable] = None,
     is this rank's rows, the warp draws are the rank's own (``step_seed``
     of the rank, as ``parallel.dp.shard_generator`` draws), and after the
     last micro-batch's backward the gradients and the loss are averaged
-    across the group (``parallel.dp.all_reduce_mean``), as JAX's
-    ``axis_name`` does; ``grad_norm`` is taken on the averaged gradients.
-    Micro-batches stay per rank. ``group=None`` is the single-process step.
+    across the group in the state's persistent bucket
+    (``parallel.dp.GradBucket``), as JAX's ``axis_name`` does;
+    ``grad_norm`` is taken on the averaged gradients. Micro-batches stay
+    per rank. ``group=None`` is the single-process step.
     """
     return TrainStep(cfg, loss, group)
 
 
 class CaptureError(RuntimeError):
-    """The capture of the train step's CUDA graph failed. Nothing falls
-    back to the eager step."""
+    """A CUDA graph capture (of the train step, or of a serving bucket,
+    ``export.GraphedBucket``) failed. Nothing falls back to eager
+    dispatch."""
 
 
 def _batch_like(batch):
@@ -400,27 +435,37 @@ def _copy_batch(dst, src) -> None:
 
 
 class GraphedTrainStep:
-    """The train step as one CUDA graph a step (:func:`make_graphed_train_step`).
+    """The train step replayed from CUDA graphs (:func:`make_graphed_train_step`).
 
     The first call takes a real step eagerly (it builds Adam's state, the
-    TPS constants, the kernels' library and cuDNN's plans) and then
-    captures one more step's device work (:meth:`TrainStep.compute`, with
-    the in-step ``source``'s sampling in front of it) on a side stream.
+    TPS constants, the kernels' library, cuDNN's plans and, under a group,
+    the gradient bucket and NCCL's communicator) and then captures one
+    more step's device work (:meth:`TrainStep.compute`, with the in-step
+    ``source``'s sampling in front of it) on a side stream, into one
+    memory pool. Without a group that is one graph. Under a group it is
+    two: :meth:`TrainStep.compute_grads` with the loss put into the
+    bucket, then the bucket's mean and :meth:`TrainStep.apply`; every
+    replay runs the all-reduce eagerly between them (gloo's cannot be
+    captured; NCCL's takes the same path, which is held bit for bit on the
+    card, until a multi-card run shows an all-reduce inside the graph
+    reduces and gains). Every rank captures at its first call, so the
+    ranks' collectives keep one order.
+
     The capture runs nothing: ``state.step`` and the parameters stay as the
     eager step left them, and only the kernels' launch counters see it.
     Every later call does the host's part (:meth:`TrainStep.prepare`: the
     warp draws' seed, the rate, the anneal), reseeds the source's
     generator or copies the streamed ``batch`` into the captured input,
-    replays the graph and counts the step. The graph reads the
-    parameters, their gradients, Adam's state, the rate tensor and the
-    registered generators in place: nothing may rebind one of them after
-    the capture (``load_state_dict`` into the model copies in place;
-    restore before the first call). ``metrics`` are the graph's own
-    tensors, overwritten by each replay.
+    replays and counts the step. The graphs read the parameters, their
+    gradients (under a group, the bucket's views), Adam's state, the rate
+    tensor and the registered generators in place: nothing may rebind one
+    of them after the capture (``load_state_dict`` into the model copies
+    in place; restore before the first call). ``metrics`` are the graph's
+    own tensors, overwritten by each replay.
     """
 
     def __init__(self, cfg: Config, state: TrainState, source=None,
-                 loss: Optional[Callable] = None):
+                 loss: Optional[Callable] = None, group=None):
         device = _device_of(state.model)
         if device.type != "cuda":
             raise ValueError(f"a CUDA graph of the train step needs the "
@@ -432,13 +477,24 @@ class GraphedTrainStep:
                              "on CUDA parameters)")
         self.state = state
         self.source = source
-        self.step = make_train_step(cfg, loss)
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.group = group
+        self.step = make_train_step(cfg, loss, group=group)
+        #: two graphs around an eager all-reduce (under a group) or one
+        self.split = group is not None
+        self.graphs: list[torch.cuda.CUDAGraph] = []
         self.inputs = None            # a streamed source's captured batch
         self.metrics: Optional[dict] = None
         #: host seconds of the capture, and the bytes it reserved
         self.capture_seconds: Optional[float] = None
         self.pool_bytes: Optional[int] = None
+
+    @property
+    def dispatch(self) -> str:
+        """How a step is dispatched, for the train loop's lines."""
+        if self.split:
+            return (f"2 CUDA graphs/step around an eager "
+                    f"{dist.get_backend(self.group)} all-reduce")
+        return "1 step/CUDA graph replay"
 
     def __call__(self, state: TrainState, batch=None):
         if state is not self.state:
@@ -447,7 +503,7 @@ class GraphedTrainStep:
         if (batch is None) != (self.source is not None):
             raise ValueError("pass a batch exactly when the graph has no "
                              "in-step source")
-        if self.graph is None:
+        if not self.graphs:
             if self.source is not None:
                 batch = self.source.sample_at(state.step)
             state, metrics = self.step(state, batch)
@@ -458,7 +514,10 @@ class GraphedTrainStep:
             self.source.generator_at(state.step)
         else:
             _copy_batch(self.inputs, batch)
-        self.graph.replay()
+        self.graphs[0].replay()
+        if self.split:
+            state.bucket.all_reduce(self.group)
+            self.graphs[1].replay()
         state.step += 1
         return state, self.metrics
 
@@ -472,40 +531,56 @@ class GraphedTrainStep:
             generators.append(source_gen)
         else:
             self.inputs = _batch_like(batch)
-        graph = torch.cuda.CUDAGraph()
-        for gen in generators:
-            graph.register_generator_state(gen)
+
+        def grads():
+            inputs = (source.sample(source_gen, source.batch)
+                      if source is not None else self.inputs)
+            return step.compute_grads(state, inputs)
+
+        if self.split:
+            parts = [(lambda: state.bucket.put_loss(grads()), generators),
+                     (lambda: step.apply(state, state.bucket.mean(
+                         self.group)), [])]
+        else:
+            parts = [(lambda: step.apply(state, grads()), generators)]
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(device)
+        pool = torch.cuda.graph_pool_handle()
         stream = torch.cuda.Stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         t0 = time.perf_counter()
-        # thread_local: a streamed source's reader threads keep copying to
-        # the card while this thread captures
-        try:
-            with torch.cuda.graph(graph, stream=stream,
-                                  capture_error_mode="thread_local"):
-                inputs = (source.sample(source_gen, source.batch)
-                          if source is not None else self.inputs)
-                self.metrics = step.compute(state, inputs)
-        except RuntimeError as e:
-            raise CaptureError(f"the CUDA graph capture of the train step "
-                               f"failed: {e}") from e
+        graphs = []
+        for fn, gens in parts:
+            graph = torch.cuda.CUDAGraph()
+            for gen in gens:
+                graph.register_generator_state(gen)
+            # thread_local: a streamed source's reader threads keep copying
+            # to the card, and c10d's watchdog queries its events, while
+            # this thread captures
+            try:
+                with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    self.metrics = fn()
+            except RuntimeError as e:
+                raise CaptureError(f"the CUDA graph capture of the train "
+                                   f"step failed: {e}") from e
+            graphs.append(graph)
         torch.cuda.current_stream(device).wait_stream(stream)
         self.capture_seconds = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
-        self.graph = graph
+        self.graphs = graphs
 
 
 def make_graphed_train_step(cfg: Config, state: TrainState, source=None,
-                            loss: Optional[Callable] = None
+                            loss: Optional[Callable] = None, group=None
                             ) -> GraphedTrainStep:
-    """→ step(state, batch=None) -> (state, metrics): the single-process
-    train step of ``state`` (on CUDA) replayed from one CUDA graph a step,
-    the counterpart of JAX's jitted step and its fused in-step chunk
-    (``keypoints_tpu/train.py`` ``run_chunk``). It computes what
-    :func:`make_train_step` computes, bit for bit.
+    """→ step(state, batch=None) -> (state, metrics): the train step of
+    ``state`` (on CUDA) replayed from CUDA graphs, the counterpart of JAX's
+    jitted step and its fused in-step chunk (``keypoints_tpu/train.py``
+    ``run_chunk``; with a process ``group``, ``parallel/dp.py``
+    ``make_dp_train_step`` and ``make_dp_fused_chunk``). It computes what
+    :func:`make_train_step` with the same ``group`` computes, bit for bit.
 
     ``source`` is an in-step batch source (``train.InStepBatches``: its
     ``generator_at(step)``, ``sample(generator, n)`` and ``batch``); its
@@ -514,7 +589,7 @@ def make_graphed_train_step(cfg: Config, state: TrainState, source=None,
     graph's input. See :class:`GraphedTrainStep`; a failed capture raises
     :class:`CaptureError`.
     """
-    return GraphedTrainStep(cfg, state, source, loss)
+    return GraphedTrainStep(cfg, state, source, loss, group)
 
 
 def make_extract_fn(model: KeypointModel) -> Callable:

@@ -7,12 +7,18 @@ step: they must draw exactly what the fresh generators of
 the warp draws and for the in-step sources. The refactored eager step is
 held to the committed JAX references (no JAX needed: the references are
 files). The ``cuda`` tests hold a small config's graphed step to its eager
-step bit for bit, for both pair modes and a streamed source; they skip
-here and run on the card with ``--noconftest``.
+step bit for bit, for both pair modes and a streamed source, and the
+data-parallel step's graphs to the eager DP step: one NCCL rank in this
+process and two gloo ranks on the card in subprocesses, each two graphs
+around an eager all-reduce; they skip here and
+run on the card with ``--noconftest``.
 """
 
 import itertools
 import json
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -36,6 +42,7 @@ from keypoints_tpu_torch.training import (TrainStep, init_state,
                                           warp_config)
 
 DATA = Path(__file__).parent / "data"
+ROOT = Path(__file__).resolve().parent.parent
 SMALL = {"model.encoder_filters": (8, 16), "model.encoder_strides": (2, 2),
          "model.decoder_filters": (16, 8),
          "model.decoder_upsample": (True, True), "model.groups": 4,
@@ -309,5 +316,140 @@ def test_graphed_step_equals_the_eager_step_bit_for_bit(case, cuda,
                         else graph_step(graphed, next(stream)))
         assert torch.equal(want["loss"], got["loss"]), i
         assert torch.equal(want["grad_norm"], got["grad_norm"]), i
-    assert graph_step.graph is not None
+    assert len(graph_step.graphs) == 1
     _states_equal(eager, graphed)
+
+
+def _run_steps(state, fn, n):
+    """``n`` calls of ``fn`` → each step's metrics, cloned."""
+    out = []
+    for _ in range(n):
+        state, m = fn(state)
+        out.append({k: v.clone() for k, v in m.items()})
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["warp", "temporal"])
+def test_graphed_dp_step_equals_the_eager_dp_step_bit_for_bit(case, cuda,
+                                                              tmp_path):
+    """A one-rank NCCL group: 1 eager + 4 replayed DP steps, two graphs
+    around the eager all-reduce, equal 5 eager DP steps and 5 graphed
+    single-process steps: every parameter, Adam's state and each step's
+    metrics."""
+    import torch.distributed as dist
+    cfg = _small("celeba128" if case == "warp" else "pong64",
+                 **{"data.dataset": ("synthetic_dots" if case == "warp"
+                                     else "synthetic_pong")})
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        group = dist.group.WORLD
+        sources = [train_mod.make_batch_iterator(cfg, device="cuda")
+                   for _ in range(3)]
+        states = [init_state(cfg, "cuda") for _ in range(3)]
+        eager = make_train_step(cfg, group=group)
+        dp_graph = make_graphed_train_step(cfg, states[1], source=sources[1],
+                                           group=group)
+        bare_graph = make_graphed_train_step(cfg, states[2],
+                                             source=sources[2])
+        runs = [_run_steps(states[0], lambda st: eager(
+                    st, sources[0].sample_at(st.step)), 5),
+                _run_steps(states[1], dp_graph, 5),
+                _run_steps(states[2], bare_graph, 5)]
+        assert len(dp_graph.graphs) == 2 and len(bare_graph.graphs) == 1
+        assert "around an eager nccl all-reduce" in dp_graph.dispatch
+        for other, state in zip(runs[1:], states[1:]):
+            for want, got in zip(runs[0], other):
+                assert all(torch.equal(want[k], got[k]) for k in want)
+            _states_equal(states[0], state)
+        assert states[1].bucket is not None and states[2].bucket is None
+    finally:
+        dist.destroy_process_group()
+
+
+GLOO_RANK = r'''
+import sys
+import torch
+import torch.distributed as dist
+rank, out = int(sys.argv[1]), sys.argv[2]
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+dist.init_process_group("gloo", init_method="file://" + out + "/store",
+                        rank=rank, world_size=2)
+from keypoints_tpu_torch import train as train_mod
+from keypoints_tpu_torch.configs import get_config
+from keypoints_tpu_torch.parallel import dp
+from keypoints_tpu_torch.training import (init_state, make_graphed_train_step,
+                                          make_train_step)
+cfg = get_config("pong64").override(**__SMALL__)
+res = {}
+for kind in ("eager", "graph"):
+    source = train_mod.make_batch_iterator(cfg, device="cuda")
+    state = init_state(cfg, "cuda")
+    dp.replicate(state.model, state.optimizer)
+    if kind == "graph":
+        step = make_graphed_train_step(cfg, state, source=source,
+                                       group=dist.group.WORLD)
+        fn = step
+    else:
+        step = make_train_step(cfg, group=dist.group.WORLD)
+        fn = lambda st: step(st, source.sample_at(st.step))
+    metrics = []
+    for _ in range(5):
+        state, m = fn(state)
+        metrics.append({k: v.cpu() for k, v in m.items()})
+    if kind == "graph":
+        res["graphs"], res["dispatch"] = len(step.graphs), step.dispatch
+    res[kind] = {"metrics": metrics,
+                 "model": {k: v.cpu() for k, v in
+                           state.model.state_dict().items()},
+                 "adam": {i: {k: v.cpu() for k, v in s.items()} for i, s in
+                          state.optimizer.state_dict()["state"].items()}}
+torch.save(res, out + "/" + str(rank) + ".pt")
+dist.destroy_process_group()
+'''
+
+
+def _nested_equal(a, b, what=""):
+    if isinstance(a, torch.Tensor):
+        assert torch.equal(a, b), what
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys(), what
+        for k in a:
+            _nested_equal(a[k], b[k], f"{what}.{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), what
+        for i, (x, y) in enumerate(zip(a, b)):
+            _nested_equal(x, y, f"{what}[{i}]")
+    else:
+        assert a == b, what
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_graphed_equal_two_eager_gloo_ranks(cuda, tmp_path):
+    """Two gloo ranks sharing the card, each 1 eager + 4 replays of two
+    graphs around the eager all-reduce against 5 eager DP steps: equal
+    bits in every parameter, Adam moment and metric, and the ranks
+    equal."""
+    script = tmp_path / "rank.py"
+    script.write_text(GLOO_RANK.replace("__SMALL__", repr(
+        {**SMALL, "data.dataset": "synthetic_pong"})))
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    procs = [subprocess.Popen([sys.executable, str(script), str(r),
+                               str(tmp_path)], cwd=tmp_path, env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r}:\n{log[-4000:]}"
+    ranks = [torch.load(tmp_path / f"{r}.pt", weights_only=False)
+             for r in range(2)]
+    for res in ranks:
+        assert res["graphs"] == 2
+        assert res["dispatch"] == ("2 CUDA graphs/step around an eager "
+                                   "gloo all-reduce")
+        _nested_equal(res["eager"], res["graph"], "graph vs eager")
+    _nested_equal(ranks[0]["graph"], ranks[1]["graph"], "rank 1 vs rank 0")

@@ -1089,12 +1089,27 @@ def test_k1_op_on_cuda_is_the_kernel_and_passes_opcheck(cuda, variant, align):
 
 
 @pytest.mark.parametrize("input_dtype", ["float32", "uint8"])
-def test_cuda_artifact_equals_the_live_extract(cuda, input_dtype):
+def test_cuda_artifact_equals_the_live_extract(cuda, input_dtype,
+                                              monkeypatch):
     """A bundle exported on the card holds K1 as one op node a bucket;
-    each bucket call launches K1 once and answers as the live extract at
-    the same bucket, bit for bit; it refuses to load for the CPU."""
+    each bucket answers as the live extract at the same bucket, bit for
+    bit, its first call eagerly then from its CUDA graph; the wrapper sees
+    the first call's launch and the capture's (2), a replay none (it calls
+    no wrapper), so the profiler counts the replay's one K1 launch, and the
+    replay's answer equals the eager module's on the same images; it
+    refuses to load for the CPU."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
     from keypoints_tpu_torch import export
     from keypoints_tpu_torch.serve import make_live_extract
+    made = []
+
+    class Recorded(export.GraphedBucket):
+        def __init__(self, *args):
+            super().__init__(*args)
+            made.append(self)
+
+    monkeypatch.setattr(export, "GraphedBucket", Recorded)
     cfg = get_config("celeba128").override(**{
         "model.encoder_filters": (8, 16), "model.encoder_strides": (2, 2),
         "model.groups": 4, "data.image_size": 32})
@@ -1102,11 +1117,27 @@ def test_cuda_artifact_equals_the_live_extract(cuda, input_dtype):
     ext = export.load_extract(data)
     live = make_live_extract(cfg, None, [1, 4], cuda, input_dtype)
     rs = np.random.RandomState(6)
-    for n in (1, 3, 4):
+    for n, counted in ((1, 2), (3, 2), (4, 0)):
         x = (rs.rand(n, 3, 32, 32) * 255).astype(np.uint8)
         before = ssc.launches
         got = ext(x)
-        assert ssc.launches == before + 1
+        assert ssc.launches == before + counted
         assert np.array_equal(got, live(x))
+    assert len(made) == 2 and all(g.graph is not None for g in made)
+    x = (rs.rand(4, 3, 32, 32) * 255).astype(np.uint8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # spins at both edges: a kernel at a trace's very edge can be missed
+        torch.cuda._sleep(20_000_000)
+        got = ext(x)
+        torch.cuda._sleep(20_000_000)
+        torch.cuda.synchronize()
+    k1 = [e for e in prof.events() if re.search(
+        r"::(marginal_fwd|joint_fwd|block_fwd)\s*[<(]", e.name)]
+    assert len(k1) == 1, [e.name for e in k1]
+    with torch.no_grad():
+        want = export._extractor(cfg, None, cuda, input_dtype)(
+            torch.from_numpy(ext.coerce(x)).to(cuda)).cpu().numpy()
+    assert np.array_equal(got, want)
     with pytest.raises(ValueError, match="runs there only"):
         export.load_extract(data, "cpu")

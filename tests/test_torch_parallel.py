@@ -8,6 +8,11 @@ read it (a module fixture):
 * the world-2 DP step against one process on all 16 temporal pairs, and
   against JAX's ``make_dp_train_step`` on 8 virtual devices (loss,
   ``grad_norm`` and the averaged gradients on the same numpy params);
+* the persistent gradient bucket (``dp.GradBucket``): the gradients its
+  views, never rebound; the step through it against the per-call bucket
+  it replaced (``all_reduce_mean`` below) and against the split step
+  (``compute_grads``, the eager all-reduce, ``apply``) that the gloo CUDA
+  graphs replay, bit for bit, at world 2 and at world 1;
 * the ranks' warp draws (distinct), and their parameters (equal bits);
 * resume at world 2, bit for bit, over a synthetic source and a host
   stream, with rank 0 the only rank that writes; a single process's
@@ -115,6 +120,60 @@ for i in range(DP_STEPS):
         res["grads"] = {k: p.grad.clone()
                         for k, p in state.model.named_parameters()}
 res["params"] = state.model.state_dict()
+
+# the bucket: 3 steps through it (its views' addresses after each), through
+# the per-call bucket it replaced, and split as the gloo graphs split it
+def all_reduce_mean(params, loss, group):
+    params = list(params)
+    bucket = torch.cat([
+        (p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+        for p in params] + [loss.detach().reshape(1).float()])
+    dist.all_reduce(bucket, op=dist.ReduceOp.SUM, group=group)
+    bucket.div_(dist.get_world_size(group))
+    offset = 0
+    for p in params:
+        if p.grad is not None:
+            p.grad = bucket[offset:offset + p.numel()].view_as(p)
+        offset += p.numel()
+    return bucket[-1]
+
+def split_step(step, state, batch):
+    step.prepare(state)
+    value = step.compute_grads(state, batch)
+    state.bucket.put_loss(value)
+    state.bucket.all_reduce(dist.group.WORLD)
+    metrics = step.apply(state, state.bucket.mean(dist.group.WORLD))
+    state.step += 1
+    return state, metrics
+
+res["bucket"] = {}
+for kind in ("bucket", "per_call", "split"):
+    state = training.init_state(cfg, "cpu")
+    load_model_state(state.model,
+                     state_dict_from_flax(random_flax_params(cfg, 0)))
+    dp.replicate(state.model, state.optimizer)
+    step = dp.make_dp_train_step(cfg, dist.group.WORLD)
+    if kind == "per_call":
+        step.reduce = lambda state, value: all_reduce_mean(
+            state.model.parameters(), value, dist.group.WORLD)
+    run = {"metrics": [], "grads": [], "ptrs": [], "in_bucket": []}
+    for i in range(DP_STEPS):
+        if kind == "split" and i:
+            state, m = split_step(step, state, batch)
+        else:
+            state, m = step(state, batch)
+        run["metrics"].append({k: v.clone() for k, v in m.items()})
+        run["grads"].append({k: p.grad.clone()
+                             for k, p in state.model.named_parameters()})
+        run["ptrs"].append([p.grad.data_ptr()
+                            for p in state.model.parameters()])
+        if state.bucket is not None:
+            base = state.bucket.flat.untyped_storage().data_ptr()
+            run["in_bucket"].append(all(
+                p.grad.untyped_storage().data_ptr() == base
+                for p in state.model.parameters()))
+    run["params"] = state.model.state_dict()
+    res["bucket"][kind] = run
 
 # warp mode: the same images on both ranks, the draws each rank's step made
 drawn = []
@@ -287,6 +346,75 @@ def test_dp_step_matches_jax_dp_on_eight_devices(ranks):
     for name, grad in want.items():
         np.testing.assert_allclose(r0["grads"][name].numpy(), grad, rtol=0,
                                    atol=2e-5, err_msg=name)
+
+
+def test_gradients_are_views_of_one_persistent_bucket(ranks):
+    """After each world-2 DP step every ``.grad`` lies in the bucket, at
+    the address it had after the first step."""
+    _, results, _ = ranks
+    for r in results:
+        run = r["bucket"]["bucket"]
+        assert run["in_bucket"] == [True] * DP_STEPS
+        assert run["ptrs"][1:] == run["ptrs"][:-1]
+    per_call = results[0]["bucket"]["per_call"]
+    assert per_call["in_bucket"] == []
+    assert per_call["ptrs"][0] != per_call["ptrs"][1]
+
+
+@pytest.mark.parametrize("kind", ["per_call", "split"])
+def test_bucket_step_equals_the_per_call_bucket_and_the_split_step(ranks,
+                                                                   kind):
+    """The step through the persistent bucket against the per-call bucket
+    it replaced (``all_reduce_mean``), and against the split step the
+    gloo graphs replay: each step's averaged gradients, loss and
+    ``grad_norm``, and the parameters after 3 steps, equal bit for bit on
+    both ranks; and the bucket step is the package's DP step."""
+    _, results, _ = ranks
+    for r in results:
+        _assert_equal(r["bucket"]["bucket"]["metrics"],
+                      r["bucket"][kind]["metrics"], f"{kind} metrics")
+        _assert_equal(r["bucket"]["bucket"]["grads"],
+                      r["bucket"][kind]["grads"], f"{kind} grads")
+        _assert_equal(r["bucket"]["bucket"]["params"],
+                      r["bucket"][kind]["params"], f"{kind} params")
+        _assert_equal(r["bucket"]["bucket"]["params"], r["params"], "params")
+
+
+def test_split_step_equals_the_step_at_world_one(tmp_path):
+    """A one-rank gloo group in this process: 3 steps through the bucket
+    equal 3 split steps (``compute_grads``, the eager all-reduce,
+    ``apply``), and both the single-process step, bit for bit."""
+    import torch.distributed as dist
+    cfg = get_config("celeba128").override(**TEMPORAL)
+    pair = (torch.from_numpy(random_images(8, cfg, 1)),
+            torch.from_numpy(random_images(8, cfg, 2)))
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        runs = {}
+        for kind in ("single", "bucket", "split"):
+            state = init_state(cfg, "cpu")
+            step = (make_train_step(cfg) if kind == "single"
+                    else dp.make_dp_train_step(cfg, dist.group.WORLD))
+            metrics = []
+            for i in range(DP_STEPS):
+                if kind == "split" and i:
+                    step.prepare(state)
+                    value = step.compute_grads(state, pair)
+                    state.bucket.put_loss(value)
+                    state.bucket.all_reduce(dist.group.WORLD)
+                    m = step.apply(state, state.bucket.mean(dist.group.WORLD))
+                    state.step += 1
+                else:
+                    state, m = step(state, pair)
+                metrics.append({k: v.clone() for k, v in m.items()})
+            runs[kind] = (metrics, state.model.state_dict(),
+                          state.optimizer.state_dict()["state"])
+            assert (state.bucket is None) == (kind == "single")
+    finally:
+        dist.destroy_process_group()
+    _assert_equal(runs["bucket"], runs["single"], "bucket")
+    _assert_equal(runs["split"], runs["single"], "split")
 
 
 def test_shard_generator_is_step_generator_at_world_one_and_ranks_differ(

@@ -2,7 +2,11 @@
 
 The batcher cases mirror tests/test_serve.py; the slice test runs the port's
 HTTP server (``make_server`` with ``--device cpu``) and holds its answers to
-the JAX package's ``make_extract_fn`` on the same params.
+the JAX package's ``make_extract_fn`` on the same params. The ``cuda``
+tests hold each bucket's CUDA graph (``export.GraphedBucket``) to the eager
+extract bit for bit; they skip here and run on the card with
+``--noconftest``, where there is no JAX, so the JAX package is imported
+inside the tests that compare with it.
 """
 
 import re
@@ -15,22 +19,19 @@ import numpy as np
 import pytest
 import torch
 
-import jax
-import jax.numpy as jnp
-
-from keypoints_tpu.configs import apply_overrides as jax_apply_overrides
-from keypoints_tpu.configs import get_config as jax_get_config
-from keypoints_tpu.parallel.dp import data_parallel_mesh, make_dp_extract
-from keypoints_tpu.training import build_model as jax_build_model
-from keypoints_tpu.training import make_extract_fn as jax_make_extract_fn
-from keypoints_tpu_torch.checkpoint import state_dict_from_flax
+from keypoints_tpu_torch.checkpoint import (load_model_state,
+                                            state_dict_from_flax)
 from keypoints_tpu_torch.configs import apply_overrides, get_config
-from keypoints_tpu_torch.export import BucketedExtract
+from keypoints_tpu_torch.export import BucketedExtract, GraphedBucket
 from keypoints_tpu_torch.kernels import spatial_softmax_cuda as ssc
+from keypoints_tpu_torch.parallel import dp as dp_mod
 from keypoints_tpu_torch.serve import (BatchingExtractor, build_parser,
                                        http_extract, http_meta,
                                        make_live_extract, make_server)
 from keypoints_tpu_torch.testing import random_flax_params
+from keypoints_tpu_torch.training import (CaptureError, build_model,
+                                          freeze_for_inference,
+                                          make_extract_fn)
 
 ROOT = Path(__file__).resolve().parents[1]
 NARROW = ["model.encoder_filters=(8,16)", "model.encoder_strides=(2,2)",
@@ -176,6 +177,12 @@ def cpu_server(tmp_path_factory):
 
 
 def test_serving_slice_matches_jax(cpu_server):
+    import jax
+    import jax.numpy as jnp
+    from keypoints_tpu.configs import apply_overrides as jax_apply_overrides
+    from keypoints_tpu.configs import get_config as jax_get_config
+    from keypoints_tpu.training import build_model as jax_build_model
+    from keypoints_tpu.training import make_extract_fn as jax_make_extract_fn
     url, params = cpu_server
     jcfg = jax_apply_overrides(jax_get_config("celeba128"), NARROW)
     jax_extract = jax.jit(jax_make_extract_fn(jcfg, jax_build_model(jcfg)))
@@ -194,6 +201,9 @@ def test_serving_slice_matches_jax(cpu_server):
 
 
 def test_serving_meta_has_the_jax_servers_keys(cpu_server):
+    import jax
+    from keypoints_tpu.configs import get_config as jax_get_config
+    from keypoints_tpu.parallel.dp import data_parallel_mesh, make_dp_extract
     url, params = cpu_server
     meta = http_meta(url)
     jcfg = jax_get_config("celeba128").override(**{
@@ -271,3 +281,91 @@ def test_port_imports_no_jax():
     for path in [*ROOT.joinpath("keypoints_tpu_torch").rglob("*.py"),
                  ROOT / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
+
+
+def _record_buckets(monkeypatch) -> list:
+    """→ the list that every ``GraphedBucket`` the live extract makes from
+    now on is appended to."""
+    made = []
+
+    class Recorded(GraphedBucket):
+        def __init__(self, *args):
+            super().__init__(*args)
+            made.append(self)
+
+    monkeypatch.setattr(dp_mod, "GraphedBucket", Recorded)
+    return made
+
+
+def test_a_cpu_extract_runs_eagerly_and_a_graph_needs_the_card(monkeypatch):
+    cfg = apply_overrides(get_config("celeba128"), NARROW)
+    made = _record_buckets(monkeypatch)
+    live = make_live_extract(cfg, None, [1, 4], "cpu")
+    assert live(np.zeros((3, 3, 32, 32), np.float32)).shape == (3, 4, 2)
+    assert made == []
+    with pytest.raises(ValueError, match="CUDA device"):
+        GraphedBucket(lambda x: x, 4, (3, 32, 32), "float32", "cpu", {})
+
+
+# --- on the card ---------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: a CUDA graph runs only on the GPU")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("input_dtype", ["float32", "uint8"])
+def test_graphed_bucket_equals_the_eager_extract(cuda, input_dtype,
+                                                 monkeypatch):
+    """Buckets 1 and 4 of ``make_live_extract`` on the card: each bucket's
+    first call answers eagerly and captures its graph; the replays that
+    follow, on new images, equal the eager extract of the same model at
+    the same bucket bit for bit (uint8 rescaled inside the graph)."""
+    cfg = apply_overrides(get_config("celeba128"), NARROW)
+    state = state_dict_from_flax(random_flax_params(cfg, 0))
+    made = _record_buckets(monkeypatch)
+    live = make_live_extract(cfg, state, [1, 4], cuda, input_dtype)
+    model = build_model(cfg, cuda)
+    load_model_state(model, state)
+    extract = make_extract_fn(freeze_for_inference(model))
+
+    def eager(images):
+        x = torch.from_numpy(images).to(cuda)
+        return extract(x.float() / 255.0 if x.dtype == torch.uint8
+                       else x).cpu().numpy()
+
+    rs = np.random.RandomState(7)
+    for b in (1, 4):
+        for call in range(3):
+            x = rs.rand(b, 3, 32, 32).astype(np.float32)
+            if input_dtype == "uint8":
+                x = (x * 255).astype(np.uint8)
+            assert np.array_equal(live(x), eager(x)), (b, call)
+            graph, = [g for g in made if g.shape[0] == b]
+            assert graph.graph is not None and graph.capture_seconds > 0
+
+
+@pytest.mark.cuda
+def test_failed_bucket_capture_raises_with_no_eager_answer(cuda):
+    """A bucket whose function reads the card on the host cannot be
+    captured: its first call raises ``CaptureError`` (the eager result it
+    computed first is not returned), and so does every later call, which
+    runs nothing."""
+    calls = []
+
+    def run(x):
+        calls.append(x.shape)
+        return x * float(x.sum())
+
+    bucket = GraphedBucket(run, 2, (1, 4, 4), "float32", cuda, {})
+    x = np.ones((2, 1, 4, 4), np.float32)
+    with pytest.raises(CaptureError, match="bucket 2"):
+        bucket(x)
+    assert len(calls) == 2               # the eager call and the capture
+    with pytest.raises(CaptureError):
+        bucket(x)
+    assert len(calls) == 2
