@@ -95,8 +95,8 @@ their consumers, ``serve --artifact``, ``eval --artifact --overlay`` and
                 gathers) against upsample + dense warp at 256^2 and 128^2;
                 the bottleneck kernels at N = 2,048; the perceptual loss
                 alone; train ms/step and frames/s
-  15. profile   torch.profiler over 2 pose256 train steps: idle share, ops,
-                each kernel's share
+  15. profile   torch.profiler over 2 pose256 train steps: device time,
+                ops, each kernel's share
   16. kernel    the fused bottleneck (K3) against its plain version and its
                 autograd: both variants, both align_corners, T in {1.0,
                 0.7}, at transporter_atari's b64 16^2, a ragged shape, the
@@ -118,7 +118,7 @@ their consumers, ``serve --artifact``, ``eval --artifact --overlay`` and
                 bound at the three shapes, both variants; K2 alone at N =
                 256 16^2 and its launch floor at N = 1, 1x1; the transporter
                 step's ms/step and pairs/s per variant; torch.profiler over
-                its steps: idle share, ops, each kernel's share
+                its steps: device time, ops, each kernel's share
   20. kernels   the banded warps K7 and K8 against their plain versions
                 (within one bf16 ulp) and, where the window holds, against
                 K4 (bit for bit): b128 3x128^2 (y_window 40) and 3x256^2
@@ -1221,19 +1221,18 @@ def train_step_times(card: str, trainer, steps: int = 20, label: str = "",
 def _profile(label: str, fn, calls: int, card: str, wall_ms: float,
              kernels: dict) -> None:
     """Device time of ``calls`` calls of ``fn`` under torch.profiler: the
-    sum of the kernels and copies it saw on the card, against ``wall_ms``
-    (taken without the profiler) and against the host clock around the
-    profiled calls, which the profiler slows."""
+    sum of the kernels and copies it saw on the card, each kernel's share
+    of it and the profiler's table, beside ``wall_ms`` (taken without the
+    profiler). No idle share: a sum of device time over a wall is not
+    one (the benchmark's ``*.device_idle_pct`` is)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-        profiled_ms = (time.perf_counter() - t0) / calls * 1e3
     on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not on_card:
         print(f"{label}: wall {wall_ms:.3f} ms/call; device time not "
@@ -1247,10 +1246,7 @@ def _profile(label: str, fn, calls: int, card: str, wall_ms: float,
                 if any(key in e.name for key in keys)) / calls / 1e3
         shares.append(f"{name} {t:.4f} ms ({t / device:.2%})")
     print(f"{label}: wall {wall_ms:.3f} ms/call, device {device:.3f} "
-          f"ms/call, device idle {1 - device / wall_ms:.1%} of wall; "
-          f"profiled wall {profiled_ms:.3f} ms/call, idle "
-          f"{1 - device / profiled_ms:.1%} of it ({calls} calls)  [{card}]",
-          flush=True)
+          f"ms/call ({calls} calls)  [{card}]", flush=True)
     if shares:
         print("  kernels: " + "; ".join(shares), flush=True)
     print(prof.key_averages().table(sort_by="self_device_time_total",

@@ -61,6 +61,7 @@ from torch import nn
 
 from keypoints_tpu_torch.configs import Config
 from keypoints_tpu_torch.training import CaptureError
+from keypoints_tpu_torch.utils.profiling import span
 # registers keypoints_tpu_torch::spatial_softmax_fwd, which CUDA artifacts call
 from keypoints_tpu_torch.kernels import spatial_softmax_cuda  # noqa: F401
 
@@ -76,7 +77,8 @@ class BucketedExtract:
     ≥ n: the batch is zero-padded up on the host, before the one upload
     (rows are independent through Ψ+soft-argmax, so padding never perturbs
     real outputs), and the result sliced back to n. Requests larger than the
-    largest bucket are split into max-bucket chunks.
+    largest bucket are split into max-bucket chunks. Under a profiler a
+    request is the span ``kp.extract.call`` (``utils.profiling.span``).
     """
 
     def __init__(self, fns: dict[int, Callable], meta: dict):
@@ -102,17 +104,27 @@ class BucketedExtract:
                                             else 1.0)
 
     def __call__(self, images: np.ndarray) -> np.ndarray:
-        images = self.coerce(images)
+        with span("kp.extract.call"):
+            return self._call(self.coerce(images))
+
+    def _call(self, images: np.ndarray) -> np.ndarray:
         n = images.shape[0]
         bucket = next((b for b in self._fns if b >= n), None)
         if bucket is None:
-            return np.concatenate([self(images[i:i + self.max_batch])
+            return np.concatenate([self._call(images[i:i + self.max_batch])
                                    for i in range(0, n, self.max_batch)])
         if n < bucket:
             images = np.concatenate(
                 [images, np.zeros((bucket - n,) + images.shape[1:],
                                   images.dtype)])
         return self._fns[bucket](images)[:n]
+
+
+def read_back(outputs: Sequence[torch.Tensor]) -> np.ndarray:
+    """Wait for and read back a bucket's keypoints (one tensor a device,
+    in row order) → one numpy array."""
+    with span("kp.extract.read"):
+        return np.concatenate([kp.cpu().numpy() for kp in outputs])
 
 
 class GraphedBucket:
@@ -136,7 +148,11 @@ class GraphedBucket:
     read. ``run`` runs under ``inference_mode`` (or ``no_grad``)
     of its own, inside the capture as on an eager call. A failed capture
     raises :class:`~keypoints_tpu_torch.training.CaptureError`, then and
-    at every later call: nothing runs eagerly in its place.
+    at every later call: nothing runs eagerly in its place. Under a
+    profiler a replayed call's upload and replay are the spans
+    ``kp.extract.upload`` and ``kp.extract.replay``
+    (``utils.profiling.span``), and :func:`read_back` is
+    ``kp.extract.read``.
     """
 
     def __init__(self, run: Callable, batch: int, item_shape: Sequence[int],
@@ -168,12 +184,14 @@ class GraphedBucket:
         if self.graph is None:
             return self._first(images)
         with torch.cuda.device(self.device):
-            self.input.copy_(torch.from_numpy(images), non_blocking=True)
-            self.graph.replay()
+            with span("kp.extract.upload"):
+                self.input.copy_(torch.from_numpy(images), non_blocking=True)
+            with span("kp.extract.replay"):
+                self.graph.replay()
         return self.output
 
     def __call__(self, images: np.ndarray) -> np.ndarray:
-        return self.enqueue(images).cpu().numpy()
+        return read_back([self.enqueue(images)])
 
     def _first(self, images: np.ndarray) -> torch.Tensor:
         """The eager call, then the capture."""

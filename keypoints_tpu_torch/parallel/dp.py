@@ -46,7 +46,7 @@ import torch.distributed as dist
 
 from keypoints_tpu_torch.configs import Config
 from keypoints_tpu_torch.export import (BucketedExtract, GraphedBucket,
-                                        bundle_meta)
+                                        bundle_meta, read_back)
 from keypoints_tpu_torch.training import (build_model, freeze_for_inference,
                                           make_extract_fn, make_train_step,
                                           step_seed)
@@ -244,9 +244,8 @@ def make_dp_extract(cfg: Config, state_dict: dict | None,
 
     def bucket_fn(slab_fns: list[Callable]) -> Callable:
         def fn(images: np.ndarray) -> np.ndarray:
-            outs = [enqueue(slab) for enqueue, slab in
-                    zip(slab_fns, np.split(images, n_dev))]
-            return np.concatenate([kp.cpu().numpy() for kp in outs])
+            return read_back([enqueue(slab) for enqueue, slab in
+                              zip(slab_fns, np.split(images, n_dev))])
         return fn
 
     meta = {**bundle_meta(cfg, sizes, input_dtype),

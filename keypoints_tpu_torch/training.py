@@ -50,6 +50,7 @@ from keypoints_tpu_torch.data.augment import (PairDraws, WarpConfig,
 from keypoints_tpu_torch.losses import l2_loss
 from keypoints_tpu_torch.models import KeypointAutoencoder, Transporter
 from keypoints_tpu_torch.models.nets import Conv2d, init_flax_defaults
+from keypoints_tpu_torch.utils.profiling import span
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -461,7 +462,10 @@ class GraphedTrainStep:
     tensor and the registered generators in place: nothing may rebind one
     of them after the capture (``load_state_dict`` into the model copies
     in place; restore before the first call). ``metrics`` are the graph's
-    own tensors, overwritten by each replay.
+    own tensors, overwritten by each replay. Under a profiler a replayed
+    step is the span ``kp.train_step`` around ``kp.train_step.prepare``
+    (the host's part and the source) and ``kp.train_step.replay``
+    (``utils.profiling.span``).
     """
 
     def __init__(self, cfg: Config, state: TrainState, source=None,
@@ -509,16 +513,19 @@ class GraphedTrainStep:
             state, metrics = self.step(state, batch)
             self._capture(batch)
             return state, metrics
-        self.step.prepare(state)
-        if self.source is not None:
-            self.source.generator_at(state.step)
-        else:
-            _copy_batch(self.inputs, batch)
-        self.graphs[0].replay()
-        if self.split:
-            state.bucket.all_reduce(self.group)
-            self.graphs[1].replay()
-        state.step += 1
+        with span("kp.train_step"):
+            with span("kp.train_step.prepare"):
+                self.step.prepare(state)
+                if self.source is not None:
+                    self.source.generator_at(state.step)
+                else:
+                    _copy_batch(self.inputs, batch)
+            with span("kp.train_step.replay"):
+                self.graphs[0].replay()
+                if self.split:
+                    state.bucket.all_reduce(self.group)
+                    self.graphs[1].replay()
+            state.step += 1
         return state, self.metrics
 
     def _capture(self, batch) -> None:
