@@ -236,6 +236,16 @@ their consumers, ``serve --artifact``, ``eval --artifact --overlay`` and
                 call and the n=1 HTTP p50 of ``--preset`` and
                 ``--artifact`` servers, eager and graphed in turns; a
                 bucket whose capture fails raises at every call
+  39. group norm the GroupNorm + ReLU kernels against their plain
+                version, forward (y, mean, rstd) and backward (dx, dgamma,
+                dbeta), bf16 and f32, at every norm shape of celeba128 at
+                its paper widths (the benchmark's; b128 and b256), one
+                pose256 (read twice) and one transporter_atari shape,
+                ragged, C/G 1 and unaligned ones (scalar loads); two runs
+                bit for bit; the launches of a paper-width train step (23
+                forward, 23 backward) and no aten GroupNorm kernel in its
+                replays (torch.profiler); device times against the bound,
+                the plain chain and the library's bf16 chain
 
 Run from a checkout:  python3 chip_smoke.py
 The card's ``nvidia-smi`` line, then a JSON object of the kernels
@@ -282,6 +292,7 @@ from keypoints_tpu_torch.kernels import experimental as banded  # noqa: E402
 from keypoints_tpu_torch.kernels import experimental_cuda as ecu  # noqa: E402
 from keypoints_tpu_torch.kernels import fused_bottleneck_cuda as fbc  # noqa: E402
 from keypoints_tpu_torch.kernels import gaussian_cuda as gcu  # noqa: E402
+from keypoints_tpu_torch.kernels import group_norm_cuda as gnc  # noqa: E402
 from keypoints_tpu_torch.kernels import pool_cuda as pcu  # noqa: E402
 from keypoints_tpu_torch.kernels import spatial_softmax_cuda as ssc  # noqa: E402
 from keypoints_tpu_torch.kernels import warp_cuda as wcu  # noqa: E402
@@ -293,6 +304,10 @@ from keypoints_tpu_torch.ops.fused_bottleneck import \
     softargmax_raster as plain_bottleneck  # noqa: E402
 from keypoints_tpu_torch.ops.gaussian import \
     gaussian_maps as plain_gaussian  # noqa: E402
+from keypoints_tpu_torch.ops.group_norm import \
+    group_norm_relu as plain_gn_relu  # noqa: E402
+from keypoints_tpu_torch.ops.group_norm import \
+    group_norm_relu_stats  # noqa: E402
 from keypoints_tpu_torch.ops.pool import max_pool_2x2 as plain_pool  # noqa: E402
 from keypoints_tpu_torch.ops.spatial_softmax import \
     spatial_softmax as plain_softmax  # noqa: E402
@@ -305,6 +320,7 @@ from keypoints_tpu_torch.testing import (bf16_ulp,  # noqa: E402
                                          decode_f32, fused_grad_tolerance,
                                          fused_map_tolerance,
                                          grad_norm_tolerance,
+                                         group_norm_relu_edge,
                                          random_flax_params, random_images,
                                          softmax_grad_tolerance,
                                          random_vgg_params, reference_draws,
@@ -4432,6 +4448,222 @@ def serving_graphs_phase(card: str, bundle: bytes) -> list:
     return [counts]
 
 
+# phase 39: celeba128 at the benchmark's paper widths
+# (portbench/configs/celeba128.json), its norm shapes (C, side) and how many
+# of a step's 23 blocks (8 of Phi, 8 of Psi, 7 of the decoder) have each
+GN_PAPER = {"model.encoder_filters": (32, 32, 64, 64, 128, 128, 256, 256),
+            "model.encoder_strides": (1, 1, 2, 1, 2, 1, 2, 1),
+            "model.decoder_filters": (256, 256, 128, 128, 64, 64, 32),
+            "model.decoder_upsample": (False, False, True, False, True, False,
+                                       True)}
+GN_BLOCKS = {(32, 128): 5, (64, 64): 6, (128, 32): 6, (256, 16): 6}
+GN_GROUPS = 8
+GN_EPS = 1e-5
+GN_LABEL_BATCH = 256
+# further shapes: (what, (N, C, H, W), groups, unaligned)
+GN_OTHER = [("pose256 b128 32@256^2", (128, 32, 256, 256), 8, False),
+            ("transporter_atari b64 32@64^2", (64, 32, 64, 64), 8, False),
+            ("ragged 13x29, C/G 3", (6, 24, 13, 29), 8, False),
+            ("C/G 1", (5, 8, 9, 9), 8, False),
+            ("one group of 64 at 16^2", (4, 64, 16, 16), 1, False),
+            ("C/G 32 at 4^2", (3, 256, 4, 4), 8, False),
+            ("unaligned 32@16^2", (4, 32, 16, 16), 8, True)]
+# tolerances, a share of the largest |value| the plain version gives: f32
+# on both sides, the statistics' and dx's sums taken in another order; the
+# parameter gradients are sums of up to 2**23 f32 terms; bf16 outputs also
+# one bf16 spacing at that value (one rounding each side of a boundary)
+GN_RTOL = 2e-5
+GN_PARAM_RTOL = 1e-4
+# (testing.group_norm_relu_edge: at the ReLU's edge, |z| <= 1e-4, two right
+# f32 computations can take different masks; dx is compared off the edge,
+# and each gradient gets the most the edge's flips can move it as room)
+
+
+def _gn_inputs(shape, dtype, seed: int, unaligned: bool = False):
+    """Conv-like x (per-channel offsets), gamma about 1, beta about 0 and a
+    gradient, seeded on the card; ``unaligned``: x and the gradient 2
+    elements past a 16-byte boundary (the scalar path)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n, c = shape[:2]
+
+    def draw(*size):
+        return torch.randn(size, device="cuda", generator=gen)
+
+    x = (1.5 * draw(*shape) + draw(1, c, 1, 1)).to(dtype)
+    g = draw(*shape).to(dtype)
+    if unaligned:
+        x = torch.cat([x.new_zeros(2), x.flatten()])[2:].view(shape)
+        g = torch.cat([g.new_zeros(2), g.flatten()])[2:].view(shape)
+    return x, 1 + 0.5 * draw(c), 0.5 * draw(c), g
+
+
+def _gn_tol(want: torch.Tensor, rtol: float, bf16: bool) -> float:
+    top = want.float().abs().max()
+    return float(rtol * top + (bf16_ulp(top) if bf16 else 0.0))
+
+
+def _gn_check(what: str, shape, groups: int, dtype, seed: int,
+              unaligned: bool = False) -> None:
+    """The kernels against the plain version and its autograd at one shape,
+    and a second run of each bit for bit."""
+    x, w, b, g = _gn_inputs(shape, dtype, seed, unaligned)
+    got = gnc.group_norm_relu_fwd_cuda(x, w, b, groups, GN_EPS)
+    got += gnc.group_norm_relu_bwd_cuda(g, x, got[1], got[2], w, b, groups)
+    again = gnc.group_norm_relu_fwd_cuda(x, w, b, groups, GN_EPS)
+    again += gnc.group_norm_relu_bwd_cuda(g, x, again[1], again[2], w, b,
+                                          groups)
+    xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
+    y = plain_gn_relu(xr, groups, wr, br, GN_EPS)
+    want = (y.detach(), *group_norm_relu_stats(x, groups, w, b, GN_EPS)[1:],
+            *torch.autograd.grad(y, (xr, wr, br), g))
+    del y
+    edge, room = group_norm_relu_edge(x, w, b, g, groups, GN_EPS)
+    bf16 = dtype == torch.bfloat16
+    report = []
+    for name, k, p, rtol, rounded in zip(
+            ("y", "mean", "rstd", "dx", "dgamma", "dbeta"), got, want,
+            (GN_RTOL, GN_RTOL, GN_RTOL, GN_RTOL, GN_PARAM_RTOL,
+             GN_PARAM_RTOL), (bf16, False, False, bf16, False, False)):
+        d = (k.float() - p.float()).abs()
+        if name == "dx":
+            d = d.masked_fill(edge, 0)
+        if name in room:
+            d = (d - room[name]).clamp_min(0)
+        err = float(d.max())
+        tol = _gn_tol(p, rtol, rounded)
+        report.append(f"{name} {err:.3e} ({tol:.3e})")
+        check(err <= tol, f"group norm {what} {dtype}: {name} max|d| {err} "
+              f"> {tol}")
+    same = all(torch.equal(a, c) for a, c in zip(got, again))
+    print(f"{what} {tuple(shape)} G={groups} {str(dtype)[6:]}: max|d| "
+          f"(tolerance) {', '.join(report)} (gradients less the room of "
+          f"{int(edge.sum())} values at the ReLU's edge); second run bit for "
+          f"bit: {same}", flush=True)
+    check(same, f"group norm {what} {dtype}: two runs differ")
+
+
+def _gn_tag(batch: int, c: int, side: int) -> str:
+    return f" b{batch} {c}@{side}^2"
+
+
+def _gn_time_cases(batch: int, backward: bool) -> dict:
+    """bf16 kernel / plain chain / library chain (bf16 GroupNorm and ReLU,
+    a yardstick the port never calls) at celeba128's norm shapes, b=batch:
+    name -> (kernel, plain, library, bound), as _time_cases takes them."""
+    cases = {}
+    for c, side in GN_BLOCKS:
+        shape = (batch, c, side, side)
+        x, w, b, g = _gn_inputs(shape, torch.bfloat16, c)
+        _, mean, rstd = gnc.group_norm_relu_fwd_cuda(x, w, b, GN_GROUPS,
+                                                     GN_EPS)
+        xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
+        xl = x.clone().requires_grad_(True)
+        wl, bl = (t.to(torch.bfloat16).requires_grad_(True) for t in (w, b))
+        numel, tag = x.numel(), _gn_tag(batch, c, side)
+        stats = batch * GN_GROUPS * 8 + c * 8
+        cases["gn_relu_fwd" + tag] = (
+            lambda x=x, w=w, b=b: gnc.group_norm_relu_fwd_cuda(
+                x, w, b, GN_GROUPS, GN_EPS),
+            lambda x=x, w=w, b=b: plain_gn_relu(x, GN_GROUPS, w, b, GN_EPS),
+            lambda x=x, w=wl, b=bl: F.relu(F.group_norm(x, GN_GROUPS, w, b,
+                                                        GN_EPS)),
+            _bound(4 * numel + stats, 8 * numel))
+        if backward:
+            y = plain_gn_relu(xr, GN_GROUPS, wr, br, GN_EPS)
+            yl = F.relu(F.group_norm(xl, GN_GROUPS, wl, bl, GN_EPS))
+            cases["gn_relu_bwd" + tag] = (
+                lambda x=x, w=w, b=b, g=g, m=mean, r=rstd:
+                    gnc.group_norm_relu_bwd_cuda(g, x, m, r, w, b, GN_GROUPS),
+                lambda y=y, t=(xr, wr, br), g=g: torch.autograd.grad(
+                    y, t, g, retain_graph=True),
+                lambda y=yl, t=(xl, wl, bl), g=g: torch.autograd.grad(
+                    y, t, g, retain_graph=True),
+                _bound(6 * numel + stats + 2 * batch * c * 8, 12 * numel))
+    return cases
+
+
+def group_norm_phase(card: str) -> None:
+    """The GroupNorm + ReLU kernels: correctness and determinism at every
+    norm shape of celeba128's paper-width train (b128) and label (b256)
+    cells and at pose256's, transporter_atari's and the general path's;
+    a paper-width train step's launches (wrappers, then its replays by the
+    profiler: no aten GroupNorm kernel left); times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    phase(f"39 group norm + ReLU kernels on {card}")
+    for dtype in (torch.bfloat16, torch.float32):
+        for batch in (TRAIN_BATCH, GN_LABEL_BATCH):
+            for c, side in GN_BLOCKS:
+                _gn_check(f"celeba128 b{batch}", (batch, c, side, side),
+                          GN_GROUPS, dtype, c + batch)
+        for what, shape, groups, unaligned in GN_OTHER:
+            _gn_check(what, shape, groups, dtype, 7, unaligned)
+        torch.cuda.empty_cache()
+
+    cfg = get_config("celeba128").override(
+        **GN_PAPER, **{"train.batch_size": TRAIN_BATCH})
+    images = torch.from_numpy(random_images(TRAIN_BATCH, cfg, 4)).cuda()
+    state = init_state(cfg, "cuda")
+    step = make_train_step(cfg, loss=make_loss(cfg))
+    state, _ = step(state, images)
+    torch.cuda.synchronize()
+    gnc.launches = gnc.bwd_launches = 0
+    state, _ = step(state, images)
+    torch.cuda.synchronize()
+    eager = (gnc.launches, gnc.bwd_launches)
+    blocks = sum(GN_BLOCKS.values())
+    print(f"paper-width celeba128 b{TRAIN_BATCH}, an eager step: "
+          f"{eager[0]} forward and {eager[1]} backward launches by the "
+          f"wrappers ({blocks} blocks)", flush=True)
+    check(eager == (blocks, blocks), f"group norm launches a step {eager}, "
+          f"{blocks} each expected")
+    state = init_state(cfg, "cuda")
+    step = make_graphed_train_step(cfg, state, loss=make_loss(cfg))
+    for _ in range(4):
+        state, _ = step(state, images)
+    torch.cuda.synchronize()
+    replays = 2
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(PROFILE_EDGE_CYCLES)
+        for _ in range(replays):
+            state, _ = step(state, images)
+        torch.cuda._sleep(PROFILE_EDGE_CYCLES)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    fns = [_kernel_name(n) for n in names]
+    counts = {k: fns.count(k) / replays for k in (
+        "gn_relu_fwd_held", "gn_relu_fwd", "gn_relu_bwd",
+        "gn_relu_bwd_params")}
+    aten = sorted({n[:80] for n in names if "GroupNorm" in n or any(
+        k in n for k in ("RowwiseMoments", "ComputeInternalGradients",
+                         "ComputeFusedParams", "GammaBeta"))})
+    print(f"a replayed step's group norm kernels (profiler): {counts}; aten "
+          f"GroupNorm kernels left: {aten or 'none'}", flush=True)
+    check(counts["gn_relu_fwd_held"] + counts["gn_relu_fwd"] == blocks
+          and counts["gn_relu_bwd"] == counts["gn_relu_bwd_params"] == blocks,
+          f"a replayed step launched {counts}")
+    check(not aten, f"aten GroupNorm kernels in a replayed step: {aten}")
+    del state, step, images
+    torch.cuda.empty_cache()
+
+    times = {}
+    for batch, backward in ((TRAIN_BATCH, True), (GN_LABEL_BATCH, False)):
+        times.update(_time_cases(_gn_time_cases(batch, backward), card,
+                                 reps=20, plain_reps=5))
+        torch.cuda.empty_cache()
+    totals = {key: sum(k * times[f"gn_relu_{way}"
+                                 + _gn_tag(TRAIN_BATCH, c, side)][key]
+                       for (c, side), k in GN_BLOCKS.items()
+                       for way in ("fwd", "bwd"))
+              for key in ("ms", "bound_ms", "plain_ms", "library_ms")}
+    print(f"a paper-width b{TRAIN_BATCH} step's {blocks} norms, forward and "
+          f"backward: kernels {totals['ms']:.3f} ms, bound "
+          f"{totals['bound_ms']:.3f} ms "
+          f"({totals['bound_ms'] / totals['ms']:.1%}), plain chain "
+          f"{totals['plain_ms']:.3f} ms, library bf16 chain "
+          f"{totals['library_ms']:.3f} ms  [{card}]", flush=True)
+
+
 def main() -> int:
     card = device_phase()
     build_phase()
@@ -4505,6 +4737,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     path_counts.extend(dp_graph_phase(card))
     path_counts.extend(serving_graphs_phase(card, paths["bundle"]))
+    group_norm_phase(card)
 
     errs["spatial_softmax_fwd"] = max(errs["spatial_softmax_fwd"],
                                       served["serve_max_abs_err"])

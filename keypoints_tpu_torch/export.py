@@ -30,9 +30,11 @@ builds no model and reads no checkpoint.
 
 On CUDA the exported graph holds the soft-argmax kernel K1 as one node of
 the custom op ``keypoints_tpu_torch::spatial_softmax_fwd``
-(``kernels/spatial_softmax_cuda.py``); a CPU export holds the plain ops.
-So loading an artifact needs ``keypoints_tpu_torch`` importable, which
-registers the op (this module imports it); the JAX package's StableHLO
+(``kernels/spatial_softmax_cuda.py``), and the GroupNorm and ReLU of each of
+Ψ's conv blocks as one node of ``keypoints_tpu_torch::group_norm_relu_fwd``
+(``kernels/group_norm_cuda.py``); a CPU export holds the plain ops. So
+loading an artifact needs ``keypoints_tpu_torch`` importable, which
+registers the ops (this module imports them); the JAX package's StableHLO
 artifact needs jaxlib alone. AOTInductor is not used: its C++ runtime
 cannot call an op implemented in Python through ``ctypes``.
 
@@ -62,7 +64,9 @@ from torch import nn
 from keypoints_tpu_torch.configs import Config
 from keypoints_tpu_torch.training import CaptureError
 from keypoints_tpu_torch.utils.profiling import span
-# registers keypoints_tpu_torch::spatial_softmax_fwd, which CUDA artifacts call
+# register keypoints_tpu_torch::spatial_softmax_fwd and ::group_norm_relu_fwd,
+# which CUDA artifacts call
+from keypoints_tpu_torch.kernels import group_norm_cuda  # noqa: F401
 from keypoints_tpu_torch.kernels import spatial_softmax_cuda  # noqa: F401
 
 #: the input dtypes an artifact takes

@@ -4,11 +4,12 @@ A CUDA tensor goes to the kernel, a CPU tensor to the kernel's plain PyTorch
 version (``keypoints_tpu_torch.ops``), and any other device raises. There is
 no switch that forces the plain path on CUDA and no fallback when a launch
 fails. The kernel modules (``spatial_softmax_cuda``, ``gaussian_cuda``,
-``fused_bottleneck_cuda``, ``warp_cuda``, ``pool_cuda``: wrappers, autograd
-Functions and launch counts) are submodules of this package; ``_build``
-builds the one library they share. The banded warps K7 and K8
-(``experimental`` and ``experimental_cuda``) are submodules too, outside
-this dispatch surface, as the JAX package keeps them out of its own.
+``fused_bottleneck_cuda``, ``warp_cuda``, ``pool_cuda``,
+``group_norm_cuda``: wrappers, autograd Functions and launch counts) are
+submodules of this package; ``_build`` builds the one library they share.
+The banded warps K7 and K8 (``experimental`` and ``experimental_cuda``)
+are submodules too, outside this dispatch surface, as the JAX package
+keeps them out of its own.
 
 ``extract_and_render`` sends both soft-argmax variants to the fused
 bottleneck kernel (K3) on CUDA. ``keypoints_tpu/kernels/__init__.py:158``
@@ -26,9 +27,11 @@ import torch
 
 from keypoints_tpu_torch.coords import DEFAULT_ALIGN_CORNERS
 from keypoints_tpu_torch.kernels import (fused_bottleneck_cuda, gaussian_cuda,
-                                         pool_cuda, spatial_softmax_cuda,
-                                         warp_cuda)
+                                         group_norm_cuda, pool_cuda,
+                                         spatial_softmax_cuda, warp_cuda)
 from keypoints_tpu_torch.ops.gaussian import gaussian_maps as _plain_gaussian
+from keypoints_tpu_torch.ops.group_norm import \
+    group_norm_relu as _plain_group_norm_relu
 from keypoints_tpu_torch.ops.pool import max_pool_2x2 as _plain_pool
 from keypoints_tpu_torch.ops.spatial_softmax import spatial_softmax as _plain
 from keypoints_tpu_torch.ops.warp import grid_sample as _plain_grid_sample
@@ -120,6 +123,21 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     return _plain_pool(x)
 
 
+def group_norm_relu(x: torch.Tensor, norm: torch.nn.GroupNorm
+                    ) -> torch.Tensor:
+    """``relu(norm(x))`` for a conv block's ``(N, C, H, W)`` output, in
+    ``x``'s dtype, statistics and affine in float32 (``norm``'s groups, eps
+    and float32 weight and bias): on CUDA the GroupNorm + ReLU kernels
+    (forward and backward, ``group_norm_cuda.GroupNormReLU``), on CPU
+    ``ops.group_norm.group_norm_relu``, whose gradient is autograd's.
+    Differentiable in ``x`` and the affine parameters on both."""
+    if _on_cuda(x, "GroupNorm + ReLU"):
+        return group_norm_cuda.group_norm_relu_autograd(
+            x.contiguous(), norm.weight, norm.bias, norm.num_groups, norm.eps)
+    return _plain_group_norm_relu(x, norm.num_groups, norm.weight, norm.bias,
+                                  norm.eps)
+
+
 def extract_and_render(heatmaps: torch.Tensor, out_height: int,
                        out_width: int, temperature: float = 1.0,
                        sigma: float = 0.1, variant: str = "marginal",
@@ -146,6 +164,7 @@ def extract_and_render(heatmaps: torch.Tensor, out_height: int,
 
 
 __all__ = ["spatial_softmax", "gaussian_maps", "warp_sample",
-           "warp_sample_field", "max_pool_2x2", "extract_and_render",
-           "spatial_softmax_cuda", "gaussian_cuda", "fused_bottleneck_cuda",
-           "warp_cuda", "pool_cuda"]
+           "warp_sample_field", "max_pool_2x2", "group_norm_relu",
+           "extract_and_render", "spatial_softmax_cuda", "gaussian_cuda",
+           "fused_bottleneck_cuda", "warp_cuda", "pool_cuda",
+           "group_norm_cuda"]

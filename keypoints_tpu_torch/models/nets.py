@@ -17,6 +17,13 @@ dtype already matches, so nothing is launched then; the serving path casts
 its conv weights once, at load). GroupNorm keeps float32 parameters and
 takes its statistics and affine in float32, returning the input's dtype —
 flax 0.12's ``force_float32_reductions``.
+
+A block's GroupNorm and ReLU run as one op, ``kernels.group_norm_relu``:
+the GroupNorm + ReLU kernels on CUDA (forward and backward; they keep the
+block's ``x`` in its own dtype for the backward, no float32 copy), on the
+CPU ``relu(norm(x))`` as composed here, under the same dtype rule.
+:class:`GroupNorm` keeps its parameters and its names, so state dicts load
+as before, and its own ``forward`` is the norm alone.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from keypoints_tpu_torch.kernels import group_norm_relu
 
 # nearest-up(2x) + conv3x3 == one stride-2 transposed conv with a 4x4 kernel,
 # a fixed linear map of the 3x3 one: per axis k4 = A w, with
@@ -126,7 +135,7 @@ class Encoder(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.compute_dtype)
         for conv, norm in self.blocks:
-            x = F.relu(norm(conv(x)))
+            x = group_norm_relu(conv(x), norm)
         return x
 
 
@@ -174,5 +183,5 @@ class Decoder(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.compute_dtype)
         for conv, norm in self.blocks:
-            x = F.relu(norm(conv(x)))
+            x = group_norm_relu(conv(x), norm)
         return self.head(x)

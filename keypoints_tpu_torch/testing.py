@@ -187,6 +187,41 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
+#: where |z| (GroupNorm's f32 output before the ReLU) is at most this, two
+#: right f32 computations can take different ReLU masks: the statistics'
+#: rounding moves z by ~1e-6 (the plain version disagrees with float64 at
+#: such values too, ~1 in 10**8 at celeba128's 32@128^2)
+GROUP_NORM_EDGE = 1e-4
+
+
+def group_norm_relu_edge(x: torch.Tensor, weight: torch.Tensor,
+                         bias: torch.Tensor, grad: torch.Tensor, groups: int,
+                         eps: float) -> tuple[torch.Tensor, dict]:
+    """The values of ``relu(GroupNorm(x))`` at the ReLU's edge
+    (``GROUP_NORM_EDGE``) and the most a flip of their masks can move each
+    gradient, from the plain f32 statistics: ``(edge, {"dx", "dgamma",
+    "dbeta"})``. A flip at value e changes dx at e by gamma * rstd * dy (so
+    dx is compared off the edge), every dx of e's group by rstd / m *
+    (|gamma dy| + |xhat| |gamma dy xhat|) at e, and dgamma, dbeta of e's
+    channel by |dy xhat| and |dy|."""
+    n, c = x.shape[:2]
+    xhat = torch.nn.functional.group_norm(x.float(), groups, eps=eps)
+    per_channel = (slice(None), None, None)
+    edge = (xhat * weight[per_channel] + bias[per_channel]).abs() <= \
+        GROUP_NORM_EDGE
+    dy = grad.float().masked_fill(~edge, 0)
+    gdy = (dy * weight[per_channel]).reshape(n, groups, -1)
+    flat = xhat.reshape(n, groups, -1)
+    groups_x = x.float().reshape(n, groups, -1)
+    scale = (groups_x.var(-1, unbiased=False) + eps).rsqrt() / flat.shape[-1]
+    room_dx = scale[..., None] * (gdy.abs().sum(-1, keepdim=True)
+                                  + flat.abs() * (gdy * flat).abs().sum(
+                                      -1, keepdim=True))
+    return edge, {"dx": room_dx.reshape(x.shape),
+                  "dgamma": (dy * xhat).abs().sum((0, 2, 3)),
+                  "dbeta": dy.abs().sum((0, 2, 3))}
+
+
 def encode_f32(a: np.ndarray) -> str:
     """A float32 array as base64 of its little-endian bytes (exact, compact)."""
     return base64.b64encode(np.ascontiguousarray(a, "<f4").tobytes()).decode()
