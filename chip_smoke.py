@@ -82,7 +82,8 @@ their consumers, ``serve --artifact``, ``eval --artifact --overlay`` and
                 budget; bit for bit equal to upsample + K4, staged and with
                 direct gathers), the 2x2 max pool forward and
                 backward, bit-exact (f32 and bf16, smooth and tied inputs,
-                at the VGG pools' shapes); the soft-argmax and raster
+                at pose256's VGG-16 pools and the VGG-19 loss's four
+                pools at 128^2); the soft-argmax and raster
                 kernels, forward and backward, at N = 2,048, sigma 0.05
   12. train     full-width pose256 in float32 (TF32 off), 3 train steps on
      parity     JAX's draws and one seeded VGG file, on the card and on the
@@ -91,7 +92,8 @@ their consumers, ``serve --artifact``, ``eval --artifact --overlay`` and
                 own draws: finite losses, float32 parameters, launch counts
                 of the run, peak device memory
   14. times     the field warp and the pool against bound, plain and
-                library; the field warp's two designs (staged, direct
+                library (the pool also at the VGG-19 loss's four 128^2
+                pools against its bound); the field warp's two designs (staged, direct
                 gathers) against upsample + dense warp at 256^2 and 128^2;
                 the bottleneck kernels at N = 2,048; the perceptual loss
                 alone; train ms/step and frames/s
@@ -351,6 +353,10 @@ FIELD_WARP_TOL = 1e-4  # f32 field warp: JAX's bar for its field kernel
 TRAIN_BATCH = 128      # bench.py's celeba128 train step; pose256's preset
 TRAIN_STEPS = 30
 POSE_STEPS = 20
+# the VGG-19 perceptual loss's four pool inputs at celeba128's 128^2, b128:
+# the pools of the celeba128_vgg19 train step
+VGG19_POOLS = ((TRAIN_BATCH, 64, 128, 128), (TRAIN_BATCH, 128, 64, 64),
+               (TRAIN_BATCH, 256, 32, 32), (TRAIN_BATCH, 512, 16, 16))
 REFERENCE = ROOT / "tests" / "data" / "torch_port_celeba128_extract.json"
 TRAIN_REFERENCE = ROOT / "tests" / "data" / "torch_port_celeba128_train.json"
 POSE_REFERENCE = ROOT / "tests" / "data" / "torch_port_pose256_train.json"
@@ -1338,7 +1344,8 @@ def pose_kernels_phase() -> dict:
     """The pose256 slice's kernels against their plain versions: the field
     warp at both augmentations' shapes and at ragged ones (and against
     upsample + K4 bit for bit), the max pool forward and backward at the
-    VGG pools' shapes, bit for bit; the soft-argmax and raster kernels at
+    VGG pools' shapes (pose256's VGG-16 and the 128^2 VGG-19 loss's), bit
+    for bit; the soft-argmax and raster kernels at
     the path's 2,048 heatmaps."""
     phase("11 pose256-slice kernels vs plain")
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -1412,10 +1419,11 @@ def pose_kernels_phase() -> dict:
 
     # max pool (K6), forward and backward: equal to the plain version and
     # to F.max_pool2d, on smooth values and on quantised values with ReLU
-    # zeros (most windows tied)
+    # zeros (most windows tied): pose256's two VGG-16 pools, the VGG-19
+    # loss's four at 128^2, a ragged toy shape
     n_cases = 0
     for shape in ((TRAIN_BATCH, 64, 256, 256), (TRAIN_BATCH, 128, 128, 128),
-                  (3, 5, 6, 10)):
+                  *VGG19_POOLS, (3, 5, 6, 10)):
         pooled = (*shape[:2], shape[2] // 2, shape[3] // 2)
         for kind in ("smooth", "ties"):
             if kind == "smooth":
@@ -1472,7 +1480,8 @@ def pose_kernels_phase() -> dict:
 def pose_times_phase(card: str) -> dict:
     """The pose256 slice's kernels at b128 (3x256^2 bf16 images, the VGG
     pools in bf16, 16 keypoints): device time, plain and library times and
-    the bound, as in phase 9; the field warp against upsample + dense warp
+    the bound, as in phase 9; the pool also at the VGG-19 loss's four
+    pools at 128^2; the field warp against upsample + dense warp
     at 256^2 and 128^2; the bottleneck kernels at N = 2,048."""
     phase(f"14 pose256 times on {card}")
     b = TRAIN_BATCH
@@ -1521,6 +1530,26 @@ def pose_times_phase(card: str) -> dict:
     print("pool library calls: F.max_pool2d and its autograd backward "
           "(max_pool2d_with_indices_backward); the kernels' line reports "
           "pool1, the larger call", flush=True)
+    # the VGG-19 loss's pools at 128^2, bf16 after a ReLU as in its step:
+    # each kernel against its bound (no plain or library time: phase 11
+    # holds them equal to both)
+    for i, shape in enumerate(VGG19_POOLS):
+        x = torch.randn(shape, generator=gen, device="cuda",
+                        dtype=torch.bfloat16).relu()
+        g = torch.randn((*shape[:2], shape[2] // 2, shape[3] // 2),
+                        generator=gen, device="cuda", dtype=torch.bfloat16)
+        nx, ny = x.nelement() * 2, x.nelement() // 2
+        for name, run, (bound_ms, bound_by) in (
+                ("max_pool_fwd", lambda: pcu.max_pool_fwd_cuda(x),
+                 _bound(nx + ny, 3 * x.nelement() // 4)),
+                ("max_pool_bwd", lambda: pcu.max_pool_bwd_cuda(x, g),
+                 _bound(2 * nx + ny, 2 * x.nelement()))):
+            k_ms = cuda_median_ms(run, reps=20)
+            print(f"{name} vgg19 pool{i + 1} {shape}: kernel "
+                  f"{k_ms * 1e3:.2f} us; bound {bound_ms * 1e3:.2f} us by "
+                  f"{bound_by} = {bound_ms / k_ms:.1%} of the kernel's time  "
+                  f"[{card}]", flush=True)
+        del x, g
 
     # the field kernel's two designs, in turns: tiles staged in shared
     # memory (the kept one) and direct gathers (stage_bytes=0, the branch a

@@ -48,10 +48,11 @@ class DataConfig:
 class TrainConfig:
     model_kind: str = "autoencoder"   # autoencoder | transporter
     loss: str = "l2"                  # l2 | perceptual
+    # bare taps are VGG-16's; "vgg19/relu3_2" and the like VGG-19's
     perceptual_layers: Tuple[str, ...] = ("relu1_2", "relu2_2", "relu3_3")
-    # torch VGG-16 state dict (torchvision layout) for the perceptual trunk;
-    # "" falls back to {data.data_dir}/vgg16.pth when that file exists, else
-    # fixed random init (offline-runnable). See models/vgg.py.
+    # torch state dict (torchvision layout) of the taps' trunk; "" falls back
+    # to {data.data_dir}/vgg16.pth (vgg19.pth for VGG-19 taps) when that file
+    # exists, else fixed random init (offline-runnable). See models/vgg.py.
     vgg_ckpt: str = ""
     batch_size: int = 32
     # split each step's batch into this many sequential micro-batches and

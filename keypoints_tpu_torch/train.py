@@ -98,7 +98,7 @@ from keypoints_tpu_torch.data.synthetic import (moving_dots_pair,
                                                 scripted_pong_pair)
 from keypoints_tpu_torch.eval import keypoint_metrics
 from keypoints_tpu_torch.losses import l2_loss, make_perceptual_loss
-from keypoints_tpu_torch.models.vgg import make_feature_fn
+from keypoints_tpu_torch.models.vgg import make_feature_fn, split_taps
 from keypoints_tpu_torch.parallel import dp as dp_mod
 from keypoints_tpu_torch.parallel import multihost
 from keypoints_tpu_torch.training import (CaptureError, TrainState,
@@ -439,23 +439,27 @@ def make_loss(cfg: Config, device: torch.device | str = "cuda"
     in bf16 when ``train.compute_dtype`` is bfloat16 (the taps and the sum
     stay float32); ``None`` (the L2 default) otherwise.
 
-    The trunk's weights come from ``train.vgg_ckpt``, else from
-    ``{data.data_dir}/vgg16.pth`` when that file exists (a torchvision
-    ``vgg16`` state dict saved with ``torch.save``), else from the fixed
-    seeded init (``models.vgg``).
+    The taps name the trunk (``models.vgg.split_taps``): bare names are
+    VGG-16's, ``vgg19/relu3_2`` and the like VGG-19's. Its weights come
+    from ``train.vgg_ckpt``, else from ``{data.data_dir}/vgg16.pth`` (or
+    ``vgg19.pth``, the trunk's own) when that file exists (a torchvision
+    state dict of that trunk saved with ``torch.save``), else from the
+    fixed seeded init (``models.vgg``).
     """
     if cfg.train.loss != "perceptual":
         return None
     dtype = (torch.bfloat16 if cfg.train.compute_dtype == "bfloat16"
              else None)
+    layers = tuple(cfg.train.perceptual_layers)
+    trunk, _ = split_taps(layers)
     ckpt_path = cfg.train.vgg_ckpt or None
     if ckpt_path is None:
-        default = os.path.join(cfg.data.data_dir, "vgg16.pth")
+        default = os.path.join(cfg.data.data_dir, f"{trunk}.pth")
         if os.path.exists(default):
             ckpt_path = default
     if ckpt_path:
-        print(f"perceptual loss: VGG weights from {ckpt_path}", flush=True)
-    layers = tuple(cfg.train.perceptual_layers)
+        print(f"perceptual loss: {trunk.upper()} weights from {ckpt_path}",
+              flush=True)
     return make_perceptual_loss(
         make_feature_fn(layers, ckpt_path, dtype, device), layers)
 

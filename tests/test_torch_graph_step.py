@@ -7,7 +7,8 @@ step: they must draw exactly what the fresh generators of
 the warp draws and for the in-step sources. The refactored eager step is
 held to the committed JAX references (no JAX needed: the references are
 files). The ``cuda`` tests hold a small config's graphed step to its eager
-step bit for bit, for both pair modes and a streamed source, and the
+step bit for bit, for both pair modes, a streamed source and the VGG-19
+perceptual loss, and the
 data-parallel step's graphs to the eager DP step: one NCCL rank in this
 process and two gloo ranks on the card in subprocesses, each two graphs
 around an eager all-reduce; they skip here and
@@ -32,6 +33,7 @@ from keypoints_tpu_torch.checkpoint import (load_model_state,
 from keypoints_tpu_torch.configs import get_config
 from keypoints_tpu_torch.data.augment import draw_pair, pair_from_draws
 from keypoints_tpu_torch.data.records import FrameStore, episode_pairs
+from keypoints_tpu_torch.kernels import pool_cuda
 from keypoints_tpu_torch.parallel import dp
 from keypoints_tpu_torch.testing import (grad_norm_tolerance,
                                          random_flax_params, random_images,
@@ -51,6 +53,9 @@ SMALL = {"model.encoder_filters": (8, 16), "model.encoder_strides": (2, 2),
 # docs/PARITY.md's train bars, as chip_smoke.py holds the card to them
 TRAIN_RTOL = 1e-4
 TRAIN_KP_TOL = 1e-4
+# the celeba128_vgg19 configuration's taps (portbench/configs)
+VGG19_TAPS = ("vgg19/input", "vgg19/relu1_2", "vgg19/relu2_2",
+              "vgg19/relu3_2", "vgg19/relu4_2", "vgg19/relu5_2")
 
 
 def _small(preset="pong64", **over):
@@ -284,14 +289,23 @@ def _states_equal(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["warp", "temporal", "stream"])
+@pytest.mark.parametrize("case", ["warp", "temporal", "stream", "perceptual"])
 def test_graphed_step_equals_the_eager_step_bit_for_bit(case, cuda,
                                                         tmp_path,
                                                         monkeypatch):
     """1 eager + 4 replayed steps equal 5 eager steps: every parameter,
-    Adam's state and each step's metrics."""
+    Adam's state and each step's metrics. ``perceptual``: the VGG-19
+    perceptual loss in bf16 (the frozen trunk, its K6 pools forward and
+    backward) inside the graph."""
+    pools = (pool_cuda.launches, pool_cuda.bwd_launches)
     if case == "warp":
         cfg = _small("celeba128", **{"data.dataset": "synthetic_dots"})
+    elif case == "perceptual":
+        cfg = _small("celeba128", **{
+            "data.dataset": "synthetic_dots", "train.loss": "perceptual",
+            "train.perceptual_layers": VGG19_TAPS,
+            "train.compute_dtype": "bfloat16",
+            "data.data_dir": str(tmp_path)})
     elif case == "temporal":
         cfg = _small(**{"data.dataset": "synthetic_pong"})
     else:
@@ -304,9 +318,11 @@ def test_graphed_step_equals_the_eager_step_bit_for_bit(case, cuda,
     in_step = isinstance(sources[0], train_mod.InStepBatches)
     assert in_step == (case != "stream")
     eager, graphed = init_state(cfg, "cuda"), init_state(cfg, "cuda")
-    step = make_train_step(cfg)
+    loss = train_mod.make_loss(cfg, "cuda")
+    assert (loss is None) == (case != "perceptual")
+    step = make_train_step(cfg, loss=loss)
     graph_step = make_graphed_train_step(
-        cfg, graphed, source=sources[1] if in_step else None)
+        cfg, graphed, source=sources[1] if in_step else None, loss=loss)
     stream = None if in_step else iter(sources[1])
     for i, batch in enumerate(itertools.islice(
             sources[0] if not in_step else (sources[0].sample_at(j)
@@ -318,6 +334,11 @@ def test_graphed_step_equals_the_eager_step_bit_for_bit(case, cuda,
         assert torch.equal(want["grad_norm"], got["grad_norm"]), i
     assert len(graph_step.graphs) == 1
     _states_equal(eager, graphed)
+    # 6 eager steps and the capture went through K6 (a replay calls no
+    # wrapper), four pools forward twice and backward once a step
+    if case == "perceptual":
+        assert (pool_cuda.launches - pools[0],
+                pool_cuda.bwd_launches - pools[1]) == (7 * 8, 7 * 4)
 
 
 def _run_steps(state, fn, n):

@@ -2,12 +2,14 @@
 a profiler runs, into the profiler's trace and into totals by name.
 
 The CPU tests hold the helper's arithmetic, its trace events and its
-thread safety, and the serving front's one ``kp.extract.call`` a request.
+thread safety, the serving front's one ``kp.extract.call`` a request, and
+an eager perceptual step's ``kp.loss.perceptual`` and ``kp.loss.vgg``.
 The ``cuda`` tests hold the spans inside a ``GraphedBucket`` replay and a
 ``GraphedTrainStep`` replay; they skip here and run on the card with
 ``--noconftest`` (this file imports no JAX).
 """
 
+import copy
 import json
 import sys
 import threading
@@ -143,6 +145,58 @@ def test_a_cpu_extract_records_one_call_span_a_request():
     assert got["kp.extract.call"]["calls"] == 4
     assert got["kp.extract.read"]["calls"] == 5
     assert "kp.extract.upload" not in got    # the CPU runs eagerly
+
+
+VGG19_TAPS = ("vgg19/input", "vgg19/relu1_2", "vgg19/relu2_2",
+              "vgg19/relu3_2", "vgg19/relu4_2", "vgg19/relu5_2")
+
+
+def _perceptual_step(tmp_path):
+    """An eager CPU train step under the VGG-19 perceptual loss (seeded
+    trunk), its state and a batch."""
+    from keypoints_tpu_torch.train import make_loss
+    from keypoints_tpu_torch.training import init_state, make_train_step
+    cfg = apply_overrides(get_config("celeba128"), NARROW).override(**{
+        "train.loss": "perceptual", "train.perceptual_layers": VGG19_TAPS,
+        "train.batch_size": 2, "data.data_dir": str(tmp_path)})
+    state = init_state(cfg, "cpu")
+    batch = torch.rand((2, 3, 32, 32), generator=torch.Generator()
+                       .manual_seed(0))
+    return make_train_step(cfg, loss=make_loss(cfg, "cpu")), state, batch
+
+
+def test_an_eager_perceptual_step_spans_the_loss_and_each_trunk_pass(
+        tmp_path):
+    """One ``kp.loss.perceptual`` a step holding one ``kp.loss.vgg`` a trunk
+    pass (the reconstruction's and the target's)."""
+    step, state, batch = _perceptual_step(tmp_path)
+    with _cpu_profile():
+        step(state, batch)
+    got = span_totals()
+    loss, vgg = got["kp.loss.perceptual"], got["kp.loss.vgg"]
+    assert loss["calls"] == 1 and vgg["calls"] == 2
+    assert loss["self_seconds"] + vgg["seconds"] <= loss["seconds"]
+
+
+def test_without_a_profiler_the_loss_spans_build_nothing_and_move_nothing(
+        tmp_path, monkeypatch):
+    """No profiler: no trace event is built, nothing is recorded, and the
+    step's loss and gradients equal a profiled step's bit for bit."""
+    step, state, batch = _perceptual_step(tmp_path)
+    again = copy.deepcopy(state)
+    with _cpu_profile():
+        _, profiled = step(again, batch)
+    reset_spans()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a trace event built with no profiler")
+
+    monkeypatch.setattr(profiling, "_annotation", refuse)
+    _, plain = step(state, batch)
+    assert span_totals() == {}
+    assert torch.equal(plain["loss"], profiled["loss"])
+    for p, q in zip(state.model.parameters(), again.model.parameters()):
+        assert torch.equal(p.grad, q.grad)
 
 
 # --- on the card ---------------------------------------------------------

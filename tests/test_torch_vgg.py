@@ -19,7 +19,7 @@ from keypoints_tpu.models.vgg import make_feature_fn as jax_feature_fn
 from keypoints_tpu_torch.checkpoint import state_dict_from_flax
 from keypoints_tpu_torch.configs import get_config
 from keypoints_tpu_torch.losses import make_perceptual_loss
-from keypoints_tpu_torch.models.vgg import (VGG16Features, load_params,
+from keypoints_tpu_torch.models.vgg import (VGGFeatures, load_params,
                                             make_feature_fn,
                                             torchvision_rename_map)
 from keypoints_tpu_torch.testing import (random_vgg_params,
@@ -51,7 +51,7 @@ def test_trunk_taps_match_jax(layers):
     x = _images(2, 3, 32, seed=2)
     want = JaxVGG16Features(layers=layers).apply(
         {"params": params}, jnp.asarray(x).transpose(0, 2, 3, 1))
-    model = VGG16Features(layers)
+    model = VGGFeatures(layers)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in
                            state_dict_from_flax(params).items()})
     with torch.no_grad():
@@ -104,18 +104,18 @@ def test_strict_load_refuses_missing_keys_and_wrong_shapes(tmp_path):
     extra = {**state, "features.17.weight": torch.zeros(512, 256, 3, 3),
              "classifier.0.weight": torch.zeros(4, 8)}
     torch.save({"state_dict": extra}, tmp_path / "full.pth")
-    model = VGG16Features()
+    model = VGGFeatures()
     load_params(model, str(tmp_path / "full.pth"))
     torch.testing.assert_close(model.conv14.bias,
                                torch.from_numpy(params["conv14"]["bias"]))
     missing = {k: v for k, v in state.items() if k != "features.12.bias"}
     torch.save(missing, tmp_path / "missing.pth")
     with pytest.raises(KeyError, match="conv12.bias"):
-        load_params(VGG16Features(), str(tmp_path / "missing.pth"))
+        load_params(VGGFeatures(), str(tmp_path / "missing.pth"))
     wrong = {**state, "features.5.weight": torch.zeros(128, 32, 3, 3)}
     torch.save(wrong, tmp_path / "wrong.pth")
     with pytest.raises(ValueError, match="conv5.weight"):
-        load_params(VGG16Features(), str(tmp_path / "wrong.pth"))
+        load_params(VGGFeatures(), str(tmp_path / "wrong.pth"))
     assert torchvision_rename_map()["features.28"] == "conv28"
 
 
@@ -123,9 +123,9 @@ def test_default_init_is_flax_conv_default_in_distribution():
     """No checkpoint: a fixed init (the same on every call) with zero biases
     and kernels of std 1/sqrt(fan_in) within 5 % (flax's lecun-normal; the
     values differ from JAX's PRNGKey(17) draws)."""
-    model = VGG16Features()
+    model = VGGFeatures()
     load_params(model)
-    again = VGG16Features()
+    again = VGGFeatures()
     load_params(again)
     for name, p in model.state_dict().items():
         torch.testing.assert_close(p, again.state_dict()[name], rtol=0,
