@@ -259,6 +259,7 @@ rest of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import itertools
 import json
@@ -318,10 +319,13 @@ from keypoints_tpu_torch.ops.warp import upsample_field_aligned  # noqa: E402
 from keypoints_tpu_torch.serve import (build_parser, http_extract,  # noqa: E402
                                        http_meta, make_live_extract,
                                        make_server)
-from keypoints_tpu_torch.testing import (bf16_ulp,  # noqa: E402
+from keypoints_tpu_torch.models import autoencoder, nets  # noqa: E402
+from keypoints_tpu_torch.testing import (GROUP_NORM_BLOCKS,  # noqa: E402
+                                         GROUP_NORM_OTHER, bf16_ulp,
                                          decode_f32, fused_grad_tolerance,
                                          fused_map_tolerance,
                                          grad_norm_tolerance,
+                                         group_norm_inputs,
                                          group_norm_relu_edge,
                                          random_flax_params, random_images,
                                          softmax_grad_tolerance,
@@ -4478,25 +4482,18 @@ def serving_graphs_phase(card: str, bundle: bytes) -> list:
 
 
 # phase 39: celeba128 at the benchmark's paper widths
-# (portbench/configs/celeba128.json), its norm shapes (C, side) and how many
-# of a step's 23 blocks (8 of Phi, 8 of Psi, 7 of the decoder) have each
+# (portbench/configs/celeba128.json); its norm shapes and the further ones
+# are testing.GROUP_NORM_BLOCKS and GROUP_NORM_OTHER
 GN_PAPER = {"model.encoder_filters": (32, 32, 64, 64, 128, 128, 256, 256),
             "model.encoder_strides": (1, 1, 2, 1, 2, 1, 2, 1),
             "model.decoder_filters": (256, 256, 128, 128, 64, 64, 32),
             "model.decoder_upsample": (False, False, True, False, True, False,
                                        True)}
-GN_BLOCKS = {(32, 128): 5, (64, 64): 6, (128, 32): 6, (256, 16): 6}
+GN_BLOCKS = GROUP_NORM_BLOCKS
+GN_OTHER = GROUP_NORM_OTHER
 GN_GROUPS = 8
 GN_EPS = 1e-5
 GN_LABEL_BATCH = 256
-# further shapes: (what, (N, C, H, W), groups, unaligned)
-GN_OTHER = [("pose256 b128 32@256^2", (128, 32, 256, 256), 8, False),
-            ("transporter_atari b64 32@64^2", (64, 32, 64, 64), 8, False),
-            ("ragged 13x29, C/G 3", (6, 24, 13, 29), 8, False),
-            ("C/G 1", (5, 8, 9, 9), 8, False),
-            ("one group of 64 at 16^2", (4, 64, 16, 16), 1, False),
-            ("C/G 32 at 4^2", (3, 256, 4, 4), 8, False),
-            ("unaligned 32@16^2", (4, 32, 16, 16), 8, True)]
 # tolerances, a share of the largest |value| the plain version gives: f32
 # on both sides, the statistics' and dx's sums taken in another order; the
 # parameter gradients are sums of up to 2**23 f32 terms; bf16 outputs also
@@ -4508,39 +4505,30 @@ GN_PARAM_RTOL = 1e-4
 # and each gradient gets the most the edge's flips can move it as room)
 
 
-def _gn_inputs(shape, dtype, seed: int, unaligned: bool = False):
-    """Conv-like x (per-channel offsets), gamma about 1, beta about 0 and a
-    gradient, seeded on the card; ``unaligned``: x and the gradient 2
-    elements past a 16-byte boundary (the scalar path)."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    n, c = shape[:2]
-
-    def draw(*size):
-        return torch.randn(size, device="cuda", generator=gen)
-
-    x = (1.5 * draw(*shape) + draw(1, c, 1, 1)).to(dtype)
-    g = draw(*shape).to(dtype)
-    if unaligned:
-        x = torch.cat([x.new_zeros(2), x.flatten()])[2:].view(shape)
-        g = torch.cat([g.new_zeros(2), g.flatten()])[2:].view(shape)
-    return x, 1 + 0.5 * draw(c), 0.5 * draw(c), g
-
-
 def _gn_tol(want: torch.Tensor, rtol: float, bf16: bool) -> float:
     top = want.float().abs().max()
     return float(rtol * top + (bf16_ulp(top) if bf16 else 0.0))
 
 
 def _gn_check(what: str, shape, groups: int, dtype, seed: int,
-              unaligned: bool = False) -> None:
+              unaligned: bool = False, channels_last: bool = False) -> None:
     """The kernels against the plain version and its autograd at one shape,
-    and a second run of each bit for bit."""
-    x, w, b, g = _gn_inputs(shape, dtype, seed, unaligned)
+    and a second run of each bit for bit; ``channels_last``: the NHWC pair,
+    its y and dx in x's layout."""
+    x, w, b, g = group_norm_inputs(shape, dtype, seed, unaligned,
+                                   channels_last)
+    counts = (gnc.launches, gnc.nhwc_launches)
     got = gnc.group_norm_relu_fwd_cuda(x, w, b, groups, GN_EPS)
     got += gnc.group_norm_relu_bwd_cuda(g, x, got[1], got[2], w, b, groups)
     again = gnc.group_norm_relu_fwd_cuda(x, w, b, groups, GN_EPS)
     again += gnc.group_norm_relu_bwd_cuda(g, x, again[1], again[2], w, b,
                                           groups)
+    ran = (gnc.launches - counts[0], gnc.nhwc_launches - counts[1])
+    check(ran == ((0, 2) if channels_last else (2, 0)),
+          f"group norm {what}: (NCHW, NHWC) forward launches {ran}")
+    check(all(t.stride() == x.stride() for t in (got[0], got[3])),
+          f"group norm {what}: y and dx not in x's layout")
+    x, g = x.contiguous(), g.contiguous()
     xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
     y = plain_gn_relu(xr, groups, wr, br, GN_EPS)
     want = (y.detach(), *group_norm_relu_stats(x, groups, w, b, GN_EPS)[1:],
@@ -4564,7 +4552,8 @@ def _gn_check(what: str, shape, groups: int, dtype, seed: int,
         check(err <= tol, f"group norm {what} {dtype}: {name} max|d| {err} "
               f"> {tol}")
     same = all(torch.equal(a, c) for a, c in zip(got, again))
-    print(f"{what} {tuple(shape)} G={groups} {str(dtype)[6:]}: max|d| "
+    layout = " channels_last" if channels_last else ""
+    print(f"{what}{layout} {tuple(shape)} G={groups} {str(dtype)[6:]}: max|d| "
           f"(tolerance) {', '.join(report)} (gradients less the room of "
           f"{int(edge.sum())} values at the ReLU's edge); second run bit for "
           f"bit: {same}", flush=True)
@@ -4582,7 +4571,7 @@ def _gn_time_cases(batch: int, backward: bool) -> dict:
     cases = {}
     for c, side in GN_BLOCKS:
         shape = (batch, c, side, side)
-        x, w, b, g = _gn_inputs(shape, torch.bfloat16, c)
+        x, w, b, g = group_norm_inputs(shape, torch.bfloat16, c)
         _, mean, rstd = gnc.group_norm_relu_fwd_cuda(x, w, b, GN_GROUPS,
                                                      GN_EPS)
         xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
@@ -4612,11 +4601,13 @@ def _gn_time_cases(batch: int, backward: bool) -> dict:
 
 
 def group_norm_phase(card: str) -> None:
-    """The GroupNorm + ReLU kernels: correctness and determinism at every
-    norm shape of celeba128's paper-width train (b128) and label (b256)
-    cells and at pose256's, transporter_atari's and the general path's;
-    a paper-width train step's launches (wrappers, then its replays by the
-    profiler: no aten GroupNorm kernel left); times."""
+    """The GroupNorm + ReLU kernels: correctness and determinism of the
+    NCHW pair at every norm shape of celeba128's paper-width train (b128)
+    and label (b256) cells and at pose256's, transporter_atari's and the
+    general path's; a paper-width train step's launches (wrappers, then
+    its replays by the profiler: the NHWC pair, the nets being
+    channels_last; no aten GroupNorm kernel left); the NCHW pair's
+    times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     phase(f"39 group norm + ReLU kernels on {card}")
@@ -4637,15 +4628,18 @@ def group_norm_phase(card: str) -> None:
     state, _ = step(state, images)
     torch.cuda.synchronize()
     gnc.launches = gnc.bwd_launches = 0
+    gnc.nhwc_launches = gnc.nhwc_bwd_launches = 0
     state, _ = step(state, images)
     torch.cuda.synchronize()
-    eager = (gnc.launches, gnc.bwd_launches)
+    eager = (gnc.nhwc_launches, gnc.nhwc_bwd_launches)
     blocks = sum(GN_BLOCKS.values())
-    print(f"paper-width celeba128 b{TRAIN_BATCH}, an eager step: "
-          f"{eager[0]} forward and {eager[1]} backward launches by the "
-          f"wrappers ({blocks} blocks)", flush=True)
-    check(eager == (blocks, blocks), f"group norm launches a step {eager}, "
-          f"{blocks} each expected")
+    print(f"paper-width celeba128 b{TRAIN_BATCH}, an eager step "
+          f"(channels_last): {eager[0]} forward and {eager[1]} backward "
+          f"launches of the NHWC pair by the wrappers, "
+          f"{gnc.launches + gnc.bwd_launches} of the NCHW one ({blocks} "
+          f"blocks)", flush=True)
+    check(eager == (blocks, blocks) and gnc.launches + gnc.bwd_launches == 0,
+          f"group norm launches a step {eager}, {blocks} each expected")
     state = init_state(cfg, "cuda")
     step = make_graphed_train_step(cfg, state, loss=make_loss(cfg))
     for _ in range(4):
@@ -4661,16 +4655,16 @@ def group_norm_phase(card: str) -> None:
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     fns = [_kernel_name(n) for n in names]
     counts = {k: fns.count(k) / replays for k in (
-        "gn_relu_fwd_held", "gn_relu_fwd", "gn_relu_bwd",
-        "gn_relu_bwd_params")}
+        "gn_relu_fwd_held", "gn_relu_fwd", "gn_relu_bwd", "gn_relu_fwd_nhwc",
+        "gn_relu_bwd_nhwc", "gn_relu_bwd_params")}
     aten = sorted({n[:80] for n in names if "GroupNorm" in n or any(
         k in n for k in ("RowwiseMoments", "ComputeInternalGradients",
                          "ComputeFusedParams", "GammaBeta"))})
     print(f"a replayed step's group norm kernels (profiler): {counts}; aten "
           f"GroupNorm kernels left: {aten or 'none'}", flush=True)
-    check(counts["gn_relu_fwd_held"] + counts["gn_relu_fwd"] == blocks
-          and counts["gn_relu_bwd"] == counts["gn_relu_bwd_params"] == blocks,
-          f"a replayed step launched {counts}")
+    check(counts["gn_relu_fwd_nhwc"] == blocks
+          and counts["gn_relu_bwd_nhwc"] == counts["gn_relu_bwd_params"]
+          == blocks, f"a replayed step launched {counts}")
     check(not aten, f"aten GroupNorm kernels in a replayed step: {aten}")
     del state, step, images
     torch.cuda.empty_cache()
@@ -4691,6 +4685,220 @@ def group_norm_phase(card: str) -> None:
           f"({totals['bound_ms'] / totals['ms']:.1%}), plain chain "
           f"{totals['plain_ms']:.3f} ms, library bf16 chain "
           f"{totals['library_ms']:.3f} ms  [{card}]", flush=True)
+
+
+# phase 40: the NHWC pair and the channels_last nets; the shapes timed
+# beyond celeba128's, (what, (N, C, H, W)), forward and backward
+GN_NHWC_TIMED = [("pose256 b128", (128, 32, 256, 256)),
+                 ("transporter_atari b64", (64, 32, 64, 64))]
+TRANSPOSES = ("nchwToNhwc", "nhwcToNchw")
+
+
+@contextlib.contextmanager
+def nchw_nets():
+    """The nets as they ran before channels_last: NCHW activations on CUDA,
+    so the NCHW GroupNorm pair and cuDNN's transposes (the A/B's other
+    side)."""
+    saved = nets.memory_format, autoencoder.memory_format
+    nets.memory_format = autoencoder.memory_format = \
+        lambda x: torch.preserve_format
+    try:
+        yield
+    finally:
+        nets.memory_format, autoencoder.memory_format = saved
+
+
+def _gn_nhwc_time(what: str, shape, backward: bool, card: str) -> dict:
+    """bf16 at one shape: the NHWC pair, its bound, the NCHW pair on the
+    same values in NCHW, the library's bf16 chain on the channels_last
+    input; forward, and backward where asked. → {"fwd": {...}, "bwd":
+    {...}} in ms."""
+    x, w, b, g = group_norm_inputs(shape, torch.bfloat16, shape[1],
+                            channels_last=True)
+    xn, gn = x.contiguous(), g.contiguous()
+    _, mean, rstd = gnc.group_norm_relu_fwd_cuda(x, w, b, GN_GROUPS, GN_EPS)
+    xl = x.clone().requires_grad_(True)
+    wl, bl = (t.to(torch.bfloat16).requires_grad_(True) for t in (w, b))
+    numel, batch, c = x.numel(), shape[0], shape[1]
+    stats = batch * GN_GROUPS * 8 + c * 8
+    ways = {"fwd": (
+        lambda: gnc.group_norm_relu_fwd_cuda(x, w, b, GN_GROUPS, GN_EPS),
+        lambda: gnc.group_norm_relu_fwd_cuda(xn, w, b, GN_GROUPS, GN_EPS),
+        lambda: F.relu(F.group_norm(x, GN_GROUPS, wl, bl, GN_EPS)),
+        _bound(4 * numel + stats, 8 * numel)[0])}
+    if backward:
+        yl = F.relu(F.group_norm(xl, GN_GROUPS, wl, bl, GN_EPS))
+        ways["bwd"] = (
+            lambda: gnc.group_norm_relu_bwd_cuda(g, x, mean, rstd, w, b,
+                                                 GN_GROUPS),
+            lambda: gnc.group_norm_relu_bwd_cuda(gn, xn, mean, rstd, w, b,
+                                                 GN_GROUPS),
+            lambda: torch.autograd.grad(yl, (xl, wl, bl), g,
+                                        retain_graph=True),
+            _bound(6 * numel + stats + 2 * batch * c * 8, 12 * numel)[0])
+    out = {}
+    for way, (nhwc, nchw, library, bound) in ways.items():
+        t = {"nhwc_ms": cuda_median_ms(nhwc, reps=20),
+             "nchw_ms": cuda_median_ms(nchw, reps=20),
+             "library_ms": cuda_median_ms(library, reps=20),
+             "bound_ms": bound}
+        t["nhwc_again_ms"] = cuda_median_ms(nhwc, reps=20)
+        out[way] = t
+        print(f"gn_relu_{way}_nhwc {what} {c}@{shape[2]}x{shape[3]}: "
+              f"{t['nhwc_ms'] * 1e3:.2f} us (again "
+              f"{t['nhwc_again_ms'] * 1e3:.2f}), bound "
+              f"{bound * 1e3:.2f} us ({bound / t['nhwc_ms']:.1%}); NCHW "
+              f"pair {t['nchw_ms'] * 1e3:.2f} us; library bf16 chain "
+              f"(channels_last) {t['library_ms'] * 1e3:.2f} us  [{card}]",
+              flush=True)
+    return out
+
+
+def _transposes_by_conv(prof) -> tuple[dict, int]:
+    """cuDNN's layout transposes in a profiled eager step, by the conv op
+    that launched them: → ({(op, its 4-D input shapes): count}, transposes
+    under no conv op)."""
+    by_conv, loose = {}, 0
+    for e in prof.events():
+        kernels = [k.name for k in getattr(e, "kernels", [])]
+        n = sum(any(t in k for t in TRANSPOSES) for k in kernels)
+        if not n:
+            continue
+        op = e
+        while op is not None and "conv" not in op.name:
+            op = op.cpu_parent
+        if op is None:
+            loose += n
+            continue
+        key = (op.name, tuple(tuple(s) for s in op.input_shapes
+                              if len(s) == 4))
+        by_conv[key] = by_conv.get(key, 0) + n
+    return by_conv, loose
+
+
+def _at_boundary(shapes) -> bool:
+    """Whether a conv of these shapes is at a net's edge: the 3 image
+    channels in or out, or Psi's 10 heatmaps out (an activation's or a
+    weight's first two dims)."""
+    return any(d in (3, 10) for s in shapes for d in s[:2])
+
+
+def _paper_step(dtype: str, graphed: bool, preset: str = "celeba128"):
+    """A b128 train step on the card, warmed (and captured where
+    ``graphed``): → run(), one step. celeba128 at its paper widths, pose256
+    as its preset has it."""
+    over = GN_PAPER if preset == "celeba128" else {}
+    cfg = get_config(preset).override(
+        **over, **{"train.batch_size": TRAIN_BATCH,
+                   "train.compute_dtype": dtype})
+    images = torch.from_numpy(random_images(TRAIN_BATCH, cfg, 4)).cuda()
+    state = init_state(cfg, "cuda")
+    step = (make_graphed_train_step(cfg, state, loss=make_loss(cfg))
+            if graphed else make_train_step(cfg, loss=make_loss(cfg)))
+    for _ in range(3):
+        step(state, images)
+    torch.cuda.synchronize()
+    return lambda: step(state, images)
+
+
+def group_norm_nhwc_phase(card: str) -> None:
+    """The NHWC GroupNorm + ReLU pair and the channels_last nets: the pair
+    against plain at every phase-39 shape in bf16 and f32, twice bit for
+    bit; its times against its bound, the NCHW pair and the library's
+    bf16 chain; cuDNN's layout transposes left in a paper-width celeba128
+    step (by conv, from an eager step's profile; a graphed replay's total);
+    the step channels_last against NCHW in turns, graphed bf16 and eager
+    f32 (the f32 rule of ``nets.memory_format``), and pose256's graphed
+    bf16 step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    phase(f"40 NHWC group norm + ReLU and channels_last nets on {card}")
+    for dtype in (torch.bfloat16, torch.float32):
+        for batch in (TRAIN_BATCH, GN_LABEL_BATCH):
+            for c, side in GN_BLOCKS:
+                _gn_check(f"celeba128 b{batch}", (batch, c, side, side),
+                          GN_GROUPS, dtype, c + batch, channels_last=True)
+        for what, shape, groups, unaligned in GN_OTHER:
+            _gn_check(what, shape, groups, dtype, 7, unaligned,
+                      channels_last=True)
+        torch.cuda.empty_cache()
+
+    times = {}
+    for c, side in GN_BLOCKS:
+        times[(c, side)] = _gn_nhwc_time(
+            f"celeba128 b{TRAIN_BATCH}", (TRAIN_BATCH, c, side, side), True,
+            card)
+        _gn_nhwc_time(f"celeba128 b{GN_LABEL_BATCH}",
+                      (GN_LABEL_BATCH, c, side, side), False, card)
+        torch.cuda.empty_cache()
+    for what, shape in GN_NHWC_TIMED:
+        _gn_nhwc_time(what, shape, True, card)
+        torch.cuda.empty_cache()
+    blocks = sum(GN_BLOCKS.values())
+    for key in ("nhwc_ms", "nchw_ms", "bound_ms", "library_ms"):
+        total = sum(k * (times[cs]["fwd"][key] + times[cs]["bwd"][key])
+                    for cs, k in GN_BLOCKS.items())
+        print(f"a paper-width b{TRAIN_BATCH} step's {blocks} norms, forward "
+              f"and backward, {key[:-3]}: {total:.3f} ms  [{card}]",
+              flush=True)
+    for cs in GN_BLOCKS:
+        for way in ("fwd", "bwd"):
+            t = times[cs][way]
+            verdict = "no slower" if t["nhwc_ms"] <= t["nchw_ms"] else "SLOWER"
+            print(f"{way} {cs[0]}@{cs[1]}^2: NHWC {t['nhwc_ms'] * 1e3:.2f} "
+                  f"us against NCHW {t['nchw_ms'] * 1e3:.2f} us: {verdict}",
+                  flush=True)
+
+    # the transposes of an eager step, by conv, and of a graphed replay
+    run = _paper_step("bfloat16", graphed=False)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        run()
+        torch.cuda.synchronize()
+    by_conv, loose = _transposes_by_conv(prof)
+    on_card = sum(any(t in e.name for t in TRANSPOSES) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+    print(f"an eager paper-width step's layout transposes: {on_card} on "
+          f"the card, {sum(by_conv.values())} under a conv op, {loose} under "
+          f"none; by conv (op, 4-D input shapes): {by_conv}", flush=True)
+    attributed = sum(by_conv.values()) + loose
+    inside = {k: n for k, n in by_conv.items() if not _at_boundary(k[1])}
+    print(f"... between two blocks of Phi, Psi or the decoder: "
+          f"{sum(inside.values())}", flush=True)
+    del run
+    run = _paper_step("bfloat16", graphed=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(PROFILE_EDGE_CYCLES)
+        run()
+        torch.cuda._sleep(PROFILE_EDGE_CYCLES)
+        torch.cuda.synchronize()
+    replay = sum(any(t in e.name for t in TRANSPOSES) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+    print(f"a graphed replay's layout transposes: {replay}", flush=True)
+    del run
+    torch.cuda.empty_cache()
+
+    # the step both ways, in turns on one card; pose256's blocks at 256^2
+    # take the NHWC pair's read-twice path
+    for preset, dtype, graphed, steps in (
+            ("celeba128", "bfloat16", True, 30),
+            ("celeba128", "float32", False, 20),
+            ("pose256", "bfloat16", True, 10)):
+        ms = {"channels_last": [], "nchw": []}
+        for side in ("channels_last", "nchw", "nchw", "channels_last",
+                     "channels_last", "nchw"):
+            with (nchw_nets() if side == "nchw" else contextlib.nullcontext()):
+                run = _paper_step(dtype, graphed, preset)
+                ms[side].append(_step_ms(run, steps)[0])
+                del run
+                torch.cuda.empty_cache()
+        print(f"{preset} b{TRAIN_BATCH} {dtype} "
+              f"{'graphed' if graphed else 'eager'} step, ms in turns: "
+              f"channels_last {ms['channels_last']}, NCHW {ms['nchw']}  "
+              f"[{card}]", flush=True)
+    check(attributed == on_card,
+          f"transposes attributed {attributed} of {on_card}")
+    check(not inside, f"layout transposes between blocks: {inside}")
 
 
 def main() -> int:
@@ -4767,6 +4975,7 @@ def main() -> int:
     path_counts.extend(dp_graph_phase(card))
     path_counts.extend(serving_graphs_phase(card, paths["bundle"]))
     group_norm_phase(card)
+    group_norm_nhwc_phase(card)
 
     errs["spatial_softmax_fwd"] = max(errs["spatial_softmax_fwd"],
                                       served["serve_max_abs_err"])

@@ -47,13 +47,56 @@
 // kernels, so the backward recomputes the forward's f32 value before its
 // rounding, and its ReLU mask, bit for bit: no y and no f32 copy is kept.
 // Nothing allocates or synchronises: CUDA graphs capture both.
+//
+// NHWC (channels_last) pair, gn_relu_fwd_nhwc and gn_relu_bwd_nhwc: the
+// same math (shifted sums, pinned affine, the mask recomputed, no float
+// atomics) over another layout. cuDNN's bf16 convs on sm90 are NHWC
+// kernels, so the nets hand them channels_last activations, and the norm
+// between two convs must take that layout or the transposes come back. In
+// NHWC a group of a sample is not contiguous: each pixel holds C/G
+// channels of it beside the other groups' (8 bytes at C = 32 in bf16); a
+// sample, H * W * C values, is. So a cluster of CTAs takes a sample, CTA
+// rank k the k-th run of its pixels, and the cluster adds its sums over
+// distributed shared memory. The runs are cut to fit kStageBytes (64 KB;
+// celeba128's 1 MiB samples at 32@128^2 in bf16 take 16 CTAs, a cluster
+// above the portable 8) and copied into shared memory with cp.async, so
+// both passes read them there, with three CTAs an SM: device memory is
+// read once and written once. A column is one 16-byte vector of a pixel's
+// channels (or one value, on the scalar path); thread t takes column t %
+// cols' (cols' = C / vector rounded up to a power of two; threads past the
+// columns idle) of pixels t / cols', t / cols' + rows, ... of the run (a
+// sweep is rows = kNhwcThreads / cols' pixels), so a thread's channels are
+// fixed and neighbouring threads read neighbouring vectors. A thread keeps
+// its channels' sums in registers: the backward's per-(n, c) sums of dz
+// and dz * (x - mean) need no cross-lane work until the end. Lanes of one
+// column meet by shuffles, then warps or rows in shared memory, a group's
+// channels in a warp, the cluster's CTAs as a tree (added in a row, 16
+// slots and 64 channels put a one-group mean past the tolerance the NCHW
+// pair meets). The forward reads the other CTAs' group sums after the
+// cluster's barrier. The backward stages x and dL/dy where both fit, else
+// x alone and reads dL/dy twice (the second time from L2); it copies its
+// runs in kChunks commit groups and sums each chunk as it lands, pushes
+// its groups' gamma-weighted sums into every CTA's shared memory before
+// the cluster's one barrier, and writes its run's (n, c) sums to its own
+// row of the parameters' scratch, which gn_relu_bwd_params adds up. Where
+// x is not staged (the scalar path: C not a multiple of a vector,
+// unaligned tensors; runs too long for a cluster), the clusters loop over
+// samples, as many as keep kReuseBytes in flight, so the second read
+// finds the first's lines in L2. On the H100 the pair still takes
+// 1.2-1.7x the NCHW pair's time at celeba128's shapes (PERF.md, with the
+// designs measured slower).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <utility>
 
 #include "common.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 using kpcommon::kWarp;
 using kpcommon::warp_sum;
@@ -70,6 +113,20 @@ constexpr long long kReuseBytes = 24LL << 20;
 constexpr int kMaxGroupChannels = 4096;
 // the parameter-gradient kernel: 32 channels a block, kParamRows rows of n
 constexpr int kParamRows = 8;
+// NHWC: threads a CTA, and channels at most (a column a thread)
+constexpr int kNhwcThreads = 256;
+constexpr int kNhwcWarps = kNhwcThreads / kWarp;
+// NHWC backward: CTAs an SM its registers must leave room for
+constexpr int kNhwcBlocks = 3;
+// NHWC: CTAs a cluster (a sample) at most; above the portable 8, which
+// Hopper allows on request (group_norm_cuda.MAX_NHWC_CLUSTER)
+constexpr int kMaxCluster = 16;
+// NHWC: bytes of a CTA's runs staged in shared memory at most: three CTAs
+// an SM, so one's copies and passes overlap another's
+constexpr long long kStageBytes = 64 << 10;
+// NHWC: commit groups a run is copied in; pass 1 sums each as it lands
+constexpr int kChunks = 4;
+constexpr size_t kDefaultSmem = 48 * 1024;  // without an opt-in
 
 template <typename T>
 struct Elems;
@@ -153,14 +210,20 @@ struct Affine {
   float a, b;
 };
 
-// Channel c's affine over its slice's statistics: z = x * a + b with
-// a = gamma * rstd, b = beta - mu * a, every rounding pinned, so both
-// kernels compute the same z.
+// A channel's affine over its slice's statistics: z = x * a + b with
+// a = gamma * rstd, b = beta - mu * a, every rounding pinned, so every
+// kernel computes the same z.
+__device__ __forceinline__ Affine affine_of(float gamma, float beta,
+                                            float mean, float rstd) {
+  const float a = __fmul_rn(gamma, rstd);
+  return {a, __fmaf_rn(-mean, a, beta)};
+}
+
+// affine_of() for channel c of gamma and beta in device memory.
 __device__ __forceinline__ Affine affine(const float* gamma,
                                          const float* beta, int c,
                                          float mean, float rstd) {
-  const float a = __fmul_rn(__ldg(gamma + c), rstd);
-  return {a, __fmaf_rn(-mean, a, __ldg(beta + c))};
+  return affine_of(__ldg(gamma + c), __ldg(beta + c), mean, rstd);
 }
 
 __device__ __forceinline__ float pre_relu(float x, Affine f) {
@@ -426,6 +489,481 @@ gn_relu_bwd_params(const float2* __restrict__ part,
   }
 }
 
+// ---- NHWC ----------------------------------------------------------------
+
+// The cluster's barrier in halves: arrive after the last read of another
+// CTA's shared memory, wait before this CTA's is written again or it exits.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// 16 bytes from device memory to shared memory, asynchronously, through L2
+// alone; copies_commit() closes a group of them, copies_wait() waits.
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copies_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most `pending` (< kChunks) of this thread's committed
+// groups are in flight
+__device__ __forceinline__ void copies_wait(int pending) {
+  static_assert(kChunks == 4, "one wait_group a count");
+  switch (pending) {
+    case 0:
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      break;
+    case 1:
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      break;
+    case 2:
+      asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+      break;
+    default:
+      asm volatile("cp.async.wait_group 3;\n" ::: "memory");
+  }
+}
+
+// The block's copies of 16-byte vectors [v0, v1) from src to dst.
+__device__ __forceinline__ void stage(void* dst, const void* src,
+                                     long long v0, long long v1) {
+  for (long long i = v0 + threadIdx.x; i < v1; i += kNhwcThreads)
+    copy16(static_cast<uint4*>(dst) + i, static_cast<const uint4*>(src) + i);
+}
+
+// E values at p, in shared or device memory (a generic pointer): one
+// 16-byte vector or one value.
+__device__ __forceinline__ float load_one(const float* p) { return *p; }
+
+__device__ __forceinline__ float load_one(const __nv_bfloat16* p) {
+  const unsigned short bits = *reinterpret_cast<const unsigned short*>(p);
+  return __uint_as_float(static_cast<unsigned>(bits) << 16);
+}
+
+template <typename T, int E>
+__device__ __forceinline__ void load_any(const T* p, float (&v)[E]) {
+  if constexpr (E == 1)
+    v[0] = load_one(p);
+  else
+    unpack(*reinterpret_cast<const uint4*>(p), v);
+}
+
+// An NHWC launch's shape: n samples of p pixels of c channels in groups of
+// cg; 2^lg columns a sweep (rounded up); a CTA's run is `sweeps` sweeps;
+// the first `staged` of the tensors a pass reads (x, then dL/dy) are
+// copied to shared memory first, the others read twice from device
+// memory.
+struct Nhwc {
+  long long n;
+  int p, c, groups, cg, lg, sweeps, staged;
+};
+
+// The float2 pairs channel_sums stages a block: a warp's first 2^lg lanes
+// where 2^lg <= 32, else every thread, E pairs each.
+__host__ __device__ __forceinline__ int red_pairs(int lg, int e) {
+  return ((1 << lg) <= kWarp ? kNhwcWarps << lg : kNhwcThreads) * e;
+}
+
+// Where a thread reads: its column (E channels from c0), its first pixel
+// in its CTA's run (row) and the run's pixels [lo, hi) in the sample;
+// `active` where the column exists.
+struct Lane {
+  int c0, row, rows, lo, hi;
+  bool active;
+};
+
+__device__ __forceinline__ Lane lane_of(const Nhwc& sh, int e, int rank) {
+  const int rows = kNhwcThreads >> sh.lg;
+  const int col = threadIdx.x & ((1 << sh.lg) - 1);
+  const int lo = min(rank * rows * sh.sweeps, sh.p);
+  return {col * e, static_cast<int>(threadIdx.x >> sh.lg), rows, lo,
+          min(lo + rows * sh.sweeps, sh.p), col * e < sh.c};
+}
+
+// The sum of N pairs as a tree: (0 + N/2), ..., then halves again.
+template <int N>
+__device__ __forceinline__ float2 tree_sum(float2 (&v)[N]) {
+#pragma unroll
+  for (int w = N / 2; w > 0; w /= 2) {
+#pragma unroll
+    for (int i = 0; i < w; ++i) {
+      v[i].x += v[i + w].x;
+      v[i].y += v[i + w].y;
+    }
+  }
+  return v[0];
+}
+
+// The CTA's sums of each channel's pair: v[e] holds this thread's for
+// channel c0 + e (zeros where it holds none) -> chan[c], c < C. Lanes of a
+// column meet by shuffles; then, where 2^lg <= 32, a warp's first 2^lg
+// lanes, else every thread, put theirs in red (red_pairs), one slot a warp
+// or a row, and the slots (at most kNhwcWarps) meet as a tree. Ends with
+// the block synchronised.
+template <int E>
+__device__ void channel_sums(float2 (&v)[E], const Nhwc& sh, float2* red,
+                             float2* chan) {
+  const int cols_p = 1 << sh.lg;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  for (int o = kWarp / 2; o >= cols_p; o >>= 1) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      v[e].x += __shfl_xor_sync(kpcommon::kFull, v[e].x, o);
+      v[e].y += __shfl_xor_sync(kpcommon::kFull, v[e].y, o);
+    }
+  }
+  const bool by_warp = cols_p <= kWarp;
+  const int slot = by_warp ? warp : threadIdx.x >> sh.lg;
+  const int col = threadIdx.x & (cols_p - 1);
+  const int slots = by_warp ? kNhwcWarps : kNhwcThreads >> sh.lg;
+  if ((!by_warp || lane < cols_p) && col * E < sh.c) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) red[(slot * cols_p + col) * E + e] = v[e];
+  }
+  __syncthreads();
+  // slot s's pair of channel ch, column ch / E, is red[s * cols_p * E + ch]
+  for (int ch = threadIdx.x; ch < sh.c; ch += kNhwcThreads) {
+    float2 t[kNhwcWarps];
+#pragma unroll
+    for (int i = 0; i < kNhwcWarps; ++i)
+      t[i] = i < slots ? red[i * cols_p * E + ch] : make_float2(0.0f, 0.0f);
+    chan[ch] = tree_sum(t);
+  }
+  __syncthreads();
+}
+
+// Chunk q of a run of `sweeps` sweeps: sweeps [first, last).
+struct Chunk {
+  int first, last;
+};
+
+__device__ __forceinline__ Chunk chunk_of(int q, int sweeps) {
+  const int per = (sweeps + kChunks - 1) / kChunks;
+  return {min(q * per, sweeps), min((q + 1) * per, sweeps)};
+}
+
+// Copy the CTA's run of x (and of dL/dy where g_dst) into shared memory,
+// one commit group a chunk.
+template <typename T>
+__device__ void stage_run(T* x_dst, const T* x_src, T* g_dst,
+                          const T* g_src, const Nhwc& sh, const Lane& ln) {
+  const long long px = ln.hi - ln.lo, vectors_px = sh.c / Elems<T>::kVec;
+  for (int q = 0; q < kChunks; ++q) {
+    const Chunk ch = chunk_of(q, sh.sweeps);
+    const long long v0 = min(static_cast<long long>(ch.first) * ln.rows, px);
+    const long long v1 = min(static_cast<long long>(ch.last) * ln.rows, px);
+    stage(x_dst, x_src, v0 * vectors_px, v1 * vectors_px);
+    if (g_dst) stage(g_dst, g_src, v0 * vectors_px, v1 * vectors_px);
+    copies_commit();
+  }
+}
+
+// Before pass 1 reads chunk q of a staged run: this thread's copies of it
+// done, then everyone's.
+__device__ __forceinline__ void chunk_landed(int q, bool staged) {
+  if (staged) {
+    copies_wait(kChunks - 1 - q);
+    __syncthreads();
+  }
+}
+
+// The cluster's sum of src[i] (shared memory of each CTA), ranks as a tree.
+__device__ __forceinline__ float2 cluster_sum(cg::cluster_group& cluster,
+                                              int ranks, float2* src,
+                                              int i) {
+  float2 v[kMaxCluster];
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r)
+    v[r] = r < ranks ? cluster.map_shared_rank(src, r)[i]
+                     : make_float2(0.0f, 0.0f);
+  return tree_sum(v);
+}
+
+// Push this CTA's n pairs `mine` to slot `rank` of every CTA's `recv`
+// (ranks slots of n pairs), so that after the cluster's barrier each CTA
+// adds the ranks' pairs from its own shared memory.
+__device__ __forceinline__ void push(cg::cluster_group& cluster, int ranks,
+                                     int rank, const float2* mine,
+                                     float2* recv, int n) {
+  for (int i = threadIdx.x; i < ranks * n; i += kNhwcThreads)
+    cluster.map_shared_rank(recv, i / n)[rank * n + i % n] = mine[i % n];
+}
+
+// The sum over the ranks' slots of pair i in recv (n pairs a slot), as a
+// tree.
+__device__ __forceinline__ float2 ranks_sum(const float2* recv, int ranks,
+                                            int n, int i) {
+  float2 v[kMaxCluster];
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r)
+    v[r] = r < ranks ? recv[r * n + i] : make_float2(0.0f, 0.0f);
+  return tree_sum(v);
+}
+
+// Forward over NHWC, a cluster a sample (the clusters loop over the
+// samples where x is read twice). Dynamic shared memory: the staged run
+// (sh.staged * sweeps * rows * C values), then red_pairs + C + 2 * groups
+// float2, then groups floats.
+template <typename T, int E>
+__global__ void __launch_bounds__(kNhwcThreads)
+gn_relu_fwd_nhwc(const T* __restrict__ x, const float* __restrict__ gamma,
+                 const float* __restrict__ beta, T* __restrict__ y,
+                 float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                 Nhwc sh, float eps) {
+  extern __shared__ float4 nhwc_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const Lane ln = lane_of(sh, E, rank);
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int groups = sh.groups;
+  T* run = reinterpret_cast<T*>(nhwc_smem);
+  float2* red = reinterpret_cast<float2*>(
+      run + static_cast<long long>(sh.staged) * sh.sweeps * ln.rows * sh.c);
+  float2* chan = red + red_pairs(sh.lg, E);
+  float2* grp = chan + sh.c;  // the CTA's group sums, read by the cluster
+  float2* stat = grp + groups;
+  float* piv = reinterpret_cast<float*>(stat + groups);
+  const int m = sh.p * sh.cg;
+  const long long first = static_cast<long long>(ln.lo) * sh.c;
+  const long long sample = static_cast<long long>(sh.p) * sh.c;
+  const long long step = gridDim.x / ranks;
+  // a channel's gamma and beta, the same for every sample
+  float gm[E], bt[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int c = ln.active ? ln.c0 + e : 0;
+    gm[e] = __ldg(gamma + c);
+    bt[e] = __ldg(beta + c);
+  }
+  for (long long n = blockIdx.x / ranks; n < sh.n; n += step) {
+    const T* xs = x + n * sample;
+    if (sh.staged) {
+      stage(run, xs + first, 0,
+            (ln.hi - ln.lo) * static_cast<long long>(sh.c) / Elems<T>::kVec);
+      copies_commit();
+    }
+    if (threadIdx.x < groups)
+      piv[threadIdx.x] = load1(xs + threadIdx.x * sh.cg);
+    copies_wait(0);
+    __syncthreads();
+    const T* src = sh.staged ? run : xs + first;
+    float pv[E];
+    float2 acc[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      pv[e] = ln.active ? piv[(ln.c0 + e) / sh.cg] : 0.0f;
+      acc[e] = make_float2(0.0f, 0.0f);
+    }
+    if (ln.active) {
+#pragma unroll 4
+      for (int px = ln.row; px < ln.hi - ln.lo; px += ln.rows) {
+        float v[E];
+        load_any<T, E>(src + static_cast<long long>(px) * sh.c + ln.c0, v);
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          accumulate(v[e], pv[e], &acc[e].x, &acc[e].y);
+      }
+    }
+    channel_sums<E>(acc, sh, red, chan);
+    // a group's channels: a warp a group, its lanes over the channels
+    for (int g = warp; g < groups; g += kNhwcWarps) {
+      float2 t = make_float2(0.0f, 0.0f);
+      for (int j = lane; j < sh.cg; j += kWarp) {
+        t.x += chan[g * sh.cg + j].x;
+        t.y += chan[g * sh.cg + j].y;
+      }
+      t.x = warp_sum(t.x);
+      t.y = warp_sum(t.y);
+      if (lane == 0) grp[g] = t;
+    }
+    cluster.sync();
+    for (int g = threadIdx.x; g < groups; g += kNhwcThreads) {
+      const Stats st =
+          slice_stats(cluster_sum(cluster, ranks, grp, g), piv[g], m, eps);
+      stat[g] = make_float2(st.mean, st.rstd);
+      if (rank == 0) {
+        mean_out[n * groups + g] = st.mean;
+        rstd_out[n * groups + g] = st.rstd;
+      }
+    }
+    cluster_arrive();  // done with the other CTAs' shared memory
+    __syncthreads();
+    Affine f[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const float2 s = stat[(ln.active ? ln.c0 + e : 0) / sh.cg];
+      f[e] = affine_of(gm[e], bt[e], s.x, s.y);
+    }
+    T* ys = y + n * sample + first;
+    if (ln.active) {
+#pragma unroll 4
+      for (int px = ln.row; px < ln.hi - ln.lo; px += ln.rows) {
+        const long long at = static_cast<long long>(px) * sh.c + ln.c0;
+        float v[E];
+        load_any<T, E>(src + at, v);
+#pragma unroll
+        for (int e = 0; e < E; ++e) v[e] = relu(pre_relu(v[e], f[e]));
+        store<T, E>(ys + at, v);
+      }
+    }
+    cluster_wait();  // nobody reads this CTA's grp any more
+    __syncthreads();  // the run is off every pass: the next copy may go
+  }
+}
+
+// Backward over NHWC, a cluster a sample (the clusters loop over the
+// samples where a tensor is read twice). part: (N * ranks * C) float2 of
+// (sum dz * xhat, sum dz) over each CTA's run, row n * ranks + rank; the
+// groups' gamma-weighted sums are pushed as in the forward. Dynamic shared
+// memory: the staged runs (x, then dL/dy), then red_pairs + C + groups +
+// 2 * ranks * groups + 2 * groups float2.
+template <typename T, int E>
+__global__ void __launch_bounds__(kNhwcThreads, kNhwcBlocks)
+gn_relu_bwd_nhwc(const T* __restrict__ dy, const T* __restrict__ x,
+                 const float* __restrict__ mean_in,
+                 const float* __restrict__ rstd_in,
+                 const float* __restrict__ gamma,
+                 const float* __restrict__ beta, T* __restrict__ dx,
+                 float2* __restrict__ part, Nhwc sh) {
+  extern __shared__ float4 nhwc_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster_arrive();  // this CTA has started: others may push into it
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const Lane ln = lane_of(sh, E, rank);
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int groups = sh.groups;
+  const long long run_values =
+      static_cast<long long>(sh.sweeps) * ln.rows * sh.c;
+  T* run_x = reinterpret_cast<T*>(nhwc_smem);
+  T* run_g = run_x + run_values;
+  float2* red = reinterpret_cast<float2*>(run_x + sh.staged * run_values);
+  float2* chan = red + red_pairs(sh.lg, E);
+  float2* gw = chan + sh.c;
+  float2* recv = gw + groups;  // two slots of ranks * groups pairs
+  float2* stat = recv + 2 * ranks * groups;
+  float2* terms = stat + groups;
+  const float inv_m = 1.0f / static_cast<float>(sh.p * sh.cg);
+  const long long first = static_cast<long long>(ln.lo) * sh.c;
+  const long long sample = static_cast<long long>(sh.p) * sh.c;
+  const long long step = gridDim.x / ranks;
+  int slot = 0;
+  for (long long n = blockIdx.x / ranks; n < sh.n; n += step, slot ^= 1) {
+    const long long base = n * sample;
+    if (sh.staged)
+      stage_run<T>(run_x, x + base + first, sh.staged > 1 ? run_g : nullptr,
+                   dy + base + first, sh, ln);
+    for (int g = threadIdx.x; g < groups; g += kNhwcThreads)
+      stat[g] = make_float2(mean_in[n * groups + g], rstd_in[n * groups + g]);
+    __syncthreads();
+    const T* xs = sh.staged > 0 ? run_x : x + base + first;
+    const T* gs = sh.staged > 1 ? run_g : dy + base + first;
+    // a thread's channels: the affine, the mean (rstd is a group's, put
+    // in at the sums)
+    float mean[E];
+    Affine f[E];
+    float2 acc[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int c = ln.active ? ln.c0 + e : 0;
+      const float2 s = stat[c / sh.cg];
+      mean[e] = s.x;
+      f[e] = affine(gamma, beta, c, s.x, s.y);
+      acc[e] = make_float2(0.0f, 0.0f);
+    }
+    // pass 1, chunk by chunk as the copies land: this thread's channels'
+    // sums of dz and dz * (x - mean)
+    for (int q = 0; q < kChunks; ++q) {
+      chunk_landed(q, sh.staged);
+      const Chunk ch = chunk_of(q, sh.sweeps);
+      if (!ln.active) continue;
+#pragma unroll 2
+      for (int i = ch.first; i < ch.last; ++i) {
+        const int px = ln.row + i * ln.rows;
+        if (px >= ln.hi - ln.lo) break;
+        const long long at = static_cast<long long>(px) * sh.c + ln.c0;
+        float xv[E], gv[E];
+        load_any<T, E>(xs + at, xv);
+        load_any<T, E>(gs + at, gv);
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const float dz = passes(pre_relu(xv[e], f[e])) ? gv[e] : 0.0f;
+          acc[e].x += dz;
+          acc[e].y = fmaf(dz, xv[e] - mean[e], acc[e].y);
+        }
+      }
+    }
+    channel_sums<E>(acc, sh, red, chan);
+    // this run's (n, c) sums of dz * xhat and dz, for the parameters
+    float2* row = part + (n * ranks + rank) * sh.c;
+    for (int c = threadIdx.x; c < sh.c; c += kNhwcThreads)
+      row[c] = make_float2(chan[c].y * stat[c / sh.cg].y, chan[c].x);
+    // a group's gamma-weighted sums: a warp a group, its lanes over the
+    // channels
+    for (int g = warp; g < groups; g += kNhwcWarps) {
+      float a = 0.0f, b = 0.0f;
+      for (int j = lane; j < sh.cg; j += kWarp) {
+        const int c = g * sh.cg + j;
+        const float w = __ldg(gamma + c);
+        a = fmaf(w, chan[c].x, a);
+        b = fmaf(w, chan[c].y, b);
+      }
+      a = warp_sum(a);
+      b = warp_sum(b);
+      if (lane == 0) gw[g] = make_float2(a, b);
+    }
+    __syncthreads();
+    if (n == blockIdx.x / ranks) cluster_wait();  // every CTA has started
+    float2* in = recv + slot * ranks * groups;
+    push(cluster, ranks, rank, gw, in, groups);
+    cluster.sync();
+    // dx's group terms: rstd * sum(gamma dz) / m, and rstd *
+    // sum(gamma dz xhat) / m times rstd, for x - mean in place of xhat
+    for (int g = threadIdx.x; g < groups; g += kNhwcThreads) {
+      const float2 t = ranks_sum(in, ranks, groups, g);
+      const float r = stat[g].y;
+      terms[g] = make_float2(r * (t.x * inv_m), r * (r * (r * (t.y * inv_m))));
+    }
+    __syncthreads();
+    float ka[E], kb[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const float2 k = terms[(ln.active ? ln.c0 + e : 0) / sh.cg];
+      ka[e] = k.x;
+      kb[e] = k.y;
+    }
+    // pass 2: dx = rstd * (gamma dz - sum(gamma dz) / m - xhat *
+    // sum(gamma dz xhat) / m)
+    T* ds = dx + base + first;
+    if (ln.active) {
+#pragma unroll 2
+      for (int px = ln.row; px < ln.hi - ln.lo; px += ln.rows) {
+        const long long at = static_cast<long long>(px) * sh.c + ln.c0;
+        float xv[E], gv[E];
+        load_any<T, E>(xs + at, xv);
+        load_any<T, E>(gs + at, gv);
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const float dz = passes(pre_relu(xv[e], f[e])) ? gv[e] : 0.0f;
+          xv[e] = fmaf(f[e].a, dz, -fmaf(xv[e] - mean[e], kb[e], ka[e]));
+        }
+        store<T, E>(ds + at, xv);
+      }
+    }
+    __syncthreads();  // the runs are off every pass: the next copy may go
+  }
+}
+
 // Blocks of a grid that reads each slice twice: slices in flight fill at
 // most kReuseBytes, but at least one block an SM, at most one a slice.
 unsigned persistent_blocks(long long count, int sms, long long slice_bytes) {
@@ -527,6 +1065,134 @@ void launch_bwd(bool vec, int sms, long long count, const void* dy,
         gi, xi, mi, ri, g, b, o, p, cnt, groups, cg, hw, parts);
 }
 
+// An NHWC launch: the shape, the cluster (CTAs a sample), the blocks and
+// the dynamic shared memory.
+struct NhwcPlan {
+  Nhwc sh;
+  int cluster;
+  unsigned blocks;
+  size_t smem;
+};
+
+// tensors: those a pass reads (1 forward: x; 2 backward: x, dL/dy); e:
+// values a column; vec: 16-byte vectors. The cluster is the fewest CTAs
+// (a power of two up to kMaxCluster) whose runs of every tensor fit
+// kStageBytes, and as many tensors as fit are staged (vectors only). Where
+// x is read twice, the clusters loop over the samples, as many as keep
+// kReuseBytes in flight but at least one CTA an SM; where x is staged and
+// dL/dy is not, what the card holds at once keeps dL/dy's runs in L2.
+NhwcPlan plan_nhwc(long long n, int c, int groups, int hw, int e,
+                   int tensors, int elem, bool vec, int sms) {
+  int lg = 0;
+  while ((1 << lg) < c / e) ++lg;
+  const int rows = kNhwcThreads >> lg;
+  const int sweeps = (hw + rows - 1) / rows;
+  const long long sweep_bytes = static_cast<long long>(rows) * c * elem;
+  int cluster = 1;
+  while (cluster < kMaxCluster &&
+         (sweeps + cluster - 1) / cluster * sweep_bytes * tensors >
+             kStageBytes)
+    cluster *= 2;
+  const int per = (sweeps + cluster - 1) / cluster;
+  int staged = 0;
+  while (vec && staged < tensors &&
+         (staged + 1) * per * sweep_bytes <= kStageBytes)
+    ++staged;
+  long long clusters = n;
+  if (staged == 0) {
+    clusters = kReuseBytes /
+               ((tensors - staged) * static_cast<long long>(hw) * c * elem);
+    const long long least = (sms + cluster - 1) / cluster;
+    if (clusters < least) clusters = least;
+    if (clusters > n) clusters = n;
+  }
+  // the forward's pairs (red, chan, grp, stat) and pivots; the
+  // backward's (red, chan, gw, two slots of pushes, stat, terms)
+  const long long pairs =
+      red_pairs(lg, e) + c +
+      (tensors == 1 ? 2 * groups
+                    : (3 + 2 * static_cast<long long>(cluster)) * groups);
+  const size_t smem = staged * per * sweep_bytes + sizeof(float2) * pairs +
+                      (tensors == 1 ? sizeof(float) * groups : 0);
+  return {{n, hw, c, groups, c / groups, lg, per, staged}, cluster,
+          static_cast<unsigned>(clusters * cluster), smem};
+}
+
+// Launch `kernel` over plan's blocks in clusters of plan.cluster CTAs,
+// opting in to its shared memory and to a cluster above the portable 8.
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), const NhwcPlan& plan,
+                           cudaStream_t s, Args&&... args) {
+  if (plan.smem > kDefaultSmem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(plan.smem));
+    if (e != cudaSuccess) return e;
+  }
+  if (plan.cluster > 8) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(plan.cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(plan.blocks);
+  cfg.blockDim = dim3(kNhwcThreads);
+  cfg.dynamicSmemBytes = plan.smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+}
+
+template <typename T, int E>
+cudaError_t launch_fwd_nhwc(int sms, long long n, int c, int groups, int hw,
+                            float eps, const void* x, const void* gamma,
+                            const void* beta, void* y, void* mean,
+                            void* rstd, cudaStream_t s) {
+  const NhwcPlan p = plan_nhwc(n, c, groups, hw, E, 1, sizeof(T), E > 1,
+                               sms);
+  return launch_cluster(gn_relu_fwd_nhwc<T, E>, p, s,
+                        static_cast<const T*>(x),
+                        static_cast<const float*>(gamma),
+                        static_cast<const float*>(beta), static_cast<T*>(y),
+                        static_cast<float*>(mean), static_cast<float*>(rstd),
+                        p.sh, eps);
+}
+
+// *cluster: the CTAs a sample, so part's rows, N * *cluster.
+template <typename T, int E>
+cudaError_t launch_bwd_nhwc(int sms, long long n, int c, int groups, int hw,
+                            const void* dy, const void* x, const void* mean,
+                            const void* rstd, const void* gamma,
+                            const void* beta, void* dx, void* part,
+                            cudaStream_t s, int* cluster) {
+  const NhwcPlan p = plan_nhwc(n, c, groups, hw, E, 2, sizeof(T), E > 1,
+                               sms);
+  *cluster = p.cluster;
+  return launch_cluster(
+      gn_relu_bwd_nhwc<T, E>, p, s, static_cast<const T*>(dy),
+      static_cast<const T*>(x), static_cast<const float*>(mean),
+      static_cast<const float*>(rstd), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<T*>(dx),
+      static_cast<float2*>(part), p.sh);
+}
+
+// The NHWC shapes: C up to a column a thread, vectors only where C holds
+// whole ones, a sample under 2**31 values.
+bool valid_nhwc(int dtype, int vec, int sms, long long n, int c, int groups,
+                int hw) {
+  if (!valid(dtype, sms, n, c, groups, hw) || c > kNhwcThreads ||
+      static_cast<long long>(hw) * c >= (1LL << 31))
+    return false;
+  return !vec || c % (dtype == 0 ? Elems<float>::kVec
+                                 : Elems<__nv_bfloat16>::kVec) == 0;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, y, dL/dy, dL/dx alike; gamma, beta,
@@ -582,5 +1248,63 @@ extern "C" int kp_gn_relu_bwd(int dtype, int vec, int sms, long long n,
                             static_cast<float*>(dgamma),
                             static_cast<float*>(dbeta),
                             static_cast<int>(n), c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The NHWC pair: x, y, dL/dy, dL/dx (N, H, W, C) in memory (channels_last
+// (N, C, H, W)); the rest, the arguments and the vector rule as above, save
+// that vec needs C (not H * W) a multiple of 16 / sizeof(dtype), and that
+// the backward's part holds N * 16 * C * 2 floats (a row a CTA of a
+// sample's cluster). C at most 256.
+extern "C" int kp_gn_relu_fwd_nhwc(int dtype, int vec, int sms, long long n,
+                                   int c, int groups, int hw, float eps,
+                                   const void* x, const void* gamma,
+                                   const void* beta, void* y, void* mean,
+                                   void* rstd, void* stream) {
+  if (!valid_nhwc(dtype, vec, sms, n, c, groups, hw))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+  const cudaError_t err =
+      dtype == 0 ? (vec ? launch_fwd_nhwc<float, 4>
+                        : launch_fwd_nhwc<float, 1>)(
+                       sms, n, c, groups, hw, eps, x, gamma, beta, y, mean,
+                       rstd, s)
+                 : (vec ? launch_fwd_nhwc<bf16, 8>
+                        : launch_fwd_nhwc<bf16, 1>)(
+                       sms, n, c, groups, hw, eps, x, gamma, beta, y, mean,
+                       rstd, s);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+extern "C" int kp_gn_relu_bwd_nhwc(int dtype, int vec, int sms, long long n,
+                                   int c, int groups, int hw, const void* dy,
+                                   const void* x, const void* mean,
+                                   const void* rstd, const void* gamma,
+                                   const void* beta, void* dx, void* part,
+                                   void* dgamma, void* dbeta, void* stream) {
+  if (!valid_nhwc(dtype, vec, sms, n, c, groups, hw))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+  int cluster = 1;
+  if (n > 0) {
+    const cudaError_t err =
+        dtype == 0 ? (vec ? launch_bwd_nhwc<float, 4>
+                          : launch_bwd_nhwc<float, 1>)(
+                         sms, n, c, groups, hw, dy, x, mean, rstd, gamma,
+                         beta, dx, part, s, &cluster)
+                   : (vec ? launch_bwd_nhwc<bf16, 8>
+                          : launch_bwd_nhwc<bf16, 1>)(
+                         sms, n, c, groups, hw, dy, x, mean, rstd, gamma,
+                         beta, dx, part, s, &cluster);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  gn_relu_bwd_params<<<(c + kWarp - 1) / kWarp, dim3(kWarp, kParamRows), 0,
+                       s>>>(static_cast<const float2*>(part),
+                            static_cast<float*>(dgamma),
+                            static_cast<float*>(dbeta),
+                            static_cast<int>(n * cluster), c);
   return static_cast<int>(cudaGetLastError());
 }

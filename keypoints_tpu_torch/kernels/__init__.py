@@ -128,14 +128,19 @@ def group_norm_relu(x: torch.Tensor, norm: torch.nn.GroupNorm
     """``relu(norm(x))`` for a conv block's ``(N, C, H, W)`` output, in
     ``x``'s dtype, statistics and affine in float32 (``norm``'s groups, eps
     and float32 weight and bias): on CUDA the GroupNorm + ReLU kernels
-    (forward and backward, ``group_norm_cuda.GroupNormReLU``), on CPU
-    ``ops.group_norm.group_norm_relu``, whose gradient is autograd's.
-    Differentiable in ``x`` and the affine parameters on both."""
+    (forward and backward, ``group_norm_cuda.GroupNormReLU``), picked by
+    ``x``'s strides: channels_last (``group_norm_cuda.nhwc``) the NHWC
+    pair, NCHW-contiguous the NCHW pair, anything else made contiguous
+    first; on CPU ``ops.group_norm.group_norm_relu`` on NCHW, whose gradient
+    is autograd's. Differentiable in ``x`` and the affine parameters on
+    both."""
     if _on_cuda(x, "GroupNorm + ReLU"):
+        if not group_norm_cuda.nhwc(x):
+            x = x.contiguous()
         return group_norm_cuda.group_norm_relu_autograd(
-            x.contiguous(), norm.weight, norm.bias, norm.num_groups, norm.eps)
-    return _plain_group_norm_relu(x, norm.num_groups, norm.weight, norm.bias,
-                                  norm.eps)
+            x, norm.weight, norm.bias, norm.num_groups, norm.eps)
+    return _plain_group_norm_relu(x.contiguous(), norm.num_groups,
+                                  norm.weight, norm.bias, norm.eps)
 
 
 def extract_and_render(heatmaps: torch.Tensor, out_height: int,

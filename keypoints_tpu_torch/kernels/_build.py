@@ -141,15 +141,19 @@ def launch(fn: ctypes._CFuncPtr, on: torch.Tensor, what: str, *args) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
 
 
-def require(tensor: torch.Tensor, what: str, dtypes: tuple, ndim: int) -> None:
-    """Raise unless ``tensor`` is a contiguous CUDA tensor of ``ndim`` dims
-    and one of ``dtypes``: the kernels take nothing else."""
+def require(tensor: torch.Tensor, what: str, dtypes: tuple, ndim: int,
+            memory_format: torch.memory_format = torch.contiguous_format
+            ) -> None:
+    """Raise unless ``tensor`` is a CUDA tensor of ``ndim`` dims, one of
+    ``dtypes``, contiguous in ``memory_format``: the kernels take nothing
+    else."""
     if tensor.device.type != "cuda":
         raise ValueError(f"{what} needs a CUDA tensor, got {tensor.device}")
     if tensor.dtype not in dtypes:
         names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
         raise ValueError(f"{what} needs {names}, got {tensor.dtype}")
-    if tensor.ndim != ndim or not tensor.is_contiguous():
+    dense = tensor.is_contiguous(memory_format=memory_format)
+    if tensor.ndim != ndim or not dense:
         raise ValueError(f"{what} needs a contiguous {ndim}-D tensor, got "
                          f"shape {tuple(tensor.shape)}"
-                         f"{'' if tensor.is_contiguous() else ' (strided)'}")
+                         f"{'' if dense else ' (strided)'}")

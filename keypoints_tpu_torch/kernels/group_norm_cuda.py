@@ -9,6 +9,14 @@ forward and one backward (PERF.md). :class:`GroupNormReLU` is the
 and the float32 statistics, and the backward recomputes the normalised
 value and the ReLU mask from them; no output and no float32 copy is kept.
 
+Two kernel pairs, chosen by the input's own layout: an NCHW-contiguous
+``x`` takes the NCHW pair (``gn_relu_fwd*``, ``gn_relu_bwd``), a
+channels_last-contiguous one (the nets' activations on CUDA, where cuDNN's
+convs are NHWC kernels) the NHWC pair (``gn_relu_fwd_nhwc``,
+``gn_relu_bwd_nhwc``, a cluster of CTAs a sample), with up to
+``MAX_NHWC_CHANNELS`` channels (:func:`nhwc`). Outputs and the input's
+gradient come back in ``x``'s layout.
+
 The plain PyTorch version is ``keypoints_tpu_torch.ops.group_norm``: the
 tests and ``chip_smoke.py`` hold the kernels against it and its autograd.
 
@@ -37,25 +45,45 @@ VECTOR_BYTES = 16
 #: channels a group at most (the backward keeps per-part sums of a group's
 #: channels in 48 KB of shared memory)
 MAX_GROUP_CHANNELS = 4096
+#: channels at most of a channels_last input (a column of channels a thread)
+MAX_NHWC_CHANNELS = 256
+#: CTAs a sample at most in the NHWC kernels: the backward's scratch has a
+#: row of (N, C) partial sums for each
+MAX_NHWC_CLUSTER = 16
 
 #: forward kernel launches so far; the wrapper adds one per launch, nowhere else
 launches = 0
 #: backward launches so far (the input-gradient kernel and the parameter
 #: gradients' reduction, one call)
 bwd_launches = 0
+#: launches of the NHWC pair so far, forward and backward (counted there,
+#: not in ``launches`` and ``bwd_launches``)
+nhwc_launches = 0
+nhwc_bwd_launches = 0
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 
 
+def nhwc(x: torch.Tensor) -> bool:
+    """Whether ``x`` goes to the NHWC pair: a 4-D channels_last-contiguous
+    tensor that is not NCHW-contiguous too (at C = 1 or H * W = 1 the two
+    layouts are one and the NCHW pair takes it), of at most
+    ``MAX_NHWC_CHANNELS`` channels."""
+    return (x.ndim == 4 and not x.is_contiguous()
+            and x.is_contiguous(memory_format=torch.channels_last)
+            and x.shape[1] <= MAX_NHWC_CHANNELS)
+
+
 def check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
           groups: int, what: str) -> None:
-    """Raise unless the kernels take these: ``x`` a contiguous 4-D float32
-    or bfloat16 CUDA tensor with C a multiple of ``groups``, at most
+    """Raise unless the kernels take these: ``x`` a 4-D float32 or
+    bfloat16 CUDA tensor, contiguous or taken by the NHWC pair
+    (:func:`nhwc`), with C a multiple of ``groups``, at most
     ``MAX_GROUP_CHANNELS`` channels a group and a group of a sample under
     2**31 values; ``weight`` and ``bias`` contiguous float32 ``(C,)`` on
     ``x``'s device."""
-    _build.require(x, what, tuple(DTYPES), 4)
+    _build.require(x, what, tuple(DTYPES), 4, _layout(x))
     n, c, h, w = x.shape
     if groups < 1 or c % groups:
         raise ValueError(f"{what} needs C a multiple of groups, got C={c}, "
@@ -74,11 +102,17 @@ def check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                              f"got {tuple(t.shape)} on {t.device}")
 
 
+def _layout(x: torch.Tensor) -> torch.memory_format:
+    return torch.channels_last if nhwc(x) else torch.contiguous_format
+
+
 def _vec(x: torch.Tensor, *tensors: torch.Tensor) -> int:
-    """1 where the vector path holds: H*W a multiple of a vector's elements
-    and every pointer on a vector boundary."""
+    """1 where the vector path holds: the innermost extent (H*W in NCHW, C
+    in NHWC) a multiple of a vector's elements and every pointer on a
+    vector boundary."""
     per_vector = VECTOR_BYTES // x.element_size()
-    return int(x.shape[2] * x.shape[3] % per_vector == 0 and all(
+    inner = x.shape[1] if nhwc(x) else x.shape[2] * x.shape[3]
+    return int(inner % per_vector == 0 and all(
         t.data_ptr() % VECTOR_BYTES == 0 for t in (x, *tensors)))
 
 
@@ -90,29 +124,35 @@ def group_norm_relu_fwd_cuda(x: torch.Tensor, weight: torch.Tensor,
                              bias: torch.Tensor, groups: int, eps: float
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
-    """Forward kernel: ``x`` ``(N, C, H, W)`` contiguous f32 or bf16 CUDA,
+    """Forward kernel: ``x`` ``(N, C, H, W)`` f32 or bf16 CUDA, contiguous
+    (the NCHW kernel) or channels_last (the NHWC one, :func:`nhwc`),
     ``weight`` and ``bias`` (C) f32 → ``(y, mean, rstd)``: ``y =
-    relu(GroupNorm(x))`` in ``x``'s dtype, ``mean`` and ``rstd`` ``(N,
-    groups)`` f32. Launches on the current stream and does not synchronise;
-    raises on what the kernel does not take (:func:`check`). Carries no
-    gradient: :class:`GroupNormReLU` does."""
-    global launches
+    relu(GroupNorm(x))`` in ``x``'s dtype and layout, ``mean`` and ``rstd``
+    ``(N, groups)`` f32. Launches on the current stream and does not
+    synchronise; raises on what the kernel does not take (:func:`check`).
+    Carries no gradient: :class:`GroupNormReLU` does."""
+    global launches, nhwc_launches
     check(x, weight, bias, groups, "group_norm_relu_fwd_cuda")
+    channels_last = nhwc(x)
     n, c, h, w = x.shape
     y = torch.empty_like(x)
     mean = torch.empty((n, groups), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
     if x.numel() == 0:
         return y, mean, rstd
-    fn = _build.entry("kp_gn_relu_fwd", _I, _I, _I, _L, _I, _I, _I, _F, _P,
-                      _P, _P, _P, _P, _P, _P)
-    _build.launch(fn, x, f"gn_relu_fwd ({n}x{c}x{h}x{w}, {groups} groups)",
+    name = "gn_relu_fwd_nhwc" if channels_last else "gn_relu_fwd"
+    fn = _build.entry(f"kp_{name}", _I, _I, _I, _L, _I, _I, _I, _F, _P, _P,
+                      _P, _P, _P, _P, _P)
+    _build.launch(fn, x, f"{name} ({n}x{c}x{h}x{w}, {groups} groups)",
                   DTYPES[x.dtype], _vec(x, y), _sms(x.device), n, c, groups,
                   h * w, float(eps), x.data_ptr(), weight.data_ptr(),
                   bias.data_ptr(), y.data_ptr(), mean.data_ptr(),
                   rstd.data_ptr())
     with _build.lock:
-        launches += 1
+        if channels_last:
+            nhwc_launches += 1
+        else:
+            launches += 1
     return y, mean, rstd
 
 
@@ -122,14 +162,16 @@ def group_norm_relu_bwd_cuda(grad: torch.Tensor, x: torch.Tensor,
                              groups: int
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
-    """Backward kernels: ``dL/dy`` and ``x`` as for the forward (same shape
-    and dtype), the forward's ``mean`` and ``rstd``, ``weight`` and ``bias``
-    → ``(dL/dx, dL/dweight, dL/dbias)``, the first in ``x``'s dtype, the
-    others f32 (C,), summed over N in a fixed order."""
-    global bwd_launches
+    """Backward kernels: ``dL/dy`` and ``x`` as for the forward (same shape,
+    dtype and layout), the forward's ``mean`` and ``rstd``, ``weight`` and
+    ``bias`` → ``(dL/dx, dL/dweight, dL/dbias)``, the first in ``x``'s
+    dtype and layout, the others f32 (C,), summed over N in a fixed
+    order."""
+    global bwd_launches, nhwc_bwd_launches
     what = "group_norm_relu_bwd_cuda"
     check(x, weight, bias, groups, what)
-    _build.require(grad, f"{what} grad", (x.dtype,), 4)
+    channels_last = nhwc(x)
+    _build.require(grad, f"{what} grad", (x.dtype,), 4, _layout(x))
     n, c, h, w = x.shape
     if grad.shape != x.shape or grad.device != x.device:
         raise ValueError(f"{what} grad must be {tuple(x.shape)} on "
@@ -142,19 +184,24 @@ def group_norm_relu_bwd_cuda(grad: torch.Tensor, x: torch.Tensor,
                              f"{x.device}, got {tuple(t.shape)} on "
                              f"{t.device}")
     dx = torch.empty_like(x)
-    part = torch.empty((n, c, 2), dtype=torch.float32, device=x.device)
+    rows = n * MAX_NHWC_CLUSTER if channels_last else n
+    part = torch.empty((rows, c, 2), dtype=torch.float32, device=x.device)
     dweight = torch.empty_like(weight)
     dbias = torch.empty_like(bias)
-    fn = _build.entry("kp_gn_relu_bwd", _I, _I, _I, _L, _I, _I, _I, _P, _P,
-                      _P, _P, _P, _P, _P, _P, _P, _P, _P)
-    _build.launch(fn, x, f"gn_relu_bwd ({n}x{c}x{h}x{w}, {groups} groups)",
+    name = "gn_relu_bwd_nhwc" if channels_last else "gn_relu_bwd"
+    fn = _build.entry(f"kp_{name}", _I, _I, _I, _L, _I, _I, _I, _P, _P, _P,
+                      _P, _P, _P, _P, _P, _P, _P, _P)
+    _build.launch(fn, x, f"{name} ({n}x{c}x{h}x{w}, {groups} groups)",
                   DTYPES[x.dtype], _vec(x, grad, dx), _sms(x.device), n, c,
                   groups, h * w, grad.data_ptr(), x.data_ptr(),
                   mean.data_ptr(), rstd.data_ptr(), weight.data_ptr(),
                   bias.data_ptr(), dx.data_ptr(), part.data_ptr(),
                   dweight.data_ptr(), dbias.data_ptr())
     with _build.lock:
-        bwd_launches += 1
+        if channels_last:
+            nhwc_bwd_launches += 1
+        else:
+            bwd_launches += 1
     return dx, dweight, dbias
 
 
@@ -171,11 +218,14 @@ def group_norm_relu_op(x: torch.Tensor, weight: torch.Tensor,
 
 @group_norm_relu_op.register_kernel("cpu")
 def _group_norm_relu_op_cpu(x, weight, bias, groups, eps):
-    return group_norm_relu_stats(x, groups, weight, bias, eps)
+    y, mean, rstd = group_norm_relu_stats(x.contiguous(), groups, weight,
+                                          bias, eps)
+    return torch.empty_like(x).copy_(y), mean, rstd
 
 
 @group_norm_relu_op.register_fake
 def _group_norm_relu_op_fake(x, weight, bias, groups, eps):
+    """The shapes, and ``y`` in ``x``'s strides, as both kernels give it."""
     stats = x.new_empty((x.shape[0], groups), dtype=torch.float32)
     return torch.empty_like(x), stats, torch.empty_like(stats)
 
@@ -184,7 +234,7 @@ class GroupNormReLU(torch.autograd.Function):
     """``relu(GroupNorm(x))`` with the CUDA forward (through the custom op)
     and the CUDA backward. Saves ``x``, the statistics and the affine
     parameters; the incoming gradient is cast to ``x``'s dtype and made
-    contiguous first."""
+    contiguous in ``x``'s layout first, and ``dL/dx`` comes back in it."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, groups, eps):
@@ -198,8 +248,8 @@ class GroupNormReLU(torch.autograd.Function):
     def backward(ctx, grad):
         x, mean, rstd, weight, bias = ctx.saved_tensors
         dx, dweight, dbias = group_norm_relu_bwd_cuda(
-            grad.to(x.dtype).contiguous(), x, mean, rstd, weight, bias,
-            ctx.groups)
+            grad.to(x.dtype).contiguous(memory_format=_layout(x)), x, mean,
+            rstd, weight, bias, ctx.groups)
         return dx, dweight, dbias, None, None
 
 

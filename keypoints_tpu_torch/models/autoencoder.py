@@ -7,9 +7,11 @@
     x̂_tgt = decoder(concat(fmap, G))   # reconstruct the target
 
 Images are NCHW in [0, 1]. The heatmaps reach the bottleneck as float32
-(the CUDA soft-argmax and raster on CUDA, their plain versions on CPU); the
-maps are cast to the feature map's dtype and concatenated after it along the
-channels; the reconstruction comes back as float32.
+NCHW (the CUDA soft-argmax and raster on CUDA, their plain versions on
+CPU); the maps are cast to the feature map's dtype and layout (channels_last
+on CUDA, ``nets.memory_format``: ``torch.cat`` of mixed layouts would give
+the decoder NCHW) and concatenated after it along the channels; the
+reconstruction comes back as float32 NCHW.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ from torch import nn
 
 from keypoints_tpu_torch.coords import DEFAULT_ALIGN_CORNERS
 from keypoints_tpu_torch.kernels import extract_and_render, spatial_softmax
-from keypoints_tpu_torch.models.nets import Decoder, Encoder, KeyNet
+from keypoints_tpu_torch.models.nets import (Decoder, Encoder, KeyNet,
+                                             f32_nchw, memory_format)
 
 
 class KeypointAutoencoder(nn.Module):
@@ -50,7 +53,7 @@ class KeypointAutoencoder(nn.Module):
 
     def extract_keypoints(self, x: torch.Tensor) -> torch.Tensor:
         """NCHW images → (B, K, 2) keypoints; heatmaps go in as float32."""
-        hm = self.keynet(x).float().contiguous()
+        hm = f32_nchw(self.keynet(x))
         return spatial_softmax(hm, self.temperature, self.softmax_variant,
                                self.align_corners)
 
@@ -58,9 +61,10 @@ class KeypointAutoencoder(nn.Module):
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """(NCHW src, NCHW tgt) → (reconstruction NCHW f32, keypoints (B, K, 2))."""
         fmap = self.encoder(x_source)                        # (B, F, h, w)
-        hm = self.keynet(x_target).float().contiguous()      # (B, K, h, w)
+        hm = f32_nchw(self.keynet(x_target))                 # (B, K, h, w)
         h, w = fmap.shape[2:]
         kp, maps = extract_and_render(hm, h, w, self.temperature, self.sigma,
                                       self.softmax_variant, self.align_corners)
-        recon = self.decoder(torch.cat([fmap, maps.to(fmap.dtype)], dim=1))
-        return recon.float(), kp
+        maps = maps.to(fmap.dtype, memory_format=memory_format(fmap))
+        recon = self.decoder(torch.cat([fmap, maps], dim=1))
+        return f32_nchw(recon), kp

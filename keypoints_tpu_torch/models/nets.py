@@ -1,9 +1,20 @@
 """Conv stacks Φ (``Encoder``), Ψ (``KeyNet``) and the decoder — port of ``keypoints_tpu/models/nets.py``.
 
-Plain conv3×3 / GroupNorm / ReLU blocks, NCHW (PyTorch's layout; the JAX
-package runs NHWC inside and adapts at the model boundary, so the public
-layouts agree). Convs use torch's explicit ``padding=1``, the padding the
-JAX package spells ``((1, 1), (1, 1))``, never "same".
+Plain conv3×3 / GroupNorm / ReLU blocks, NCHW at the boundary (PyTorch's
+layout; the JAX package runs NHWC inside and adapts at the model boundary,
+so the public layouts agree). Convs use torch's explicit ``padding=1``, the
+padding the JAX package spells ``((1, 1), (1, 1))``, never "same".
+
+Memory layout (:func:`memory_format`): on CUDA every activation from a
+net's entry to its head is channels_last (NHWC in memory). cuDNN's convs on
+sm90 are NHWC kernels, so an NCHW activation costs a transpose of each
+conv's input and output, forward and in both halves of the backward: the
+largest device cost of the train step before. The entry's cast to the
+compute dtype lays the input out in the same copy, each conv's weight cast
+too (:func:`_weight`), and the GroupNorm + ReLU kernels have an NHWC pair
+that takes the conv's output as it comes. The float32 parameters stay
+NCHW, so state dicts, checkpoints, the optimizer and the DP gradient bucket
+do not change. On the CPU the layout stays NCHW, as it was.
 
 Submodules are named after the flax parameter paths (``Conv_{i}``,
 ``GroupNorm_{i}``, ``head``), so the state dict that
@@ -36,6 +47,52 @@ import torch.nn.functional as F
 from torch import nn
 
 from keypoints_tpu_torch.kernels import group_norm_relu
+
+
+def memory_format(x: torch.Tensor) -> torch.memory_format:
+    """The layout of the nets' activations for an input ``x``: channels_last
+    on CUDA, whatever the compute dtype (a float32 eager step is no slower
+    channels_last on the H100: ``chip_smoke.py`` phase 40), ``x``'s own on
+    the CPU."""
+    return torch.channels_last if x.is_cuda else torch.preserve_format
+
+
+def f32_nchw(t: torch.Tensor) -> torch.Tensor:
+    """A head's output as float32 NCHW, in one copy: what the bottleneck
+    kernels and the losses take."""
+    return t.to(torch.float32, memory_format=torch.contiguous_format)
+
+
+class _CastWeight(torch.autograd.Function):
+    """``w.to(dtype, memory_format=torch.channels_last)``, whose gradient
+    comes back in ``w``'s dtype and NCHW layout in the one copy that casts
+    it. Autograd's own ``.to`` would hand the parameter a channels_last
+    gradient, which ``.grad`` (taken as it comes, or the DP bucket's view)
+    then copies once more."""
+
+    @staticmethod
+    def forward(ctx, w, dtype):
+        ctx.dtype = w.dtype
+        return w.to(dtype, memory_format=torch.channels_last)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.to(ctx.dtype, memory_format=torch.contiguous_format), None
+
+
+def _weight(w: torch.Tensor, dtype: torch.dtype, x: torch.Tensor
+            ) -> torch.Tensor:
+    """A conv's weight ``w`` cast to ``dtype`` in the layout of its input
+    ``x``: channels_last for a channels_last CUDA ``x`` (one copy; cuDNN
+    would make it otherwise), else ``w.to(dtype)``, which launches nothing
+    where the dtype already matches. Serving's frozen weights are laid out
+    once (``training.freeze_for_inference``), so this launches nothing
+    there either."""
+    if not (x.is_cuda and x.is_contiguous(memory_format=torch.channels_last)):
+        return w.to(dtype)
+    if w.requires_grad and torch.is_grad_enabled():
+        return _CastWeight.apply(w, dtype)
+    return w.to(dtype, memory_format=torch.channels_last)
 
 # nearest-up(2x) + conv3x3 == one stride-2 transposed conv with a 4x4 kernel,
 # a fixed linear map of the 3x3 one: per axis k4 = A w, with
@@ -75,7 +132,7 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.compute_dtype
-        return self._conv_forward(x.to(d), self.weight.to(d),
+        return self._conv_forward(x.to(d), _weight(self.weight, d, x),
                                   self.bias.to(d))
 
 
@@ -106,8 +163,8 @@ class UpsampleConv(Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.compute_dtype
         k4 = _up_taps(_up_taps(self.weight, 2), 3).transpose(0, 1)
-        return F.conv_transpose2d(x.to(d), k4.to(d), self.bias.to(d),
-                                  stride=2, padding=1)
+        return F.conv_transpose2d(x.to(d), _weight(k4, d, x),
+                                  self.bias.to(d), stride=2, padding=1)
 
 
 class Encoder(nn.Module):
@@ -133,7 +190,7 @@ class Encoder(nn.Module):
             cin = f
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.compute_dtype)
+        x = x.to(self.compute_dtype, memory_format=memory_format(x))
         for conv, norm in self.blocks:
             x = group_norm_relu(conv(x), norm)
         return x
@@ -181,7 +238,7 @@ class Decoder(nn.Module):
         self.head = Conv2d(cin, out_channels, 3, padding=1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.compute_dtype)
+        x = x.to(self.compute_dtype, memory_format=memory_format(x))
         for conv, norm in self.blocks:
             x = group_norm_relu(conv(x), norm)
         return self.head(x)

@@ -26,7 +26,8 @@ from torch import nn
 
 from keypoints_tpu_torch.coords import DEFAULT_ALIGN_CORNERS
 from keypoints_tpu_torch.kernels import extract_and_render, spatial_softmax
-from keypoints_tpu_torch.models.nets import Decoder, Encoder, KeyNet
+from keypoints_tpu_torch.models.nets import (Decoder, Encoder, KeyNet,
+                                             f32_nchw)
 
 
 class Transporter(nn.Module):
@@ -61,7 +62,7 @@ class Transporter(nn.Module):
         ``jnp.max``'s VJP does (coincident keypoints; maps that underflow to
         0); ``max(dim).values`` would send it all to one index.
         """
-        hm = self.keynet(x).float().contiguous()            # (B, K, h, w)
+        hm = f32_nchw(self.keynet(x))                       # (B, K, h, w)
         h, w = hm.shape[2:]
         kp, g = extract_and_render(hm, h, w, self.temperature, self.sigma,
                                    self.softmax_variant, self.align_corners)
@@ -69,7 +70,7 @@ class Transporter(nn.Module):
 
     def extract_keypoints(self, x: torch.Tensor) -> torch.Tensor:
         """NCHW images → (B, K, 2) keypoints; heatmaps go in as float32."""
-        hm = self.keynet(x).float().contiguous()
+        hm = f32_nchw(self.keynet(x))
         return spatial_softmax(hm, self.temperature, self.softmax_variant,
                                self.align_corners)
 
@@ -85,4 +86,4 @@ class Transporter(nn.Module):
         g_s = g_s.to(phi_t.dtype)
         g_t = g_t.to(phi_t.dtype)
         transported = (1.0 - g_s) * (1.0 - g_t) * phi_s + g_t * phi_t
-        return self.decoder(transported).float(), kp_t
+        return f32_nchw(self.decoder(transported)), kp_t

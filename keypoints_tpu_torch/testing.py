@@ -193,6 +193,47 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 #: such values too, ~1 in 10**8 at celeba128's 32@128^2)
 GROUP_NORM_EDGE = 1e-4
 
+#: celeba128 at the benchmark's paper widths (portbench/configs/celeba128
+#: .json): its norm shapes (C, side) and how many of a step's 23 blocks (8
+#: of Phi, 8 of Psi, 7 of the decoder) have each
+GROUP_NORM_BLOCKS = {(32, 128): 5, (64, 64): 6, (128, 32): 6, (256, 16): 6}
+#: further shapes of the GroupNorm + ReLU kernels: (what, (N, C, H, W),
+#: groups, unaligned)
+GROUP_NORM_OTHER = [
+    ("pose256 b128 32@256^2", (128, 32, 256, 256), 8, False),
+    ("transporter_atari b64 32@64^2", (64, 32, 64, 64), 8, False),
+    ("ragged 13x29, C/G 3", (6, 24, 13, 29), 8, False),
+    ("C/G 1", (5, 8, 9, 9), 8, False),
+    ("one group of 64 at 16^2", (4, 64, 16, 16), 1, False),
+    ("C/G 32 at 4^2", (3, 256, 4, 4), 8, False),
+    ("unaligned 32@16^2", (4, 32, 16, 16), 8, True)]
+
+
+def group_norm_inputs(shape, dtype: torch.dtype, seed: int,
+                      unaligned: bool = False, channels_last: bool = False,
+                      device: str = "cuda") -> tuple:
+    """Conv-like ``x`` (per-channel offsets), gamma about 1, beta about 0
+    and a gradient, drawn on ``device`` from ``seed``: ``(x, gamma, beta,
+    grad)``. ``channels_last``: ``x`` and the gradient laid out NHWC;
+    ``unaligned``: both 2 elements past a 16-byte boundary (the kernels'
+    scalar path)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n, c = shape[:2]
+
+    def draw(*size):
+        return torch.randn(size, device=device, generator=gen)
+
+    def lay_out(t):
+        if channels_last:
+            t = t.permute(0, 2, 3, 1).contiguous()
+        if unaligned:
+            t = torch.cat([t.new_zeros(2), t.flatten()])[2:].view(t.shape)
+        return t.permute(0, 3, 1, 2) if channels_last else t.contiguous()
+
+    x = lay_out((1.5 * draw(*shape) + draw(1, c, 1, 1)).to(dtype))
+    g = lay_out(draw(*shape).to(dtype))
+    return x, 1 + 0.5 * draw(c), 0.5 * draw(c), g
+
 
 def group_norm_relu_edge(x: torch.Tensor, weight: torch.Tensor,
                          bias: torch.Tensor, grad: torch.Tensor, groups: int,

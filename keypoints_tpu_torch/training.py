@@ -49,7 +49,8 @@ from keypoints_tpu_torch.data.augment import (PairDraws, WarpConfig,
                                               draw_pair, pair_from_draws)
 from keypoints_tpu_torch.losses import l2_loss
 from keypoints_tpu_torch.models import KeypointAutoencoder, Transporter
-from keypoints_tpu_torch.models.nets import Conv2d, init_flax_defaults
+from keypoints_tpu_torch.models.nets import (Conv2d, init_flax_defaults,
+                                             memory_format)
 from keypoints_tpu_torch.utils.profiling import span
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -99,11 +100,14 @@ def build_model(cfg: Config, device: torch.device | str = "cuda",
 
 
 def freeze_for_inference(model: nn.Module) -> nn.Module:
-    """Serving: cast every conv's parameters to its compute dtype once (the
-    per-call casts then launch nothing), stop gradients, eval mode."""
+    """Serving: cast every conv's parameters to its compute dtype once, its
+    weight in the nets' layout (channels_last on CUDA,
+    ``nets.memory_format``), so the per-call casts launch nothing; stop
+    gradients, eval mode."""
     for mod in model.modules():
         if isinstance(mod, Conv2d):
-            mod.to(mod.compute_dtype)
+            mod.to(mod.compute_dtype,
+                   memory_format=memory_format(mod.weight))
     return model.eval().requires_grad_(False)
 
 

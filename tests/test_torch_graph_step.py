@@ -33,7 +33,7 @@ from keypoints_tpu_torch.checkpoint import (load_model_state,
 from keypoints_tpu_torch.configs import get_config
 from keypoints_tpu_torch.data.augment import draw_pair, pair_from_draws
 from keypoints_tpu_torch.data.records import FrameStore, episode_pairs
-from keypoints_tpu_torch.kernels import pool_cuda
+from keypoints_tpu_torch.kernels import group_norm_cuda, pool_cuda
 from keypoints_tpu_torch.parallel import dp
 from keypoints_tpu_torch.testing import (grad_norm_tolerance,
                                          random_flax_params, random_images,
@@ -276,6 +276,19 @@ def cuda():
      torch.backends.cudnn.benchmark) = flags
 
 
+def _layouts_kept(state):
+    """The parameters and their gradients stay NCHW-contiguous (the nets'
+    activations alone go channels_last on the card); under a gradient
+    bucket every gradient is still a view of its buffer."""
+    flat = state.bucket.flat if state.bucket is not None else None
+    for p in state.model.parameters():
+        assert p.is_contiguous() and p.grad is not None
+        assert p.grad.is_contiguous()
+        if flat is not None:
+            assert (p.grad.untyped_storage().data_ptr()
+                    == flat.untyped_storage().data_ptr())
+
+
 def _states_equal(a, b):
     for (k, x), y in zip(a.model.state_dict().items(),
                          b.model.state_dict().values()):
@@ -296,8 +309,11 @@ def test_graphed_step_equals_the_eager_step_bit_for_bit(case, cuda,
     """1 eager + 4 replayed steps equal 5 eager steps: every parameter,
     Adam's state and each step's metrics. ``perceptual``: the VGG-19
     perceptual loss in bf16 (the frozen trunk, its K6 pools forward and
-    backward) inside the graph."""
+    backward) inside the graph. The nets run channels_last: the NHWC
+    GroupNorm + ReLU pair and never the NCHW one, the parameters and their
+    gradients NCHW."""
     pools = (pool_cuda.launches, pool_cuda.bwd_launches)
+    norms = (group_norm_cuda.launches, group_norm_cuda.nhwc_launches)
     if case == "warp":
         cfg = _small("celeba128", **{"data.dataset": "synthetic_dots"})
     elif case == "perceptual":
@@ -334,6 +350,10 @@ def test_graphed_step_equals_the_eager_step_bit_for_bit(case, cuda,
         assert torch.equal(want["grad_norm"], got["grad_norm"]), i
     assert len(graph_step.graphs) == 1
     _states_equal(eager, graphed)
+    assert group_norm_cuda.launches == norms[0]
+    assert group_norm_cuda.nhwc_launches > norms[1]
+    _layouts_kept(eager)
+    _layouts_kept(graphed)
     # 6 eager steps and the capture went through K6 (a replay calls no
     # wrapper), four pools forward twice and backward once a step
     if case == "perceptual":
@@ -386,6 +406,8 @@ def test_graphed_dp_step_equals_the_eager_dp_step_bit_for_bit(case, cuda,
                 assert all(torch.equal(want[k], got[k]) for k in want)
             _states_equal(states[0], state)
         assert states[1].bucket is not None and states[2].bucket is None
+        for state in states:
+            _layouts_kept(state)
     finally:
         dist.destroy_process_group()
 

@@ -3,12 +3,16 @@ the models, and the CUDA kernels against their plain version.
 
 On the CPU (no JAX here): ``kernels.group_norm_relu`` equals the blocks'
 former ``F.relu(GroupNorm(x))`` bit for bit, forward and backward, in bf16
-and f32 at C/G of 1, 4 and 32; ``torch.library.opcheck`` of the forward op;
-the plain statistics; an extractor exported on the CPU answers as the live
+and f32 at C/G of 1, 4 and 32, and on a channels_last input the NCHW
+result bit for bit; ``torch.library.opcheck`` of the forward op in both
+layouts, and its fake kernel keeps the input's strides; the plain
+statistics; the nets on the CPU as before (NCHW); the channels_last weight
+cast's gradient; an extractor exported on the CPU answers as the live
 model does and holds the plain ops, one traced on fake CUDA tensors holds
-one op node a block and no aten GroupNorm. The tests marked ``cuda`` hold
-the kernels to the plain version on the card and skip here (a CUDA kernel
-has no CPU mode); run them there with
+one op node a block and no aten GroupNorm.
+The tests marked ``cuda`` hold both kernel pairs to the plain version on
+the card and skip here (a CUDA kernel has no CPU mode); run them there
+with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_group_norm.py -q
 """
@@ -27,10 +31,15 @@ from keypoints_tpu_torch import export
 from keypoints_tpu_torch.configs import get_config
 from keypoints_tpu_torch.kernels import group_norm_cuda as gnc
 from keypoints_tpu_torch.kernels import group_norm_relu
-from keypoints_tpu_torch.models.nets import Decoder, Encoder, GroupNorm
+from keypoints_tpu_torch.models import nets
+from keypoints_tpu_torch.models.nets import (Decoder, Encoder, GroupNorm,
+                                             KeyNet)
 from keypoints_tpu_torch.ops.group_norm import (group_norm_relu_stats,
                                                 group_norm_relu as plain)
-from keypoints_tpu_torch.testing import bf16_ulp, group_norm_relu_edge
+from keypoints_tpu_torch.testing import (GROUP_NORM_BLOCKS,
+                                         GROUP_NORM_OTHER, bf16_ulp,
+                                         group_norm_inputs,
+                                         group_norm_relu_edge)
 
 OP = "keypoints_tpu_torch.group_norm_relu_fwd.default"
 # celeba128's structure at 32² with narrow filters, f32: 2 blocks in Psi
@@ -39,6 +48,11 @@ NARROW = {"model.encoder_filters": (8, 16), "model.encoder_strides": (2, 2),
           "model.decoder_upsample": (True, True), "model.groups": 4,
           "model.num_keypoints": 4, "data.image_size": 32}
 DTYPES = [torch.float32, torch.bfloat16]
+LAYOUTS = [torch.contiguous_format, torch.channels_last]
+# chip_smoke.py phase 39's shapes: (what, (N, C, H, W), groups, unaligned)
+PHASE_39 = [(f"celeba128 b{b} {c}@{side}^2", (b, c, side, side), 8, False)
+            for b in (128, 256) for c, side in GROUP_NORM_BLOCKS]
+PHASE_39 += GROUP_NORM_OTHER
 
 
 def _norm(channels: int, groups: int, seed: int = 0) -> GroupNorm:
@@ -76,15 +90,51 @@ def test_cpu_dispatch_is_the_former_composition_bit_for_bit(channels, groups,
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("channels,groups", [(8, 8), (32, 8), (32, 1)],
+                         ids=["cg1", "cg4", "cg32"])
+def test_cpu_dispatch_of_channels_last_is_the_nchw_result_bit_for_bit(
+        channels, groups, dtype):
+    norm = _norm(channels, groups)
+    x = _x((3, channels, 6, 5), dtype)
+    g = _x((3, channels, 6, 5), dtype, seed=2)
+    xn = x.clone().requires_grad_(True)
+    xc = x.contiguous(memory_format=torch.channels_last).requires_grad_(True)
+    params = (norm.weight, norm.bias)
+    want = group_norm_relu(xn, norm)
+    want_grads = torch.autograd.grad(want, (xn, *params), g)
+    got = group_norm_relu(xc, norm)
+    grads = torch.autograd.grad(
+        got, (xc, *params), g.contiguous(memory_format=torch.channels_last))
+    assert torch.equal(got, want)
+    for a, b in zip(grads, want_grads):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS, ids=["nchw", "channels_last"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("shape,groups", [((2, 8, 4, 4), 8),
                                           ((3, 32, 5, 7), 8),
                                           ((1, 16, 3, 3), 1)])
-def test_forward_op_passes_opcheck(shape, groups, dtype):
+def test_forward_op_passes_opcheck(shape, groups, dtype, layout):
     norm = _norm(shape[1], groups)
     torch.library.opcheck(
         gnc.group_norm_relu_op,
-        (_x(shape, dtype), norm.weight.detach(), norm.bias.detach(), groups,
-         1e-5))
+        (_x(shape, dtype).contiguous(memory_format=layout),
+         norm.weight.detach(), norm.bias.detach(), groups, 1e-5))
+
+
+@pytest.mark.parametrize("layout", LAYOUTS, ids=["nchw", "channels_last"])
+def test_fake_kernel_keeps_the_input_strides(layout):
+    """The op's fake kernel, as an export traces it on CUDA, gives y the
+    strides the CUDA kernels give it: x's."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        x = torch.empty((2, 32, 5, 7), device="cuda", dtype=torch.bfloat16,
+                        memory_format=layout)
+        w = torch.empty(32, device="cuda")
+        y, mean, rstd = gnc.group_norm_relu_op(x, w, w, 8, 1e-5)
+    assert y.shape == x.shape and y.stride() == x.stride()
+    assert mean.shape == rstd.shape == (2, 8)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -102,22 +152,44 @@ def test_plain_statistics_are_the_groups_moments(dtype):
         atol=0)
 
 
-@pytest.mark.parametrize("net", ["encoder", "decoder"])
+@pytest.mark.parametrize("net", ["encoder", "keynet", "decoder"])
 def test_blocks_compute_their_former_composition(net):
-    """Encoder and Decoder on the CPU: the blocks' output as when each ran
-    F.relu(norm(conv(x)))."""
+    """Encoder, KeyNet and Decoder on the CPU: the blocks' output as when
+    each ran F.relu(norm(conv(x))), in NCHW (the CPU path keeps its
+    layout)."""
     torch.manual_seed(0)
     model = (Encoder(3, (8, 16), (1, 2), groups=4, dtype=torch.bfloat16)
              if net == "encoder" else
+             KeyNet(3, 4, (8, 16), (1, 2), groups=4, dtype=torch.bfloat16)
+             if net == "keynet" else
              Decoder(16, 3, (16, 8), (True, False), groups=4,
                      dtype=torch.bfloat16))
-    x = _x((2, 3 if net == "encoder" else 16, 8, 8), torch.float32)
+    x = _x((2, 3 if net != "decoder" else 16, 8, 8), torch.float32)
     want = x.to(torch.bfloat16)
-    for conv, norm in model.blocks:
+    for conv, norm in (model.trunk if net == "keynet" else model).blocks:
         want = F.relu(norm(conv(want)))
-    if net == "decoder":
+    if net != "encoder":
         want = model.head(want)
-    assert torch.equal(model(x), want)
+    got = model(x)
+    assert torch.equal(got, want) and got.is_contiguous()
+
+
+def test_channels_last_weight_cast_gives_an_nchw_float32_gradient():
+    """The nets' weight cast on CUDA: a channels_last bf16 weight whose
+    gradient comes back float32, NCHW, as autograd's own ``.to`` gives its
+    values."""
+    w = _x((6, 4, 3, 3), torch.float32).requires_grad_(True)
+    g = _x((6, 4, 3, 3), torch.bfloat16, seed=5).contiguous(
+        memory_format=torch.channels_last)
+    cast = nets._CastWeight.apply(w, torch.bfloat16)
+    assert cast.dtype == torch.bfloat16
+    assert cast.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(cast, w.detach().to(torch.bfloat16))
+    got, = torch.autograd.grad(cast, w, g)
+    want, = torch.autograd.grad(w.to(torch.bfloat16), w, g)
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    assert torch.equal(got, want)
+    assert nets.memory_format(w) == torch.preserve_format
 
 
 def test_dispatch_rejects_other_devices():
@@ -141,12 +213,13 @@ def test_module_imports_without_cuda():
             "group_norm_cuda as g; from keypoints_tpu_torch.models import "
             "nets; assert not torch.cuda.is_available(); "
             "print(hasattr(torch.ops.keypoints_tpu_torch, "
-            "'group_norm_relu_fwd'), g.launches, g.bwd_launches)")
+            "'group_norm_relu_fwd'), g.launches, g.bwd_launches, "
+            "g.nhwc_launches, g.nhwc_bwd_launches)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["True", "0", "0"]
+    assert out.stdout.split() == ["True", "0", "0", "0", "0"]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "uint8"])
@@ -209,21 +282,12 @@ def _tol(want: torch.Tensor, rtol: float, bf16: bool) -> float:
     return float(rtol * top + (bf16_ulp(top) if bf16 else 0.0))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("shape,groups", [
-    ((4, 32, 32, 32), 8), ((2, 256, 16, 16), 8), ((3, 24, 13, 29), 8),
-    ((5, 8, 9, 9), 8), ((2, 64, 8, 8), 1), ((2, 32, 192, 192), 8)],
-    ids=["held", "cg32", "ragged", "cg1", "one_group", "read_twice"])
-def test_kernels_match_plain(cuda, shape, groups, dtype):
-    """Forward (y, mean, rstd) and backward (dx, dgamma, dbeta) against the
-    plain version and its autograd; the tolerances are chip_smoke.py's
-    phase 39's: f32 sums in another order, one bf16 spacing."""
-    norm = _norm(shape[1], groups).to(cuda)
-    x, g = _x(shape, dtype).to(cuda), _x(shape, dtype, seed=3).to(cuda)
-    w, b = norm.weight.detach(), norm.bias.detach()
-    got = gnc.group_norm_relu_fwd_cuda(x, w, b, groups, 1e-5)
-    got += gnc.group_norm_relu_bwd_cuda(g, x, got[1], got[2], w, b, groups)
+def _assert_matches_plain(got, x, w, b, g, groups, dtype):
+    """Forward (y, mean, rstd) and backward (dx, dgamma, dbeta) of a kernel
+    pair against the plain version and its autograd; the tolerances are
+    chip_smoke.py's phase 39's: f32 sums in another order, one bf16
+    spacing."""
+    x, g = x.contiguous(), g.contiguous()
     xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
     y = plain(xr, groups, wr, br, 1e-5)
     want = (y.detach(), *group_norm_relu_stats(x, groups, w, b, 1e-5)[1:],
@@ -246,17 +310,70 @@ def test_kernels_match_plain(cuda, shape, groups, dtype):
 
 
 @pytest.mark.cuda
-def test_kernels_are_deterministic_and_counted(cuda):
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("what,shape,groups,unaligned", PHASE_39,
+                         ids=[w for w, *_ in PHASE_39])
+def test_nhwc_kernels_match_plain_and_rerun_bit_for_bit(
+        cuda, what, shape, groups, unaligned, dtype):
+    """The NHWC pair on channels_last inputs at every shape of
+    chip_smoke.py phase 39: against the plain version, y and dx in x's
+    layout, a second run bit for bit."""
+    x, w, b, g = group_norm_inputs(shape, dtype, shape[0] + shape[1],
+                                   unaligned, channels_last=True)
+    counts = (gnc.launches, gnc.bwd_launches, gnc.nhwc_launches,
+              gnc.nhwc_bwd_launches)
+    runs = []
+    for _ in range(2):
+        got = gnc.group_norm_relu_fwd_cuda(x, w, b, groups, 1e-5)
+        runs.append(got + gnc.group_norm_relu_bwd_cuda(
+            g, x, got[1], got[2], w, b, groups))
+    assert (gnc.launches - counts[0], gnc.bwd_launches - counts[1],
+            gnc.nhwc_launches - counts[2],
+            gnc.nhwc_bwd_launches - counts[3]) == (0, 0, 2, 2)
+    assert runs[0][0].stride() == runs[0][3].stride() == x.stride()
+    assert all(torch.equal(a, c) for a, c in zip(*runs))
+    _assert_matches_plain(runs[0], x, w, b, g, groups, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape,groups", [
+    ((4, 32, 32, 32), 8), ((2, 256, 16, 16), 8), ((3, 24, 13, 29), 8),
+    ((5, 8, 9, 9), 8), ((2, 64, 8, 8), 1), ((2, 32, 192, 192), 8)],
+    ids=["held", "cg32", "ragged", "cg1", "one_group", "read_twice"])
+def test_kernels_match_plain(cuda, shape, groups, dtype):
+    """The NCHW pair: forward (y, mean, rstd) and backward (dx, dgamma,
+    dbeta) against the plain version and its autograd."""
+    norm = _norm(shape[1], groups).to(cuda)
+    x, g = _x(shape, dtype).to(cuda), _x(shape, dtype, seed=3).to(cuda)
+    w, b = norm.weight.detach(), norm.bias.detach()
+    got = gnc.group_norm_relu_fwd_cuda(x, w, b, groups, 1e-5)
+    got += gnc.group_norm_relu_bwd_cuda(g, x, got[1], got[2], w, b, groups)
+    _assert_matches_plain(got, x, w, b, g, groups, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS, ids=["nchw", "channels_last"])
+def test_kernels_are_deterministic_and_counted(cuda, layout):
+    """The dispatcher by x's layout: its pair's counters, y and dL/dx in
+    x's layout (the incoming NCHW gradient laid out as x first), two runs
+    bit for bit."""
     norm = _norm(64, 8).to(cuda)
-    x = _x((8, 64, 32, 32), torch.bfloat16).to(cuda).requires_grad_(True)
+    x = _x((8, 64, 32, 32), torch.bfloat16).to(cuda).contiguous(
+        memory_format=layout).requires_grad_(True)
     g = _x((8, 64, 32, 32), torch.bfloat16, seed=4).to(cuda)
     gnc.launches = gnc.bwd_launches = 0
+    gnc.nhwc_launches = gnc.nhwc_bwd_launches = 0
     runs = []
     for _ in range(2):
         y = group_norm_relu(x, norm)
         runs.append((y, *torch.autograd.grad(y, (x, norm.weight, norm.bias),
                                              g)))
-    assert (gnc.launches, gnc.bwd_launches) == (2, 2)
+    counts = ((gnc.launches, gnc.bwd_launches),
+              (gnc.nhwc_launches, gnc.nhwc_bwd_launches))
+    nhwc = layout == torch.channels_last
+    assert counts == (((0, 0), (2, 2)) if nhwc else ((2, 2), (0, 0)))
+    assert runs[0][0].stride() == runs[0][1].stride() == x.stride()
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
