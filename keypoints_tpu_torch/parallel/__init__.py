@@ -10,10 +10,10 @@ steps in one dispatch is not ported (``dp`` module docstring).
 
 from keypoints_tpu_torch.parallel import multihost
 from keypoints_tpu_torch.parallel.dp import (GradBucket, broadcast_rows,
-                                             dryrun, make_dp_extract,
+                                             make_dp_extract,
                                              make_dp_train_step, replicate,
                                              shard_batch, shard_generator)
 
-__all__ = ["GradBucket", "broadcast_rows", "dryrun", "make_dp_extract",
+__all__ = ["GradBucket", "broadcast_rows", "make_dp_extract",
            "make_dp_train_step", "multihost", "replicate", "shard_batch",
            "shard_generator"]

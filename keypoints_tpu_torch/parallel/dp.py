@@ -36,8 +36,6 @@ NCCL between cards, gloo on the CPU or where ranks share a card.
 
 from __future__ import annotations
 
-import os
-import tempfile
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -253,70 +251,3 @@ def make_dp_extract(cfg: Config, state_dict: dict | None,
     return BucketedExtract({b: bucket_fn(fns) for b, fns in enqueues.items()},
                            meta)
 
-
-# --- a multi-process dry run (``__graft_entry__.dryrun_multichip``) ----------
-
-def _dryrun_rank(rank: int, world: int, store: str, out: str) -> None:
-    """One rank of :func:`dryrun`: a DP step on its shard of a seeded
-    batch, then two steps on rows it samples itself; writes its losses and
-    parameters to ``{out}/{rank}.pt``."""
-    from keypoints_tpu_torch.configs import get_config
-    from keypoints_tpu_torch.train import SyntheticBatches
-    from keypoints_tpu_torch.training import init_state
-
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{store}",
-                            rank=rank, world_size=world)
-    try:
-        cfg = get_config("celeba128").override(**{
-            "model.encoder_filters": (8, 16), "model.encoder_strides": (2, 2),
-            "model.decoder_filters": (16, 8),
-            "model.decoder_upsample": (True, True), "model.groups": 4,
-            "data.image_size": 32, "train.batch_size": 2 * world,
-            "train.compute_dtype": "float32"})
-        state = init_state(cfg, "cpu")
-        replicate(state.model, state.optimizer)
-        step = make_dp_train_step(cfg, dist.group.WORLD)
-        images = torch.from_numpy(np.random.RandomState(0).rand(
-            2 * world, 3, 32, 32).astype(np.float32))
-        state, metrics = step(state, shard_batch(images, rank, world))
-        losses = [float(metrics["loss"])]
-        source = SyntheticBatches(
-            lambda gen, n: torch.rand((n, 3, 32, 32), generator=gen),
-            cfg.train.batch_size // world, cfg.train.seed, 0, "cpu",
-            rank=rank, world=world)
-        for i in (1, 2):
-            state, metrics = step(state, source.sample_at(i))
-            losses.append(float(metrics["loss"]))
-        torch.save({"losses": losses, "params": state.model.state_dict()},
-                   os.path.join(out, f"{rank}.pt"))
-    finally:
-        dist.destroy_process_group()
-
-
-def dryrun(n_processes: int) -> list[float]:
-    """Spawn ``n_processes`` gloo ranks on the CPU; each takes one DP step
-    of narrow celeba128 widths on its shard of a seeded batch, then two
-    steps on rows it samples itself (warp mode, per-rank draws). Raises
-    unless every loss is finite and every rank ends with rank 0's
-    parameters bit for bit; → the losses."""
-    import torch.multiprocessing as mp
-
-    with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(_dryrun_rank, nprocs=n_processes,
-                 args=(n_processes, os.path.join(tmp, "store"), tmp))
-        results = [torch.load(os.path.join(tmp, f"{r}.pt"),
-                              weights_only=True)
-                   for r in range(n_processes)]
-    losses = results[0]["losses"]
-    if not all(np.isfinite(losses)):
-        raise FloatingPointError(f"dry run losses {losses}")
-    for rank, result in enumerate(results[1:], 1):
-        if result["losses"] != losses:
-            raise AssertionError(f"rank {rank} losses {result['losses']} != "
-                                 f"rank 0's {losses}")
-        for key, value in result["params"].items():
-            if not torch.equal(value, results[0]["params"][key]):
-                raise AssertionError(f"rank {rank} parameter {key} differs "
-                                     f"from rank 0's")
-    return losses

@@ -14,11 +14,15 @@ references ``tests/data/torch_port_celeba128_extract.json`` and
 ``tests/data/torch_port_celeba128_eval.json`` from
 ``random_flax_params(celeba128, 0)`` and the faces of its numpy seed
 (:func:`reference_eval_batch`).
+
+Every ``tests/test_torch_*.py`` calls :func:`share_cpu_threads` once at
+import, so parallel test workers split the machine's cores between them.
 """
 
 from __future__ import annotations
 
 import base64
+import os
 
 import numpy as np
 import torch
@@ -33,6 +37,25 @@ from keypoints_tpu_torch.ops.color import JitterFactors
 from keypoints_tpu_torch.ops.gaussian import gaussian_maps
 from keypoints_tpu_torch.ops.spatial_softmax import spatial_softmax
 from keypoints_tpu_torch.training import warp_config
+
+
+def thread_budget(cores: int, workers: int) -> int:
+    """Intra-op threads for each of ``workers`` processes sharing ``cores``
+    cores: an equal share, at least one."""
+    return max(1, cores // workers)
+
+
+def share_cpu_threads() -> None:
+    """Give this test process its share of the cores: each of pytest-xdist's
+    ``PYTEST_XDIST_WORKER_COUNT`` workers (1 without xdist) takes
+    :func:`thread_budget` intra-op threads, never more than torch's default,
+    where otherwise every worker would start as many OpenMP threads as the
+    machine has cores. A serial run keeps torch's default. The package
+    itself sets no thread count."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    budget = thread_budget(os.cpu_count() or 1, workers)
+    if budget < torch.get_num_threads():
+        torch.set_num_threads(budget)
 
 
 def random_flax_params(cfg: Config, seed: int = 0) -> dict:

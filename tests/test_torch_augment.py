@@ -25,6 +25,9 @@ from keypoints_tpu_torch.data import augment as aug
 from keypoints_tpu_torch.ops import warp
 from keypoints_tpu_torch.ops.color import (JitterFactors, apply_jitter,
                                            draw_jitter)
+from keypoints_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 ATOL = 1e-5
 CFG = aug.WarpConfig()

@@ -16,8 +16,10 @@ from keypoints_tpu.training import init_state
 from keypoints_tpu_torch import configs
 from keypoints_tpu_torch.checkpoint import (load_checkpoint, load_model_state,
                                             state_dict_from_flax)
-from keypoints_tpu_torch.testing import random_flax_params
+from keypoints_tpu_torch.testing import random_flax_params, share_cpu_threads
 from keypoints_tpu_torch.training import build_model, freeze_for_inference
+
+share_cpu_threads()
 
 NARROW = {"model.encoder_filters": (8, 16), "model.encoder_strides": (2, 2),
           "model.decoder_filters": (16, 8),

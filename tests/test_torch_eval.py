@@ -44,9 +44,12 @@ from keypoints_tpu_torch.ops import warp
 from keypoints_tpu_torch.testing import (decode_f32, encode_f32,
                                          random_flax_params,
                                          reference_draws,
-                                         reference_eval_batch)
+                                         reference_eval_batch,
+                                         share_cpu_threads)
 from keypoints_tpu_torch.training import (build_model, make_extract_fn,
                                           make_extract_many_fn, warp_config)
+
+share_cpu_threads()
 
 REFERENCE = Path(__file__).parent / "data" / "torch_port_celeba128_eval.json"
 # celeba128's structure at 64² with narrow filters, f32: the coarse-field

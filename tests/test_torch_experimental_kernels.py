@@ -26,7 +26,9 @@ from keypoints_tpu.kernels import experimental as jexp
 from keypoints_tpu.ops.warp import grid_sample
 from keypoints_tpu_torch.kernels import experimental as kexp
 from keypoints_tpu_torch.ops import experimental as pexp
-from keypoints_tpu_torch.testing import bf16_ulp
+from keypoints_tpu_torch.testing import bf16_ulp, share_cpu_threads
+
+share_cpu_threads()
 
 CFG = WarpConfig()
 KERNELS = {"tree": (kexp.warp_bilinear_tree, jexp.warp_bilinear_tree),

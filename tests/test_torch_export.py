@@ -31,7 +31,9 @@ from keypoints_tpu_torch.checkpoint import state_dict_from_flax
 from keypoints_tpu_torch.configs import get_config
 from keypoints_tpu_torch.kernels import spatial_softmax_cuda as ssc
 from keypoints_tpu_torch.serve import build_parser, http_extract, make_server
-from keypoints_tpu_torch.testing import random_flax_params
+from keypoints_tpu_torch.testing import random_flax_params, share_cpu_threads
+
+share_cpu_threads()
 
 # celeba128's structure at 32² with narrow filters, f32
 NARROW = {"model.encoder_filters": (8, 16), "model.encoder_strides": (2, 2),

@@ -37,11 +37,13 @@ from keypoints_tpu_torch.kernels import group_norm_cuda, pool_cuda
 from keypoints_tpu_torch.parallel import dp
 from keypoints_tpu_torch.testing import (grad_norm_tolerance,
                                          random_flax_params, random_images,
-                                         reference_draws)
+                                         reference_draws, share_cpu_threads)
 from keypoints_tpu_torch.training import (TrainStep, init_state,
                                           make_graphed_train_step,
                                           make_train_step, step_generator,
                                           warp_config)
+
+share_cpu_threads()
 
 DATA = Path(__file__).parent / "data"
 ROOT = Path(__file__).resolve().parent.parent

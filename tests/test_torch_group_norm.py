@@ -39,7 +39,10 @@ from keypoints_tpu_torch.ops.group_norm import (group_norm_relu_stats,
 from keypoints_tpu_torch.testing import (GROUP_NORM_BLOCKS,
                                          GROUP_NORM_OTHER, bf16_ulp,
                                          group_norm_inputs,
-                                         group_norm_relu_edge)
+                                         group_norm_relu_edge,
+                                         share_cpu_threads)
+
+share_cpu_threads()
 
 OP = "keypoints_tpu_torch.group_norm_relu_fwd.default"
 # celeba128's structure at 32² with narrow filters, f32: 2 blocks in Psi

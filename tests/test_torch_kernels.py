@@ -42,9 +42,12 @@ from keypoints_tpu_torch.ops.warp import grid_sample as plain_warp
 from keypoints_tpu_torch.ops.warp import upsample_field_aligned
 from keypoints_tpu_torch.testing import (bf16_ulp, fused_grad_tolerance,
                                          fused_map_tolerance, random_images,
+                                         share_cpu_threads,
                                          softmax_grad_tolerance)
 from keypoints_tpu_torch.train import make_loss
 from keypoints_tpu_torch.training import build_model
+
+share_cpu_threads()
 
 pytestmark = pytest.mark.cuda
 

@@ -26,8 +26,11 @@ from keypoints_tpu.training import make_extract_fn as jax_make_extract_fn
 from keypoints_tpu_torch.checkpoint import (load_model_state,
                                             state_dict_from_flax)
 from keypoints_tpu_torch.configs import get_config
-from keypoints_tpu_torch.testing import random_flax_params, random_images
+from keypoints_tpu_torch.testing import (random_flax_params, random_images,
+                                         share_cpu_threads)
 from keypoints_tpu_torch.training import build_model, make_extract_fn
+
+share_cpu_threads()
 
 REFERENCE = Path(__file__).parent / "data" / "torch_port_celeba128_extract.json"
 # __graft_entry__.py's narrow celeba128, K=4

@@ -22,6 +22,9 @@ from keypoints_tpu_torch import eval as eval_mod
 from keypoints_tpu_torch import serve as serve_mod
 from keypoints_tpu_torch import train as train_mod
 from keypoints_tpu_torch.parallel import multihost
+from keypoints_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 ROOT = Path(__file__).resolve().parent.parent
 TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",

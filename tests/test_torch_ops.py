@@ -22,6 +22,9 @@ from keypoints_tpu.ops.spatial_softmax import spatial_softmax as jax_softmax
 from keypoints_tpu_torch import coords
 from keypoints_tpu_torch.kernels import spatial_softmax as dispatch
 from keypoints_tpu_torch.ops.spatial_softmax import spatial_softmax
+from keypoints_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 ATOL = 1e-5
 

@@ -52,10 +52,12 @@ from keypoints_tpu_torch.parallel import dp
 from keypoints_tpu_torch.serve import (BatchingExtractor, make_live_extract,
                                        serving_devices)
 from keypoints_tpu_torch.testing import (NOISE_GRADIENT, random_flax_params,
-                                         random_images)
+                                         random_images, share_cpu_threads)
 from keypoints_tpu_torch.training import (init_state, make_schedule,
                                           make_train_step, step_generator,
                                           warp_config)
+
+share_cpu_threads()
 
 ROOT = Path(__file__).resolve().parent.parent
 WORLD = 2
@@ -464,11 +466,6 @@ def test_group_resumes_a_single_process_checkpoint(ranks):
     _, (r0, _), logs = ranks
     assert r0["from_single"]["step"] == 6
     assert logs[0].count("resumed from step 3") == 3
-
-
-def test_dryrun_two_processes():
-    losses = dp.dryrun(2)
-    assert len(losses) == 3 and np.isfinite(losses).all()
 
 
 # --- data-parallel serving over CPU replicas ---------------------------------

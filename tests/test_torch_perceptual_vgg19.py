@@ -33,6 +33,9 @@ from portbench import spec as bench_spec
 from portbench import weights
 from portbench.reference import augment, perceptual
 from portbench.reference import model as model_ref
+from keypoints_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 CONF = bench_spec.read_json("configs", "celeba128_vgg19")
 TAPS = CONF["perceptual"]["taps"]

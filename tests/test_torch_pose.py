@@ -44,11 +44,14 @@ from keypoints_tpu_torch.testing import (decode_f32, encode_f32,
                                          random_flax_params, random_images,
                                          random_vgg_params, reference_draws,
                                          reference_warp_draws,
+                                         share_cpu_threads,
                                          write_torchvision_vgg)
 from keypoints_tpu_torch.train import make_loss
 from keypoints_tpu_torch.training import (build_model, init_state,
                                           make_train_step, warp_config)
 from test_torch_train import _as_port, _flat, record_step_draws
+
+share_cpu_threads()
 
 REFERENCE = Path(__file__).parent / "data" / "torch_port_pose256_train.json"
 FULL = {"train.compute_dtype": "float32"}

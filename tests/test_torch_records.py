@@ -29,6 +29,9 @@ from keypoints_tpu.data import synthetic as jsynthetic
 from keypoints_tpu_torch import train as ptrain
 from keypoints_tpu_torch.configs import get_config
 from keypoints_tpu_torch.data import collect, device, faces, pose, records
+from keypoints_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 #: rendered stores: at most this share of pixels one uint8 level apart
 QUANT_SHARE = 1e-3

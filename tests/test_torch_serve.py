@@ -28,10 +28,12 @@ from keypoints_tpu_torch.parallel import dp as dp_mod
 from keypoints_tpu_torch.serve import (BatchingExtractor, build_parser,
                                        http_extract, http_meta,
                                        make_live_extract, make_server)
-from keypoints_tpu_torch.testing import random_flax_params
+from keypoints_tpu_torch.testing import random_flax_params, share_cpu_threads
 from keypoints_tpu_torch.training import (CaptureError, build_model,
                                           freeze_for_inference,
                                           make_extract_fn)
+
+share_cpu_threads()
 
 ROOT = Path(__file__).resolve().parents[1]
 NARROW = ["model.encoder_filters=(8,16)", "model.encoder_strides=(2,2)",

@@ -26,6 +26,9 @@ from keypoints_tpu_torch.parallel import dp
 from keypoints_tpu_torch.utils import profiling
 from keypoints_tpu_torch.utils.profiling import (reset_spans, span,
                                                  span_totals)
+from keypoints_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 NARROW = ["model.encoder_filters=(8,16)", "model.encoder_strides=(2,2)",
           "model.groups=4", "model.num_keypoints=4", "data.image_size=32",

@@ -29,8 +29,10 @@ from keypoints_tpu_torch.checkpoint import state_dict_from_flax
 from keypoints_tpu_torch.configs import get_config
 from keypoints_tpu_torch.data import records
 from keypoints_tpu_torch.data.collect import collect
-from keypoints_tpu_torch.testing import random_flax_params
+from keypoints_tpu_torch.testing import random_flax_params, share_cpu_threads
 from keypoints_tpu_torch.utils import debug, profiling
+
+share_cpu_threads()
 
 # pong64's structure at 32² with narrow filters, f32
 SMALL = {"model.encoder_filters": (8, 16), "model.encoder_strides": (2, 2),

@@ -45,11 +45,14 @@ from keypoints_tpu_torch.testing import (NOISE_GRADIENT, decode_f32,
                                          encode_f32, grad_norm_tolerance,
                                          random_flax_params, random_images,
                                          reference_draws,
-                                         reference_warp_draws)
+                                         reference_warp_draws,
+                                         share_cpu_threads)
 from keypoints_tpu_torch.training import (build_model, init_state,
                                           make_schedule, make_train_step,
                                           warp_config)
 from test_torch_augment import jax_warp_draws
+
+share_cpu_threads()
 
 REFERENCE = Path(__file__).parent / "data" / "torch_port_celeba128_train.json"
 # __graft_entry__.py's narrow celeba128 (its decoder too), K=4, 32²

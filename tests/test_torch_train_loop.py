@@ -25,6 +25,9 @@ from keypoints_tpu_torch.configs import get_config
 from keypoints_tpu_torch.data import device as dev
 from keypoints_tpu_torch.data.records import FrameStore, episode_pairs
 from keypoints_tpu_torch.training import init_state, make_train_step
+from keypoints_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 SMALL = {"model.encoder_filters": (8, 16), "model.encoder_strides": (2, 2),
          "model.decoder_filters": (16, 8),

@@ -46,9 +46,11 @@ from keypoints_tpu_torch.ops.fused_bottleneck import softargmax_raster
 from keypoints_tpu_torch.ops.gaussian import gaussian_maps
 from keypoints_tpu_torch.serve import make_live_extract
 from keypoints_tpu_torch.testing import (NOISE_GRADIENT, random_flax_params,
-                                         random_images)
+                                         random_images, share_cpu_threads)
 from keypoints_tpu_torch.training import (build_model, init_state,
                                           make_schedule, make_train_step)
+
+share_cpu_threads()
 
 REFERENCE = (Path(__file__).parent / "data"
              / "torch_port_transporter_atari_train.json")

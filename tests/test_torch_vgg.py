@@ -22,9 +22,11 @@ from keypoints_tpu_torch.losses import make_perceptual_loss
 from keypoints_tpu_torch.models.vgg import (VGGFeatures, load_params,
                                             make_feature_fn,
                                             torchvision_rename_map)
-from keypoints_tpu_torch.testing import (random_vgg_params,
+from keypoints_tpu_torch.testing import (random_vgg_params, share_cpu_threads,
                                          write_torchvision_vgg)
 from keypoints_tpu_torch.train import make_loss
+
+share_cpu_threads()
 
 TAPS = ("relu1_2", "relu2_2", "relu3_3")
 

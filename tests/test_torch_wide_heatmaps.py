@@ -29,8 +29,11 @@ from keypoints_tpu_torch.kernels import fused_bottleneck_cuda as fbc
 from keypoints_tpu_torch.kernels.gaussian_cuda import MAX_TABLE
 from keypoints_tpu_torch.losses import l2_loss
 from keypoints_tpu_torch.ops.fused_bottleneck import softargmax_raster
-from keypoints_tpu_torch.testing import random_flax_params, random_images
+from keypoints_tpu_torch.testing import (random_flax_params, random_images,
+                                         share_cpu_threads)
 from keypoints_tpu_torch.training import build_model
+
+share_cpu_threads()
 
 # celeba128 narrowed, with stride-1 encoders on 96² images: 96² heatmaps
 WIDE = {"model.encoder_filters": (4, 8), "model.encoder_strides": (1, 1),
