@@ -4510,49 +4510,88 @@ def _gn_tol(want: torch.Tensor, rtol: float, bf16: bool) -> float:
     return float(rtol * top + (bf16_ulp(top) if bf16 else 0.0))
 
 
+def _gn_conv_bias(channels: int, dtype, seed: int) -> torch.Tensor:
+    """A conv's bias in the compute dtype, drawn on the card from ``seed``,
+    about as large as the spread of the conv's output (group_norm_inputs),
+    so that the add moves every value."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(channels, device="cuda", generator=gen).to(dtype)
+
+
+def _gn_bias_grad(z: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  g: torch.Tensor, groups: int) -> tuple[torch.Tensor, float]:
+    """dL/dcb of relu(GroupNorm(x + cb)) at z = x + cb: autograd's dL/dz in
+    float64, summed over N, H and W; and the largest channel's sum of
+    |dL/dz|, the scale of a float32 sum's error. (At one channel a group
+    the norm cancels the bias and dL/dcb is 0 but for rounding, so its own
+    size is no scale.)"""
+    z = z.double().requires_grad_(True)
+    y = F.relu(F.group_norm(z, groups, w.double(), b.double(), GN_EPS))
+    dz, = torch.autograd.grad(y, z, g.double())
+    return (dz.sum((0, 2, 3)).float(),
+            float(dz.abs().sum((0, 2, 3)).max()))
+
+
 def _gn_check(what: str, shape, groups: int, dtype, seed: int,
-              unaligned: bool = False, channels_last: bool = False) -> None:
+              unaligned: bool = False, channels_last: bool = False,
+              conv_bias: bool = False) -> None:
     """The kernels against the plain version and its autograd at one shape,
     and a second run of each bit for bit; ``channels_last``: the NHWC pair,
-    its y and dx in x's layout."""
+    its y and dx in x's layout; ``conv_bias``: with a conv bias cb folded in
+    (as every block on the card runs them), against the plain version on x
+    + cb (aten's add), dL/dcb against :func:`_gn_bias_grad`, and
+    ``bias_folds`` up by the two forward launches."""
     x, w, b, g = group_norm_inputs(shape, dtype, seed, unaligned,
                                    channels_last)
-    counts = (gnc.launches, gnc.nhwc_launches)
-    got = gnc.group_norm_relu_fwd_cuda(x, w, b, groups, GN_EPS)
-    got += gnc.group_norm_relu_bwd_cuda(g, x, got[1], got[2], w, b, groups)
-    again = gnc.group_norm_relu_fwd_cuda(x, w, b, groups, GN_EPS)
+    cb = (_gn_conv_bias(shape[1], dtype, seed + 1),) if conv_bias else ()
+    counts = (gnc.launches, gnc.nhwc_launches, gnc.bias_folds)
+    got = gnc.group_norm_relu_fwd_cuda(x, w, b, groups, GN_EPS, *cb)
+    got += gnc.group_norm_relu_bwd_cuda(g, x, got[1], got[2], w, b, groups,
+                                        *cb)
+    again = gnc.group_norm_relu_fwd_cuda(x, w, b, groups, GN_EPS, *cb)
     again += gnc.group_norm_relu_bwd_cuda(g, x, again[1], again[2], w, b,
-                                          groups)
-    ran = (gnc.launches - counts[0], gnc.nhwc_launches - counts[1])
-    check(ran == ((0, 2) if channels_last else (2, 0)),
-          f"group norm {what}: (NCHW, NHWC) forward launches {ran}")
+                                          groups, *cb)
+    ran = (gnc.launches - counts[0], gnc.nhwc_launches - counts[1],
+           gnc.bias_folds - counts[2])
+    check(ran == ((0, 2) if channels_last else (2, 0)) + (2 * len(cb),),
+          f"group norm {what}: (NCHW, NHWC, folded) forward launches {ran}")
+    check(len(got) == 6 + len(cb),
+          f"group norm {what}: {len(got)} outputs")
     check(all(t.stride() == x.stride() for t in (got[0], got[3])),
           f"group norm {what}: y and dx not in x's layout")
     x, g = x.contiguous(), g.contiguous()
+    if cb:
+        x = x + cb[0][:, None, None]
     xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
     y = plain_gn_relu(xr, groups, wr, br, GN_EPS)
     want = (y.detach(), *group_norm_relu_stats(x, groups, w, b, GN_EPS)[1:],
             *torch.autograd.grad(y, (xr, wr, br), g))
     del y
+    if cb:
+        dcb, dcb_scale = _gn_bias_grad(x, w, b, g, groups)
+        want += (dcb,)
     edge, room = group_norm_relu_edge(x, w, b, g, groups, GN_EPS)
     bf16 = dtype == torch.bfloat16
     report = []
     for name, k, p, rtol, rounded in zip(
-            ("y", "mean", "rstd", "dx", "dgamma", "dbeta"), got, want,
+            ("y", "mean", "rstd", "dx", "dgamma", "dbeta", "dcb"), got, want,
             (GN_RTOL, GN_RTOL, GN_RTOL, GN_RTOL, GN_PARAM_RTOL,
-             GN_PARAM_RTOL), (bf16, False, False, bf16, False, False)):
+             GN_PARAM_RTOL, GN_PARAM_RTOL),
+            (bf16, False, False, bf16, False, False, False)):
         d = (k.float() - p.float()).abs()
         if name == "dx":
             d = d.masked_fill(edge, 0)
         if name in room:
             d = (d - room[name]).clamp_min(0)
         err = float(d.max())
-        tol = _gn_tol(p, rtol, rounded)
+        tol = (rtol * dcb_scale if name == "dcb"
+               else _gn_tol(p, rtol, rounded))
         report.append(f"{name} {err:.3e} ({tol:.3e})")
         check(err <= tol, f"group norm {what} {dtype}: {name} max|d| {err} "
               f"> {tol}")
     same = all(torch.equal(a, c) for a, c in zip(got, again))
-    layout = " channels_last" if channels_last else ""
+    layout = (" channels_last" if channels_last else "") + (
+        " conv bias" if cb else "")
     print(f"{what}{layout} {tuple(shape)} G={groups} {str(dtype)[6:]}: max|d| "
           f"(tolerance) {', '.join(report)} (gradients less the room of "
           f"{int(edge.sum())} values at the ReLU's edge); second run bit for "
@@ -4566,59 +4605,109 @@ def _gn_tag(batch: int, c: int, side: int) -> str:
 
 def _gn_time_cases(batch: int, backward: bool) -> dict:
     """bf16 kernel / plain chain / library chain (bf16 GroupNorm and ReLU,
-    a yardstick the port never calls) at celeba128's norm shapes, b=batch:
-    name -> (kernel, plain, library, bound), as _time_cases takes them."""
+    a yardstick the port never calls) at celeba128's norm shapes, b=batch,
+    each without a conv bias and with one folded in (``_cb``: the plain and
+    library chains add it first, and their backward also gives its
+    gradient): name -> (kernel, plain, library, bound), as _time_cases
+    takes them."""
     cases = {}
     for c, side in GN_BLOCKS:
         shape = (batch, c, side, side)
         x, w, b, g = group_norm_inputs(shape, torch.bfloat16, c)
-        _, mean, rstd = gnc.group_norm_relu_fwd_cuda(x, w, b, GN_GROUPS,
-                                                     GN_EPS)
-        xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
-        xl = x.clone().requires_grad_(True)
-        wl, bl = (t.to(torch.bfloat16).requires_grad_(True) for t in (w, b))
+        cb = _gn_conv_bias(c, torch.bfloat16, c + 1)
         numel, tag = x.numel(), _gn_tag(batch, c, side)
         stats = batch * GN_GROUPS * 8 + c * 8
-        cases["gn_relu_fwd" + tag] = (
-            lambda x=x, w=w, b=b: gnc.group_norm_relu_fwd_cuda(
-                x, w, b, GN_GROUPS, GN_EPS),
-            lambda x=x, w=w, b=b: plain_gn_relu(x, GN_GROUPS, w, b, GN_EPS),
-            lambda x=x, w=wl, b=bl: F.relu(F.group_norm(x, GN_GROUPS, w, b,
-                                                        GN_EPS)),
-            _bound(4 * numel + stats, 8 * numel))
-        if backward:
-            y = plain_gn_relu(xr, GN_GROUPS, wr, br, GN_EPS)
-            yl = F.relu(F.group_norm(xl, GN_GROUPS, wl, bl, GN_EPS))
-            cases["gn_relu_bwd" + tag] = (
-                lambda x=x, w=w, b=b, g=g, m=mean, r=rstd:
-                    gnc.group_norm_relu_bwd_cuda(g, x, m, r, w, b, GN_GROUPS),
-                lambda y=y, t=(xr, wr, br), g=g: torch.autograd.grad(
-                    y, t, g, retain_graph=True),
-                lambda y=yl, t=(xl, wl, bl), g=g: torch.autograd.grad(
-                    y, t, g, retain_graph=True),
-                _bound(6 * numel + stats + 2 * batch * c * 8, 12 * numel))
+        for fold in ((), (cb,)):
+            _, mean, rstd = gnc.group_norm_relu_fwd_cuda(x, w, b, GN_GROUPS,
+                                                         GN_EPS, *fold)
+            xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
+            xl = x.clone().requires_grad_(True)
+            wl, bl = (t.to(torch.bfloat16).requires_grad_(True)
+                      for t in (w, b))
+            cr = tuple(t.clone().requires_grad_(True) for t in fold)
+
+            def added(x, cr=cr):
+                return x + cr[0][:, None, None] if cr else x
+            cut = "_cb" if fold else ""
+            # the fold reads the bias (bytes) and adds it (operations)
+            bias_bytes, bias_ops = (2 * c, numel) if fold else (0, 0)
+            cases[f"gn_relu_fwd{cut}{tag}"] = (
+                lambda x=x, w=w, b=b, f=fold: gnc.group_norm_relu_fwd_cuda(
+                    x, w, b, GN_GROUPS, GN_EPS, *f),
+                lambda x=x, w=w, b=b, f=fold: plain_gn_relu(
+                    x, GN_GROUPS, w, b, GN_EPS, *f),
+                lambda x=x, w=wl, b=bl, a=added: F.relu(F.group_norm(
+                    a(x), GN_GROUPS, w, b, GN_EPS)),
+                _bound(4 * numel + stats + bias_bytes, 8 * numel + bias_ops))
+            if backward:
+                y = plain_gn_relu(added(xr), GN_GROUPS, wr, br, GN_EPS)
+                yl = F.relu(F.group_norm(added(xl), GN_GROUPS, wl, bl,
+                                         GN_EPS))
+                # with the fold a third (n, c) partial is written and read
+                cases[f"gn_relu_bwd{cut}{tag}"] = (
+                    lambda x=x, w=w, b=b, g=g, m=mean, r=rstd, f=fold:
+                        gnc.group_norm_relu_bwd_cuda(g, x, m, r, w, b,
+                                                     GN_GROUPS, *f),
+                    lambda y=y, t=(xr, wr, br, *cr), g=g: torch.autograd.grad(
+                        y, t, g, retain_graph=True),
+                    lambda y=yl, t=(xl, wl, bl, *cr), g=g:
+                        torch.autograd.grad(y, t, g, retain_graph=True),
+                    _bound(6 * numel + stats + bias_bytes
+                           + 2 * batch * c * (12 if fold else 8),
+                           12 * numel + bias_ops))
     return cases
+
+
+def _gn_bias_pass_ms(batch: int, c: int, side: int,
+                     channels_last: bool) -> tuple[float, float]:
+    """bf16 at one block's shape: the two passes the fold takes out, in ms:
+    the conv's bias add in place, as PyTorch runs it after a cuDNN conv,
+    and the bias gradient's sum of dL/dz over N, H and W."""
+    x, _, _, g = group_norm_inputs((batch, c, side, side), torch.bfloat16,
+                                   c, channels_last=channels_last)
+    cb = _gn_conv_bias(c, torch.bfloat16, c + 1)
+    return (cuda_median_ms(lambda: x.add_(cb[:, None, None]), reps=20),
+            cuda_median_ms(lambda: g.sum((0, 2, 3)), reps=20))
+
+
+def _gn_fold_line(batch: int, folded: float, unfolded: float,
+                  bias_ms: dict, what: str, card: str) -> None:
+    """A paper-width step's blocks, forward and backward: the kernels with
+    the fold against the kernels without it plus the add and the sum it
+    takes out (``bias_ms``: (c, side) -> (add, sum) ms, a block)."""
+    adds = sum(k * bias_ms[cs][0] for cs, k in GN_BLOCKS.items())
+    sums = sum(k * bias_ms[cs][1] for cs, k in GN_BLOCKS.items())
+    print(f"a paper-width b{batch} step's {sum(GN_BLOCKS.values())} blocks "
+          f"({what}), forward and backward: folded kernels {folded:.3f} ms "
+          f"against kernels {unfolded:.3f} ms + bias add {adds:.3f} ms + "
+          f"bias sum {sums:.3f} ms = {unfolded + adds + sums:.3f} ms  "
+          f"[{card}]", flush=True)
 
 
 def group_norm_phase(card: str) -> None:
     """The GroupNorm + ReLU kernels: correctness and determinism of the
-    NCHW pair at every norm shape of celeba128's paper-width train (b128)
-    and label (b256) cells and at pose256's, transporter_atari's and the
-    general path's; a paper-width train step's launches (wrappers, then
-    its replays by the profiler: the NHWC pair, the nets being
-    channels_last; no aten GroupNorm kernel left); the NCHW pair's
-    times."""
+    NCHW pair, without a conv bias and with one folded in, at every norm
+    shape of celeba128's paper-width train (b128) and label (b256) cells
+    and at pose256's, transporter_atari's and the general path's; a
+    paper-width train step's launches (wrappers, then its replays by the
+    profiler: the NHWC pair, the nets being channels_last, every block's
+    conv bias folded; no aten GroupNorm kernel left); the NCHW pair's
+    times, folded and not, beside the bias add and sum the fold takes
+    out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     phase(f"39 group norm + ReLU kernels on {card}")
     for dtype in (torch.bfloat16, torch.float32):
-        for batch in (TRAIN_BATCH, GN_LABEL_BATCH):
-            for c, side in GN_BLOCKS:
-                _gn_check(f"celeba128 b{batch}", (batch, c, side, side),
-                          GN_GROUPS, dtype, c + batch)
-        for what, shape, groups, unaligned in GN_OTHER:
-            _gn_check(what, shape, groups, dtype, 7, unaligned)
-        torch.cuda.empty_cache()
+        for conv_bias in (False, True):
+            for batch in (TRAIN_BATCH, GN_LABEL_BATCH):
+                for c, side in GN_BLOCKS:
+                    _gn_check(f"celeba128 b{batch}", (batch, c, side, side),
+                              GN_GROUPS, dtype, c + batch,
+                              conv_bias=conv_bias)
+            for what, shape, groups, unaligned in GN_OTHER:
+                _gn_check(what, shape, groups, dtype, 7, unaligned,
+                          conv_bias=conv_bias)
+            torch.cuda.empty_cache()
 
     cfg = get_config("celeba128").override(
         **GN_PAPER, **{"train.batch_size": TRAIN_BATCH})
@@ -4628,7 +4717,7 @@ def group_norm_phase(card: str) -> None:
     state, _ = step(state, images)
     torch.cuda.synchronize()
     gnc.launches = gnc.bwd_launches = 0
-    gnc.nhwc_launches = gnc.nhwc_bwd_launches = 0
+    gnc.nhwc_launches = gnc.nhwc_bwd_launches = gnc.bias_folds = 0
     state, _ = step(state, images)
     torch.cuda.synchronize()
     eager = (gnc.nhwc_launches, gnc.nhwc_bwd_launches)
@@ -4636,10 +4725,13 @@ def group_norm_phase(card: str) -> None:
     print(f"paper-width celeba128 b{TRAIN_BATCH}, an eager step "
           f"(channels_last): {eager[0]} forward and {eager[1]} backward "
           f"launches of the NHWC pair by the wrappers, "
-          f"{gnc.launches + gnc.bwd_launches} of the NCHW one ({blocks} "
-          f"blocks)", flush=True)
+          f"{gnc.launches + gnc.bwd_launches} of the NCHW one, "
+          f"{gnc.bias_folds} forward launches with a conv bias folded in "
+          f"({blocks} blocks)", flush=True)
     check(eager == (blocks, blocks) and gnc.launches + gnc.bwd_launches == 0,
           f"group norm launches a step {eager}, {blocks} each expected")
+    check(gnc.bias_folds == blocks,
+          f"{gnc.bias_folds} folded conv biases a step, {blocks} expected")
     state = init_state(cfg, "cuda")
     step = make_graphed_train_step(cfg, state, loss=make_loss(cfg))
     for _ in range(4):
@@ -4674,17 +4766,23 @@ def group_norm_phase(card: str) -> None:
         times.update(_time_cases(_gn_time_cases(batch, backward), card,
                                  reps=20, plain_reps=5))
         torch.cuda.empty_cache()
-    totals = {key: sum(k * times[f"gn_relu_{way}"
-                                 + _gn_tag(TRAIN_BATCH, c, side)][key]
-                       for (c, side), k in GN_BLOCKS.items()
-                       for way in ("fwd", "bwd"))
-              for key in ("ms", "bound_ms", "plain_ms", "library_ms")}
-    print(f"a paper-width b{TRAIN_BATCH} step's {blocks} norms, forward and "
-          f"backward: kernels {totals['ms']:.3f} ms, bound "
-          f"{totals['bound_ms']:.3f} ms "
-          f"({totals['bound_ms'] / totals['ms']:.1%}), plain chain "
-          f"{totals['plain_ms']:.3f} ms, library bf16 chain "
-          f"{totals['library_ms']:.3f} ms  [{card}]", flush=True)
+    for cut, what in (("", "norms"), ("_cb", "norms, conv bias folded")):
+        totals = {key: sum(k * times[f"gn_relu_{way}{cut}"
+                                     + _gn_tag(TRAIN_BATCH, c, side)][key]
+                           for (c, side), k in GN_BLOCKS.items()
+                           for way in ("fwd", "bwd"))
+                  for key in ("ms", "bound_ms", "plain_ms", "library_ms")}
+        print(f"a paper-width b{TRAIN_BATCH} step's {blocks} {what}, forward "
+              f"and backward: kernels {totals['ms']:.3f} ms, bound "
+              f"{totals['bound_ms']:.3f} ms "
+              f"({totals['bound_ms'] / totals['ms']:.1%}), plain chain "
+              f"{totals['plain_ms']:.3f} ms, library bf16 chain "
+              f"{totals['library_ms']:.3f} ms  [{card}]", flush=True)
+        times[f"step{cut}"] = totals["ms"]
+    bias_ms = {(c, side): _gn_bias_pass_ms(TRAIN_BATCH, c, side, False)
+               for c, side in GN_BLOCKS}
+    _gn_fold_line(TRAIN_BATCH, times["step_cb"], times["step"], bias_ms,
+                  "the NCHW pair", card)
 
 
 # phase 40: the NHWC pair and the channels_last nets; the shapes timed
@@ -4711,31 +4809,49 @@ def nchw_nets():
 def _gn_nhwc_time(what: str, shape, backward: bool, card: str) -> dict:
     """bf16 at one shape: the NHWC pair, its bound, the NCHW pair on the
     same values in NCHW, the library's bf16 chain on the channels_last
-    input; forward, and backward where asked. → {"fwd": {...}, "bwd":
-    {...}} in ms."""
+    input; forward, and backward where asked; each also with a conv bias
+    folded in (``fwd_cb``, ``bwd_cb``: the library chain adds it first),
+    and the bias add and sum the fold takes out (``bias``). → {"fwd":
+    {...}, "bwd": {...}, "fwd_cb": ..., "bias": {"add_ms", "sum_ms"}} in
+    ms."""
     x, w, b, g = group_norm_inputs(shape, torch.bfloat16, shape[1],
                             channels_last=True)
+    cb = _gn_conv_bias(shape[1], torch.bfloat16, shape[1] + 1)
     xn, gn = x.contiguous(), g.contiguous()
-    _, mean, rstd = gnc.group_norm_relu_fwd_cuda(x, w, b, GN_GROUPS, GN_EPS)
-    xl = x.clone().requires_grad_(True)
-    wl, bl = (t.to(torch.bfloat16).requires_grad_(True) for t in (w, b))
     numel, batch, c = x.numel(), shape[0], shape[1]
     stats = batch * GN_GROUPS * 8 + c * 8
-    ways = {"fwd": (
-        lambda: gnc.group_norm_relu_fwd_cuda(x, w, b, GN_GROUPS, GN_EPS),
-        lambda: gnc.group_norm_relu_fwd_cuda(xn, w, b, GN_GROUPS, GN_EPS),
-        lambda: F.relu(F.group_norm(x, GN_GROUPS, wl, bl, GN_EPS)),
-        _bound(4 * numel + stats, 8 * numel)[0])}
-    if backward:
-        yl = F.relu(F.group_norm(xl, GN_GROUPS, wl, bl, GN_EPS))
-        ways["bwd"] = (
-            lambda: gnc.group_norm_relu_bwd_cuda(g, x, mean, rstd, w, b,
-                                                 GN_GROUPS),
-            lambda: gnc.group_norm_relu_bwd_cuda(gn, xn, mean, rstd, w, b,
-                                                 GN_GROUPS),
-            lambda: torch.autograd.grad(yl, (xl, wl, bl), g,
-                                        retain_graph=True),
-            _bound(6 * numel + stats + 2 * batch * c * 8, 12 * numel)[0])
+    ways = {}
+    for fold in ((), (cb,)):
+        cut = "_cb" if fold else ""
+        bias_bytes, bias_ops = (2 * c, numel) if fold else (0, 0)
+        _, mean, rstd = gnc.group_norm_relu_fwd_cuda(x, w, b, GN_GROUPS,
+                                                     GN_EPS, *fold)
+        xl = x.clone().requires_grad_(True)
+        wl, bl = (t.to(torch.bfloat16).requires_grad_(True) for t in (w, b))
+        cl = tuple(t.clone().requires_grad_(True) for t in fold)
+
+        def added(x, cl=cl):
+            return x + cl[0][:, None, None] if cl else x
+        ways["fwd" + cut] = (
+            lambda f=fold: gnc.group_norm_relu_fwd_cuda(x, w, b, GN_GROUPS,
+                                                        GN_EPS, *f),
+            lambda f=fold: gnc.group_norm_relu_fwd_cuda(xn, w, b, GN_GROUPS,
+                                                        GN_EPS, *f),
+            lambda wl=wl, bl=bl, a=added: F.relu(F.group_norm(
+                a(x), GN_GROUPS, wl, bl, GN_EPS)),
+            _bound(4 * numel + stats + bias_bytes, 8 * numel + bias_ops)[0])
+        if backward:
+            yl = F.relu(F.group_norm(added(xl), GN_GROUPS, wl, bl, GN_EPS))
+            ways["bwd" + cut] = (
+                lambda f=fold, m=mean, r=rstd: gnc.group_norm_relu_bwd_cuda(
+                    g, x, m, r, w, b, GN_GROUPS, *f),
+                lambda f=fold, m=mean, r=rstd: gnc.group_norm_relu_bwd_cuda(
+                    gn, xn, m, r, w, b, GN_GROUPS, *f),
+                lambda yl=yl, t=(xl, wl, bl, *cl): torch.autograd.grad(
+                    yl, t, g, retain_graph=True),
+                _bound(6 * numel + stats + bias_bytes
+                       + 2 * batch * c * (12 if fold else 8),
+                       12 * numel + bias_ops)[0])
     out = {}
     for way, (nhwc, nchw, library, bound) in ways.items():
         t = {"nhwc_ms": cuda_median_ms(nhwc, reps=20),
@@ -4750,6 +4866,17 @@ def _gn_nhwc_time(what: str, shape, backward: bool, card: str) -> dict:
               f"{bound * 1e3:.2f} us ({bound / t['nhwc_ms']:.1%}); NCHW "
               f"pair {t['nchw_ms'] * 1e3:.2f} us; library bf16 chain "
               f"(channels_last) {t['library_ms'] * 1e3:.2f} us  [{card}]",
+              flush=True)
+    out["bias"] = {
+        "add_ms": cuda_median_ms(lambda: x.add_(cb[:, None, None]), reps=20),
+        "sum_ms": cuda_median_ms(lambda: g.sum((0, 2, 3)), reps=20)}
+    for way in ("fwd", "bwd")[:1 + backward]:
+        pass_ms = out["bias"]["add_ms" if way == "fwd" else "sum_ms"]
+        print(f"gn_relu_{way}_nhwc {what} {c}@{shape[2]}x{shape[3]}: folded "
+              f"{out[way + '_cb']['nhwc_ms'] * 1e3:.2f} us against "
+              f"{out[way]['nhwc_ms'] * 1e3:.2f} us + the bias "
+              f"{'add' if way == 'fwd' else 'sum'} {pass_ms * 1e3:.2f} us = "
+              f"{(out[way]['nhwc_ms'] + pass_ms) * 1e3:.2f} us  [{card}]",
               flush=True)
     return out
 
@@ -4803,9 +4930,12 @@ def _paper_step(dtype: str, graphed: bool, preset: str = "celeba128"):
 
 def group_norm_nhwc_phase(card: str) -> None:
     """The NHWC GroupNorm + ReLU pair and the channels_last nets: the pair
-    against plain at every phase-39 shape in bf16 and f32, twice bit for
-    bit; its times against its bound, the NCHW pair and the library's
-    bf16 chain; cuDNN's layout transposes left in a paper-width celeba128
+    against plain at every phase-39 shape in bf16 and f32, without a conv
+    bias and with one folded in, twice bit for bit; its times, folded and
+    not, against its bound, the NCHW pair and the library's bf16 chain,
+    and beside the bias add and sum the fold takes out (at celeba128's
+    shapes and pose256's read-twice 32@256^2); cuDNN's layout transposes
+    left in a paper-width celeba128
     step (by conv, from an eager step's profile; a graphed replay's total);
     the step channels_last against NCHW in turns, graphed bf16 and eager
     f32 (the f32 rule of ``nets.memory_format``), and pose256's graphed
@@ -4814,14 +4944,16 @@ def group_norm_nhwc_phase(card: str) -> None:
     from torch.profiler import ProfilerActivity, profile
     phase(f"40 NHWC group norm + ReLU and channels_last nets on {card}")
     for dtype in (torch.bfloat16, torch.float32):
-        for batch in (TRAIN_BATCH, GN_LABEL_BATCH):
-            for c, side in GN_BLOCKS:
-                _gn_check(f"celeba128 b{batch}", (batch, c, side, side),
-                          GN_GROUPS, dtype, c + batch, channels_last=True)
-        for what, shape, groups, unaligned in GN_OTHER:
-            _gn_check(what, shape, groups, dtype, 7, unaligned,
-                      channels_last=True)
-        torch.cuda.empty_cache()
+        for conv_bias in (False, True):
+            for batch in (TRAIN_BATCH, GN_LABEL_BATCH):
+                for c, side in GN_BLOCKS:
+                    _gn_check(f"celeba128 b{batch}", (batch, c, side, side),
+                              GN_GROUPS, dtype, c + batch,
+                              channels_last=True, conv_bias=conv_bias)
+            for what, shape, groups, unaligned in GN_OTHER:
+                _gn_check(what, shape, groups, dtype, 7, unaligned,
+                          channels_last=True, conv_bias=conv_bias)
+            torch.cuda.empty_cache()
 
     times = {}
     for c, side in GN_BLOCKS:
@@ -4835,14 +4967,24 @@ def group_norm_nhwc_phase(card: str) -> None:
         _gn_nhwc_time(what, shape, True, card)
         torch.cuda.empty_cache()
     blocks = sum(GN_BLOCKS.values())
-    for key in ("nhwc_ms", "nchw_ms", "bound_ms", "library_ms"):
-        total = sum(k * (times[cs]["fwd"][key] + times[cs]["bwd"][key])
-                    for cs, k in GN_BLOCKS.items())
-        print(f"a paper-width b{TRAIN_BATCH} step's {blocks} norms, forward "
-              f"and backward, {key[:-3]}: {total:.3f} ms  [{card}]",
-              flush=True)
+    for cut in ("", "_cb"):
+        for key in ("nhwc_ms", "nchw_ms", "bound_ms", "library_ms"):
+            total = sum(k * (times[cs]["fwd" + cut][key]
+                             + times[cs]["bwd" + cut][key])
+                        for cs, k in GN_BLOCKS.items())
+            print(f"a paper-width b{TRAIN_BATCH} step's {blocks} norms"
+                  f"{', conv bias folded' if cut else ''}, forward and "
+                  f"backward, {key[:-3]}: {total:.3f} ms  [{card}]",
+                  flush=True)
+    _gn_fold_line(
+        TRAIN_BATCH,
+        *(sum(k * (times[cs]["fwd" + cut]["nhwc_ms"]
+                   + times[cs]["bwd" + cut]["nhwc_ms"])
+              for cs, k in GN_BLOCKS.items()) for cut in ("_cb", "")),
+        {cs: (times[cs]["bias"]["add_ms"], times[cs]["bias"]["sum_ms"])
+         for cs in GN_BLOCKS}, "the NHWC pair", card)
     for cs in GN_BLOCKS:
-        for way in ("fwd", "bwd"):
+        for way in ("fwd", "bwd", "fwd_cb", "bwd_cb"):
             t = times[cs][way]
             verdict = "no slower" if t["nhwc_ms"] <= t["nchw_ms"] else "SLOWER"
             print(f"{way} {cs[0]}@{cs[1]}^2: NHWC {t['nhwc_ms'] * 1e3:.2f} "

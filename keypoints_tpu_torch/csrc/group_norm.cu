@@ -85,11 +85,35 @@
 // finds the first's lines in L2. On the H100 the pair still takes
 // 1.2-1.7x the NCHW pair's time at celeba128's shapes (PERF.md, with the
 // designs measured slower).
+//
+// The conv's bias (cb, optional, in x's dtype). cuDNN does not fuse a conv's
+// bias: PyTorch runs the conv, then a broadcast add over its output, and in
+// the backward sums the gradient over N, H and W, two more passes over an
+// activation that these kernels read anyway. So a block's conv runs without
+// its bias and both pairs take it: they form z = x + cb as they load x (the
+// sum in f32, rounded once to x's dtype, as aten's add does, so z is bit
+// for bit the tensor conv-then-add wrote), normalise z, and the backward
+// recomputes z the same way. dL/dcb is the sum over n, h, w of dL/dz =
+// dL/dx, formed without a pass of its own: pass 2 writes each value as a
+// dz - (d k1 + k0) (a = gamma rstd, k0 and k1 the group's terms, d = z -
+// mean in NHWC, xhat in NCHW), so a channel's sum is a sum(dz) - (k1
+// sum(d) + k0 count), and pass 1, which sums dz already, also sums d.
+// Those (n, c) partials (a row of the NHWC scratch a CTA) are added over
+// the rows by gn_relu_bwd_params in the same fixed order as dL/dgamma and
+// dL/dbeta. It is the sum of the f32 values before their rounding to x's
+// dtype (the unfused chain summed the rounded ones). Summing the written
+// values in pass 2 cost registers the NHWC backward does not have at three
+// CTAs an SM: it spilled and took 1.24x its time. Every kernel is a template
+// on the fold (kFold), so a launch without cb runs as before. Where the
+// NHWC backward stages x, its pass 1 writes z over x in shared memory, so
+// pass 2 holds no bias (the forward folds in both passes: its write-back
+// measured slower).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
 #include <utility>
 
 #include "common.cuh"
@@ -206,6 +230,26 @@ __device__ __forceinline__ void store(T* p, const float (&v)[E]) {
     *reinterpret_cast<uint4*>(p) = pack(v);
 }
 
+// v rounded to T's precision (to nearest even), and back to f32
+template <typename T>
+__device__ __forceinline__ float to_dtype(float v);
+template <>
+__device__ __forceinline__ float to_dtype<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float to_dtype<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// z = x + b in x's dtype: the f32 sum rounded once, as aten's add of the
+// conv's bias.
+template <typename T, int E>
+__device__ __forceinline__ void fold(float (&v)[E], float b) {
+#pragma unroll
+  for (int e = 0; e < E; ++e) v[e] = to_dtype<T>(v[e] + b);
+}
+
 struct Affine {
   float a, b;
 };
@@ -280,20 +324,23 @@ __device__ __forceinline__ void accumulate(float v, float pivot, float* sum,
 }
 
 // Forward, a slice a block held in registers: R vectors a thread, vector i
-// of the slice in thread i % kThreads.
-template <typename T, int R>
+// of the slice in thread i % kThreads. kFold: cb is given and folded in.
+template <typename T, int R, bool kFold>
 __global__ void __launch_bounds__(kThreads)
 gn_relu_fwd_held(const T* __restrict__ x, const float* __restrict__ gamma,
-                 const float* __restrict__ beta, T* __restrict__ y,
-                 float* __restrict__ mean_out, float* __restrict__ rstd_out,
-                 int groups, int cg, int hw, float eps) {
+                 const float* __restrict__ beta, const T* __restrict__ cb,
+                 T* __restrict__ y, float* __restrict__ mean_out,
+                 float* __restrict__ rstd_out, int groups, int cg, int hw,
+                 float eps) {
   constexpr int E = Elems<T>::kVec;
   __shared__ float2 scratch[kWarps + 1];
   const int s = blockIdx.x;
   const int m = cg * hw, vecs = m / E, per_channel = hw / E;
   const long long base = static_cast<long long>(s) * m;
   const uint4* xs = reinterpret_cast<const uint4*>(x + base);
-  const float pivot = load1(x + base);
+  float pivot = load1(x + base);
+  if constexpr (kFold)
+    pivot = to_dtype<T>(pivot + load1(cb + (s % groups) * cg));
   uint4 held[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -303,9 +350,12 @@ gn_relu_fwd_held(const T* __restrict__ x, const float* __restrict__ gamma,
   float sum = 0.0f, sq = 0.0f;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    if (threadIdx.x + r * kThreads < vecs) {
+    const int i = threadIdx.x + r * kThreads;
+    if (i < vecs) {
       float v[E];
       unpack(held[r], v);
+      if constexpr (kFold)
+        fold<T>(v, load1(cb + (s % groups) * cg + i / per_channel));
 #pragma unroll
       for (int e = 0; e < E; ++e) accumulate(v[e], pivot, &sum, &sq);
     }
@@ -321,10 +371,11 @@ gn_relu_fwd_held(const T* __restrict__ x, const float* __restrict__ gamma,
   for (int r = 0; r < R; ++r) {
     const int i = threadIdx.x + r * kThreads;
     if (i < vecs) {
-      const Affine f = affine(gamma, beta, c0 + i / per_channel, st.mean,
-                              st.rstd);
+      const int c = c0 + i / per_channel;
+      const Affine f = affine(gamma, beta, c, st.mean, st.rstd);
       float v[E];
       unpack(held[r], v);
+      if constexpr (kFold) fold<T>(v, load1(cb + c));
 #pragma unroll
       for (int e = 0; e < E; ++e) v[e] = relu(pre_relu(v[e], f));
       ys[i] = pack(v);
@@ -333,24 +384,29 @@ gn_relu_fwd_held(const T* __restrict__ x, const float* __restrict__ gamma,
 }
 
 // Forward, read twice: blocks loop over slices (a persistent grid), E
-// values a step (a 16-byte vector, or 1).
-template <typename T, int E>
+// values a step (a 16-byte vector, or 1). kFold as above.
+template <typename T, int E, bool kFold>
 __global__ void __launch_bounds__(kThreads)
 gn_relu_fwd(const T* __restrict__ x, const float* __restrict__ gamma,
-            const float* __restrict__ beta, T* __restrict__ y,
-            float* __restrict__ mean_out, float* __restrict__ rstd_out,
-            int count, int groups, int cg, int hw, float eps) {
+            const float* __restrict__ beta, const T* __restrict__ cb,
+            T* __restrict__ y, float* __restrict__ mean_out,
+            float* __restrict__ rstd_out, int count, int groups, int cg,
+            int hw, float eps) {
   __shared__ float2 scratch[kWarps + 1];
   const int m = cg * hw, steps = m / E, per_channel = hw / E;
   for (int s = blockIdx.x; s < count; s += gridDim.x) {
     const long long base = static_cast<long long>(s) * m;
     const T* xs = x + base;
-    const float pivot = load1(xs);
+    float pivot = load1(xs);
+    if constexpr (kFold)
+      pivot = to_dtype<T>(pivot + load1(cb + (s % groups) * cg));
     float sum = 0.0f, sq = 0.0f;
 #pragma unroll 4
     for (int i = threadIdx.x; i < steps; i += kThreads) {
       float v[E];
       load<T, E>(xs + i * E, v);
+      if constexpr (kFold)
+        fold<T>(v, load1(cb + (s % groups) * cg + i / per_channel));
 #pragma unroll
       for (int e = 0; e < E; ++e) accumulate(v[e], pivot, &sum, &sq);
     }
@@ -363,10 +419,11 @@ gn_relu_fwd(const T* __restrict__ x, const float* __restrict__ gamma,
     T* ys = y + base;
 #pragma unroll 4
     for (int i = threadIdx.x; i < steps; i += kThreads) {
-      const Affine f = affine(gamma, beta, c0 + i / per_channel, st.mean,
-                              st.rstd);
+      const int c = c0 + i / per_channel;
+      const Affine f = affine(gamma, beta, c, st.mean, st.rstd);
       float v[E];
       load<T, E>(xs + i * E, v);
+      if constexpr (kFold) fold<T>(v, load1(cb + c));
 #pragma unroll
       for (int e = 0; e < E; ++e) v[e] = relu(pre_relu(v[e], f));
       store<T, E>(ys + i * E, v);
@@ -374,18 +431,46 @@ gn_relu_fwd(const T* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
+// Sums a channel of two or three values, added a component at a time.
+__device__ __forceinline__ void add_to(float2& a, float2 b) {
+  a.x += b.x;
+  a.y += b.y;
+}
+
+__device__ __forceinline__ void add_to(float3& a, float3 b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+}
+
+__device__ __forceinline__ float2 shfl_xor(float2 v, int o) {
+  return make_float2(__shfl_xor_sync(kpcommon::kFull, v.x, o),
+                     __shfl_xor_sync(kpcommon::kFull, v.y, o));
+}
+
+__device__ __forceinline__ float3 shfl_xor(float3 v, int o) {
+  return make_float3(__shfl_xor_sync(kpcommon::kFull, v.x, o),
+                     __shfl_xor_sync(kpcommon::kFull, v.y, o),
+                     __shfl_xor_sync(kpcommon::kFull, v.z, o));
+}
+
 // Backward on a persistent grid. part: (N * C) float2 of (sum dz * xhat,
-// sum dz), the (n, c) partials of dL/dgamma and dL/dbeta. Dynamic shared
-// memory: cg * parts float2.
-template <typename T, int E>
+// sum dz), the (n, c) partials of dL/dgamma and dL/dbeta. kFold: cb is
+// given, and pcb: (N * C) floats of sum dL/dx, those of dL/dcb, as pass 2
+// forms each value (a dz - (xhat kb + ka)): a sum(dz) - (kb sum(xhat) + ka
+// hw), sum(xhat) from pass 1. Dynamic shared memory: cg * parts float2,
+// then with the fold cg * parts floats.
+template <typename T, int E, bool kFold>
 __global__ void __launch_bounds__(kThreads)
 gn_relu_bwd(const T* __restrict__ dy, const T* __restrict__ x,
             const float* __restrict__ mean_in,
             const float* __restrict__ rstd_in,
             const float* __restrict__ gamma, const float* __restrict__ beta,
-            T* __restrict__ dx, float2* __restrict__ part, int count,
+            const T* __restrict__ cb, T* __restrict__ dx,
+            float2* __restrict__ part, float* __restrict__ pcb, int count,
             int groups, int cg, int hw, int parts) {
   extern __shared__ float2 items[];
+  float* items_cb = reinterpret_cast<float*>(items + cg * parts);
   __shared__ float2 scratch[kWarps + 1];
   const int m = cg * hw, steps = m / E, per_channel = hw / E;
   const int len = (per_channel + parts - 1) / parts;
@@ -397,30 +482,39 @@ gn_relu_bwd(const T* __restrict__ dy, const T* __restrict__ x,
     const T* gs = dy + base;
     const float mean = mean_in[s], rstd = rstd_in[s];
     const int c0 = (s % groups) * cg;
-    // pass 1: a warp an item (a channel's part): sums of dz and dz * xhat
+    // pass 1: a warp an item (a channel's part): sums of dz and dz * xhat,
+    // and with the fold of xhat
     for (int item = warp; item < cg * parts; item += kWarps) {
       const int c = item / parts;
       const int lo = (item - c * parts) * len;
       const int hi = min(lo + len, per_channel);
       const Affine f = affine(gamma, beta, c0 + c, mean, rstd);
+      const float bc = kFold ? load1(cb + c0 + c) : 0.0f;
       const T* xc = xs + c * hw;
       const T* gc = gs + c * hw;
-      float s1 = 0.0f, s2 = 0.0f;
+      float s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
 #pragma unroll 4
       for (int j = lo + lane; j < hi; j += kWarp) {
         float xv[E], gv[E];
         load<T, E>(xc + j * E, xv);
         load<T, E>(gc + j * E, gv);
+        if constexpr (kFold) fold<T>(xv, bc);
 #pragma unroll
         for (int e = 0; e < E; ++e) {
           const float dz = passes(pre_relu(xv[e], f)) ? gv[e] : 0.0f;
+          const float h = xhat(xv[e], mean, rstd);
           s1 += dz;
-          s2 = fmaf(dz, xhat(xv[e], mean, rstd), s2);
+          s2 = fmaf(dz, h, s2);
+          if constexpr (kFold) s3 += h;
         }
       }
       s1 = warp_sum(s1);
       s2 = warp_sum(s2);
       if (lane == 0) items[item] = make_float2(s1, s2);
+      if constexpr (kFold) {
+        s3 = warp_sum(s3);
+        if (lane == 0) items_cb[item] = s3;
+      }
     }
     __syncthreads();
     // a channel's parts in order: its (n, c) sums, and the slice's
@@ -441,15 +535,30 @@ gn_relu_bwd(const T* __restrict__ dy, const T* __restrict__ x,
     // thread has read them
     const float2 tot = block_sum2(a, b, scratch);
     const float ka = rstd * (tot.x * inv_m), kb = rstd * (tot.y * inv_m);
+    if constexpr (kFold) {
+      for (int c = threadIdx.x; c < cg; c += kThreads) {
+        float s1 = items[c * parts].x, s3 = items_cb[c * parts];
+        for (int p = 1; p < parts; ++p) {
+          s1 += items[c * parts + p].x;
+          s3 += items_cb[c * parts + p];
+        }
+        const float fa = __fmul_rn(__ldg(gamma + c0 + c), rstd);
+        pcb[static_cast<long long>(s) * cg + c] =
+            fmaf(fa, s1, -fmaf(s3, kb, ka * static_cast<float>(hw)));
+      }
+      __syncthreads();  // the next slice's pass 1 writes items
+    }
     // pass 2: dx = rstd * (gamma dz - sum(gamma dz) / m - xhat *
     // sum(gamma dz xhat) / m)
     T* ds = dx + base;
 #pragma unroll 4
     for (int i = threadIdx.x; i < steps; i += kThreads) {
-      const Affine f = affine(gamma, beta, c0 + i / per_channel, mean, rstd);
+      const int c = c0 + i / per_channel;
+      const Affine f = affine(gamma, beta, c, mean, rstd);
       float xv[E], gv[E];
       load<T, E>(xs + i * E, xv);
       load<T, E>(gs + i * E, gv);
+      if constexpr (kFold) fold<T>(xv, load1(cb + c));
 #pragma unroll
       for (int e = 0; e < E; ++e) {
         const float dz = passes(pre_relu(xv[e], f)) ? gv[e] : 0.0f;
@@ -460,32 +569,35 @@ gn_relu_bwd(const T* __restrict__ dy, const T* __restrict__ x,
   }
 }
 
-// dL/dgamma and dL/dbeta: the (n, c) partials added over n. A block takes
-// 32 channels; its row r adds n = r, r + kParamRows, ... in order, then row
-// 0 adds the rows' sums in order.
+// dL/dgamma and dL/dbeta, and with the fold dL/dcb from pcb: the (n, c)
+// partials added over n. A block takes 32 channels; its row r adds n = r,
+// r + kParamRows, ... in order, then row 0 adds the rows' sums in order.
+template <bool kFold>
 __global__ void __launch_bounds__(kWarp * kParamRows)
 gn_relu_bwd_params(const float2* __restrict__ part,
-                   float* __restrict__ dgamma, float* __restrict__ dbeta,
-                   int n, int c) {
-  __shared__ float2 rows[kParamRows][kWarp];
+                   const float* __restrict__ pcb, float* __restrict__ dgamma,
+                   float* __restrict__ dbeta, float* __restrict__ dcb, int n,
+                   int c) {
+  using Sums = std::conditional_t<kFold, float3, float2>;
+  __shared__ Sums rows[kParamRows][kWarp];
   const int ch = blockIdx.x * kWarp + threadIdx.x;
-  float2 t = make_float2(0.0f, 0.0f);
+  Sums t{};
   if (ch < c) {
     for (int i = threadIdx.y; i < n; i += kParamRows) {
-      const float2 p = __ldg(part + static_cast<long long>(i) * c + ch);
+      const long long at = static_cast<long long>(i) * c + ch;
+      const float2 p = __ldg(part + at);
       t.x += p.x;
       t.y += p.y;
+      if constexpr (kFold) t.z += __ldg(pcb + at);
     }
   }
   rows[threadIdx.y][threadIdx.x] = t;
   __syncthreads();
   if (threadIdx.y == 0 && ch < c) {
-    for (int r = 1; r < kParamRows; ++r) {
-      t.x += rows[r][threadIdx.x].x;
-      t.y += rows[r][threadIdx.x].y;
-    }
+    for (int r = 1; r < kParamRows; ++r) add_to(t, rows[r][threadIdx.x]);
     dgamma[ch] = t.x;
     dbeta[ch] = t.y;
+    if constexpr (kFold) dcb[ch] = t.z;
   }
 }
 
@@ -557,6 +669,90 @@ __device__ __forceinline__ void load_any(const T* p, float (&v)[E]) {
     unpack(*reinterpret_cast<const uint4*>(p), v);
 }
 
+// bf16 sums in bf16 arithmetic, rounded once to nearest even (subnormals
+// kept): the bits of aten's f32 sum rounded to bf16, since two bf16 values
+// add exactly in f32 unless their exponents differ by 16 or more, and then
+// the smaller lies far below half a bf16 spacing of the sum
+__device__ __forceinline__ unsigned add_bf16x2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ unsigned short add_bf16(unsigned short a,
+                                                   unsigned short b) {
+  unsigned short d;
+  asm("add.rn.bf16 %0, %1, %2;" : "=h"(d) : "h"(a), "h"(b));
+  return d;
+}
+
+// A thread's conv biases, E channels as a vector of x holds them: f32
+// values, or a bf16 vector's (or one value's) bits.
+template <typename T, int E>
+struct Bias {
+  float v[E];
+};
+template <>
+struct Bias<__nv_bfloat16, 8> {
+  uint4 bits;
+};
+template <>
+struct Bias<__nv_bfloat16, 1> {
+  unsigned short bits;
+};
+
+// The biases of channels c .. c + E - 1 from cbs (shared memory, 16-byte
+// aligned, c a multiple of E).
+template <typename T, int E>
+__device__ __forceinline__ Bias<T, E> bias_at(const T* cbs, int c) {
+  Bias<T, E> b;
+  if constexpr (std::is_same_v<T, __nv_bfloat16> && E > 1)
+    b.bits = *reinterpret_cast<const uint4*>(cbs + c);
+  else if constexpr (std::is_same_v<T, __nv_bfloat16>)
+    b.bits = *reinterpret_cast<const unsigned short*>(cbs + c);
+  else
+#pragma unroll
+    for (int e = 0; e < E; ++e) b.v[e] = cbs[c + e];
+  return b;
+}
+
+// E values of x at p with the conv bias added, z = x + b in T's arithmetic
+// (aten's add, bit for bit), as f32; z also written to w where w is given
+// (over x in a staged run).
+template <typename T, int E>
+__device__ __forceinline__ void load_folded(const T* p, const Bias<T, E>& b,
+                                            T* w, float (&v)[E]) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16> && E > 1) {
+    uint4 r = *reinterpret_cast<const uint4*>(p);
+    r = make_uint4(add_bf16x2(r.x, b.bits.x), add_bf16x2(r.y, b.bits.y),
+                   add_bf16x2(r.z, b.bits.z), add_bf16x2(r.w, b.bits.w));
+    if (w) *reinterpret_cast<uint4*>(w) = r;
+    unpack(r, v);
+  } else if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    const unsigned short h =
+        add_bf16(*reinterpret_cast<const unsigned short*>(p), b.bits);
+    if (w) *reinterpret_cast<unsigned short*>(w) = h;
+    v[0] = __uint_as_float(static_cast<unsigned>(h) << 16);
+  } else {
+    load_any<T, E>(p, v);
+#pragma unroll
+    for (int e = 0; e < E; ++e) v[e] += b.v[e];
+    if (w) store<T, E>(w, v);
+  }
+}
+
+// Stage the conv bias (C values) into cbs, for bias_at after the block's
+// next barrier.
+template <typename T>
+__device__ __forceinline__ void stage_bias(T* cbs, const T* cb, int c) {
+  for (int i = threadIdx.x; i < c; i += kNhwcThreads) cbs[i] = cb[i];
+}
+
+// Bytes rounded up to a 16-byte boundary.
+__host__ __device__ __forceinline__ long long align16(long long bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
 // An NHWC launch's shape: n samples of p pixels of c channels in groups of
 // cg; 2^lg columns a sweep (rounded up); a CTA's run is `sweeps` sweeps;
 // the first `staged` of the tensors a pass reads (x, then dL/dy) are
@@ -571,6 +767,13 @@ struct Nhwc {
 // where 2^lg <= 32, else every thread, E pairs each.
 __host__ __device__ __forceinline__ int red_pairs(int lg, int e) {
   return ((1 << lg) <= kWarp ? kNhwcWarps << lg : kNhwcThreads) * e;
+}
+
+// The backward's channel sums (pairs, or triples with the fold): red_pairs,
+// then C rounded up to even, so the float2 that follow a float3 stay
+// aligned.
+__host__ __device__ __forceinline__ int sums_values(int lg, int e, int c) {
+  return red_pairs(lg, e) + ((c + 1) & ~1);
 }
 
 // Where a thread reads: its column (E channels from c0), its first pixel
@@ -589,37 +792,31 @@ __device__ __forceinline__ Lane lane_of(const Nhwc& sh, int e, int rank) {
           min(lo + rows * sh.sweeps, sh.p), col * e < sh.c};
 }
 
-// The sum of N pairs as a tree: (0 + N/2), ..., then halves again.
-template <int N>
-__device__ __forceinline__ float2 tree_sum(float2 (&v)[N]) {
+// The sum of N pairs (or triples) as a tree: (0 + N/2), ..., then halves
+// again.
+template <typename V, int N>
+__device__ __forceinline__ V tree_sum(V (&v)[N]) {
 #pragma unroll
   for (int w = N / 2; w > 0; w /= 2) {
 #pragma unroll
-    for (int i = 0; i < w; ++i) {
-      v[i].x += v[i + w].x;
-      v[i].y += v[i + w].y;
-    }
+    for (int i = 0; i < w; ++i) add_to(v[i], v[i + w]);
   }
   return v[0];
 }
 
-// The CTA's sums of each channel's pair: v[e] holds this thread's for
-// channel c0 + e (zeros where it holds none) -> chan[c], c < C. Lanes of a
-// column meet by shuffles; then, where 2^lg <= 32, a warp's first 2^lg
-// lanes, else every thread, put theirs in red (red_pairs), one slot a warp
-// or a row, and the slots (at most kNhwcWarps) meet as a tree. Ends with
-// the block synchronised.
-template <int E>
-__device__ void channel_sums(float2 (&v)[E], const Nhwc& sh, float2* red,
-                             float2* chan) {
+// The CTA's sums of each channel's pair (or triple): v[e] holds this
+// thread's for channel c0 + e (zeros where it holds none) -> chan[c], c <
+// C. Lanes of a column meet by shuffles; then, where 2^lg <= 32, a warp's
+// first 2^lg lanes, else every thread, put theirs in red (red_pairs), one
+// slot a warp or a row, and the slots (at most kNhwcWarps) meet as a tree.
+// Ends with the block synchronised.
+template <int E, typename V>
+__device__ void channel_sums(V (&v)[E], const Nhwc& sh, V* red, V* chan) {
   const int cols_p = 1 << sh.lg;
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   for (int o = kWarp / 2; o >= cols_p; o >>= 1) {
 #pragma unroll
-    for (int e = 0; e < E; ++e) {
-      v[e].x += __shfl_xor_sync(kpcommon::kFull, v[e].x, o);
-      v[e].y += __shfl_xor_sync(kpcommon::kFull, v[e].y, o);
-    }
+    for (int e = 0; e < E; ++e) add_to(v[e], shfl_xor(v[e], o));
   }
   const bool by_warp = cols_p <= kWarp;
   const int slot = by_warp ? warp : threadIdx.x >> sh.lg;
@@ -632,10 +829,10 @@ __device__ void channel_sums(float2 (&v)[E], const Nhwc& sh, float2* red,
   __syncthreads();
   // slot s's pair of channel ch, column ch / E, is red[s * cols_p * E + ch]
   for (int ch = threadIdx.x; ch < sh.c; ch += kNhwcThreads) {
-    float2 t[kNhwcWarps];
+    V t[kNhwcWarps];
 #pragma unroll
     for (int i = 0; i < kNhwcWarps; ++i)
-      t[i] = i < slots ? red[i * cols_p * E + ch] : make_float2(0.0f, 0.0f);
+      t[i] = i < slots ? red[i * cols_p * E + ch] : V{};
     chan[ch] = tree_sum(t);
   }
   __syncthreads();
@@ -710,15 +907,17 @@ __device__ __forceinline__ float2 ranks_sum(const float2* recv, int ranks,
 }
 
 // Forward over NHWC, a cluster a sample (the clusters loop over the
-// samples where x is read twice). Dynamic shared memory: the staged run
-// (sh.staged * sweeps * rows * C values), then red_pairs + C + 2 * groups
-// float2, then groups floats.
-template <typename T, int E>
+// samples where x is read twice). kFold: cb is given, and both passes fold
+// it (in registers: writing z over the staged run measured slower).
+// Dynamic shared memory: the staged run (sh.staged * sweeps * rows * C
+// values), then red_pairs + C + 2 * groups float2, then groups floats,
+// then with the fold the bias (C values, 16-byte aligned).
+template <typename T, int E, bool kFold>
 __global__ void __launch_bounds__(kNhwcThreads)
 gn_relu_fwd_nhwc(const T* __restrict__ x, const float* __restrict__ gamma,
-                 const float* __restrict__ beta, T* __restrict__ y,
-                 float* __restrict__ mean_out, float* __restrict__ rstd_out,
-                 Nhwc sh, float eps) {
+                 const float* __restrict__ beta, const T* __restrict__ cb,
+                 T* __restrict__ y, float* __restrict__ mean_out,
+                 float* __restrict__ rstd_out, Nhwc sh, float eps) {
   extern __shared__ float4 nhwc_smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -733,6 +932,11 @@ gn_relu_fwd_nhwc(const T* __restrict__ x, const float* __restrict__ gamma,
   float2* grp = chan + sh.c;  // the CTA's group sums, read by the cluster
   float2* stat = grp + groups;
   float* piv = reinterpret_cast<float*>(stat + groups);
+  T* cbs = reinterpret_cast<T*>(
+      reinterpret_cast<char*>(nhwc_smem) +
+      align16(reinterpret_cast<char*>(piv + groups) -
+              reinterpret_cast<char*>(nhwc_smem)));
+  if constexpr (kFold) stage_bias(cbs, cb, sh.c);
   const int m = sh.p * sh.cg;
   const long long first = static_cast<long long>(ln.lo) * sh.c;
   const long long sample = static_cast<long long>(sh.p) * sh.c;
@@ -752,11 +956,17 @@ gn_relu_fwd_nhwc(const T* __restrict__ x, const float* __restrict__ gamma,
             (ln.hi - ln.lo) * static_cast<long long>(sh.c) / Elems<T>::kVec);
       copies_commit();
     }
-    if (threadIdx.x < groups)
-      piv[threadIdx.x] = load1(xs + threadIdx.x * sh.cg);
+    if (threadIdx.x < groups) {
+      const int c = threadIdx.x * sh.cg;
+      float v[1] = {load1(xs + c)};
+      if constexpr (kFold) fold<T>(v, load1(cb + c));
+      piv[threadIdx.x] = v[0];
+    }
     copies_wait(0);
     __syncthreads();
     const T* src = sh.staged ? run : xs + first;
+    Bias<T, E> bc;
+    if constexpr (kFold) bc = bias_at<T, E>(cbs, ln.active ? ln.c0 : 0);
     float pv[E];
     float2 acc[E];
 #pragma unroll
@@ -767,8 +977,12 @@ gn_relu_fwd_nhwc(const T* __restrict__ x, const float* __restrict__ gamma,
     if (ln.active) {
 #pragma unroll 4
       for (int px = ln.row; px < ln.hi - ln.lo; px += ln.rows) {
+        const long long at = static_cast<long long>(px) * sh.c + ln.c0;
         float v[E];
-        load_any<T, E>(src + static_cast<long long>(px) * sh.c + ln.c0, v);
+        if constexpr (kFold)
+          load_folded<T, E>(src + at, bc, nullptr, v);
+        else
+          load_any<T, E>(src + at, v);
 #pragma unroll
         for (int e = 0; e < E; ++e)
           accumulate(v[e], pv[e], &acc[e].x, &acc[e].y);
@@ -810,7 +1024,10 @@ gn_relu_fwd_nhwc(const T* __restrict__ x, const float* __restrict__ gamma,
       for (int px = ln.row; px < ln.hi - ln.lo; px += ln.rows) {
         const long long at = static_cast<long long>(px) * sh.c + ln.c0;
         float v[E];
-        load_any<T, E>(src + at, v);
+        if constexpr (kFold)
+          load_folded<T, E>(src + at, bc, nullptr, v);
+        else
+          load_any<T, E>(src + at, v);
 #pragma unroll
         for (int e = 0; e < E; ++e) v[e] = relu(pre_relu(v[e], f[e]));
         store<T, E>(ys + at, v);
@@ -824,17 +1041,24 @@ gn_relu_fwd_nhwc(const T* __restrict__ x, const float* __restrict__ gamma,
 // Backward over NHWC, a cluster a sample (the clusters loop over the
 // samples where a tensor is read twice). part: (N * ranks * C) float2 of
 // (sum dz * xhat, sum dz) over each CTA's run, row n * ranks + rank; the
-// groups' gamma-weighted sums are pushed as in the forward. Dynamic shared
-// memory: the staged runs (x, then dL/dy), then red_pairs + C + groups +
-// 2 * ranks * groups + 2 * groups float2.
-template <typename T, int E>
+// groups' gamma-weighted sums are pushed as in the forward. kFold: cb is
+// given; pass 1 folds it and, where x is staged, writes z over x there, so
+// pass 2 reads z and holds no bias (x read twice from device memory is
+// folded twice); pass 1 also sums z - mean a channel, so that the run's
+// sum of dL/dx a channel, a sum(dz) - (kb sum(z - mean) + ka px), goes to
+// pcb's rows (as part's) with pass 2 left as it is. Dynamic shared memory:
+// the staged runs (x, then dL/dy), then sums_values pairs (triples with the
+// fold), then groups + 2 * ranks * groups + 2 * groups float2, then with
+// the fold the bias (C values, 16-byte aligned).
+template <typename T, int E, bool kFold>
 __global__ void __launch_bounds__(kNhwcThreads, kNhwcBlocks)
 gn_relu_bwd_nhwc(const T* __restrict__ dy, const T* __restrict__ x,
                  const float* __restrict__ mean_in,
                  const float* __restrict__ rstd_in,
                  const float* __restrict__ gamma,
-                 const float* __restrict__ beta, T* __restrict__ dx,
-                 float2* __restrict__ part, Nhwc sh) {
+                 const float* __restrict__ beta, const T* __restrict__ cb,
+                 T* __restrict__ dx, float2* __restrict__ part,
+                 float* __restrict__ pcb, Nhwc sh) {
   extern __shared__ float4 nhwc_smem[];
   cg::cluster_group cluster = cg::this_cluster();
   cluster_arrive();  // this CTA has started: others may push into it
@@ -845,14 +1069,20 @@ gn_relu_bwd_nhwc(const T* __restrict__ dy, const T* __restrict__ x,
   const int groups = sh.groups;
   const long long run_values =
       static_cast<long long>(sh.sweeps) * ln.rows * sh.c;
+  using Sums = std::conditional_t<kFold, float3, float2>;
   T* run_x = reinterpret_cast<T*>(nhwc_smem);
   T* run_g = run_x + run_values;
-  float2* red = reinterpret_cast<float2*>(run_x + sh.staged * run_values);
-  float2* chan = red + red_pairs(sh.lg, E);
-  float2* gw = chan + sh.c;
+  Sums* red = reinterpret_cast<Sums*>(run_x + sh.staged * run_values);
+  Sums* chan = red + red_pairs(sh.lg, E);
+  float2* gw = reinterpret_cast<float2*>(red + sums_values(sh.lg, E, sh.c));
   float2* recv = gw + groups;  // two slots of ranks * groups pairs
   float2* stat = recv + 2 * ranks * groups;
   float2* terms = stat + groups;
+  T* cbs = reinterpret_cast<T*>(
+      reinterpret_cast<char*>(nhwc_smem) +
+      align16(reinterpret_cast<char*>(terms + groups) -
+              reinterpret_cast<char*>(nhwc_smem)));
+  if constexpr (kFold) stage_bias(cbs, cb, sh.c);
   const float inv_m = 1.0f / static_cast<float>(sh.p * sh.cg);
   const long long first = static_cast<long long>(ln.lo) * sh.c;
   const long long sample = static_cast<long long>(sh.p) * sh.c;
@@ -872,34 +1102,45 @@ gn_relu_bwd_nhwc(const T* __restrict__ dy, const T* __restrict__ x,
     // in at the sums)
     float mean[E];
     Affine f[E];
-    float2 acc[E];
+    Sums acc[E];
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       const int c = ln.active ? ln.c0 + e : 0;
       const float2 s = stat[c / sh.cg];
       mean[e] = s.x;
       f[e] = affine(gamma, beta, c, s.x, s.y);
-      acc[e] = make_float2(0.0f, 0.0f);
+      acc[e] = Sums{};
     }
     // pass 1, chunk by chunk as the copies land: this thread's channels'
-    // sums of dz and dz * (x - mean)
-    for (int q = 0; q < kChunks; ++q) {
-      chunk_landed(q, sh.staged);
-      const Chunk ch = chunk_of(q, sh.sweeps);
-      if (!ln.active) continue;
-#pragma unroll 2
-      for (int i = ch.first; i < ch.last; ++i) {
-        const int px = ln.row + i * ln.rows;
-        if (px >= ln.hi - ln.lo) break;
-        const long long at = static_cast<long long>(px) * sh.c + ln.c0;
-        float xv[E], gv[E];
-        load_any<T, E>(xs + at, xv);
-        load_any<T, E>(gs + at, gv);
+    // sums of dz and dz * (z - mean), and with the fold of z - mean
+    {
+      Bias<T, E> bc;
+      if constexpr (kFold) bc = bias_at<T, E>(cbs, ln.active ? ln.c0 : 0);
+      T* z_out = sh.staged ? run_x : nullptr;  // z over x, for pass 2
+      for (int q = 0; q < kChunks; ++q) {
+        chunk_landed(q, sh.staged);
+        const Chunk ch = chunk_of(q, sh.sweeps);
+        if (!ln.active) continue;
+        // with the fold, one pixel at a time: two would spill
+#pragma unroll(kFold ? 1 : 2)
+        for (int i = ch.first; i < ch.last; ++i) {
+          const int px = ln.row + i * ln.rows;
+          if (px >= ln.hi - ln.lo) break;
+          const long long at = static_cast<long long>(px) * sh.c + ln.c0;
+          float xv[E], gv[E];
+          if constexpr (kFold)
+            load_folded<T, E>(xs + at, bc, z_out ? z_out + at : nullptr, xv);
+          else
+            load_any<T, E>(xs + at, xv);
+          load_any<T, E>(gs + at, gv);
 #pragma unroll
-        for (int e = 0; e < E; ++e) {
-          const float dz = passes(pre_relu(xv[e], f[e])) ? gv[e] : 0.0f;
-          acc[e].x += dz;
-          acc[e].y = fmaf(dz, xv[e] - mean[e], acc[e].y);
+          for (int e = 0; e < E; ++e) {
+            const float dz = passes(pre_relu(xv[e], f[e])) ? gv[e] : 0.0f;
+            const float d = xv[e] - mean[e];
+            acc[e].x += dz;
+            acc[e].y = fmaf(dz, d, acc[e].y);
+            if constexpr (kFold) acc[e].z += d;
+          }
         }
       }
     }
@@ -928,13 +1169,24 @@ gn_relu_bwd_nhwc(const T* __restrict__ dy, const T* __restrict__ x,
     push(cluster, ranks, rank, gw, in, groups);
     cluster.sync();
     // dx's group terms: rstd * sum(gamma dz) / m, and rstd *
-    // sum(gamma dz xhat) / m times rstd, for x - mean in place of xhat
+    // sum(gamma dz xhat) / m times rstd, for z - mean in place of xhat
     for (int g = threadIdx.x; g < groups; g += kNhwcThreads) {
       const float2 t = ranks_sum(in, ranks, groups, g);
       const float r = stat[g].y;
       terms[g] = make_float2(r * (t.x * inv_m), r * (r * (r * (t.y * inv_m))));
     }
     __syncthreads();
+    if constexpr (kFold) {
+      // this run's (n, c) sums of dL/dx, of pass 2's a dz - ((z - mean) kb
+      // + ka) a value
+      float* row_cb = pcb + (n * ranks + rank) * sh.c;
+      const float cnt = static_cast<float>(ln.hi - ln.lo);
+      for (int c = threadIdx.x; c < sh.c; c += kNhwcThreads) {
+        const float2 st = stat[c / sh.cg], k = terms[c / sh.cg];
+        const float a = __fmul_rn(__ldg(gamma + c), st.y);
+        row_cb[c] = fmaf(a, chan[c].x, -fmaf(chan[c].z, k.y, k.x * cnt));
+      }
+    }
     float ka[E], kb[E];
 #pragma unroll
     for (int e = 0; e < E; ++e) {
@@ -943,14 +1195,20 @@ gn_relu_bwd_nhwc(const T* __restrict__ dy, const T* __restrict__ x,
       kb[e] = k.y;
     }
     // pass 2: dx = rstd * (gamma dz - sum(gamma dz) / m - xhat *
-    // sum(gamma dz xhat) / m)
+    // sum(gamma dz xhat) / m); z refolded where x is not staged
     T* ds = dx + base + first;
-    if (ln.active) {
+    const auto pass2 = [&](auto refold) {
+      Bias<T, E> bc;
+      if constexpr (decltype(refold)::value)
+        bc = bias_at<T, E>(cbs, ln.active ? ln.c0 : 0);
 #pragma unroll 2
       for (int px = ln.row; px < ln.hi - ln.lo; px += ln.rows) {
         const long long at = static_cast<long long>(px) * sh.c + ln.c0;
         float xv[E], gv[E];
-        load_any<T, E>(xs + at, xv);
+        if constexpr (decltype(refold)::value)
+          load_folded<T, E>(xs + at, bc, nullptr, xv);
+        else
+          load_any<T, E>(xs + at, xv);
         load_any<T, E>(gs + at, gv);
 #pragma unroll
         for (int e = 0; e < E; ++e) {
@@ -959,6 +1217,12 @@ gn_relu_bwd_nhwc(const T* __restrict__ dy, const T* __restrict__ x,
         }
         store<T, E>(ds + at, xv);
       }
+    };
+    if (ln.active) {
+      if (kFold && !sh.staged)
+        pass2(std::true_type{});
+      else
+        pass2(std::false_type{});
     }
     __syncthreads();  // the runs are off every pass: the next copy may go
   }
@@ -984,85 +1248,107 @@ bool valid(int dtype, int sms, long long n, int c, int groups, int hw) {
          n * groups < (1LL << 31);
 }
 
-template <typename T, int R>
+template <typename T, int R, bool kFold>
 void launch_held(long long count, const void* x, const void* gamma,
-                 const void* beta, void* y, void* mean, void* rstd,
-                 int groups, int cg, int hw, float eps, cudaStream_t s) {
-  gn_relu_fwd_held<T, R><<<static_cast<unsigned>(count), kThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<T*>(y),
-      static_cast<float*>(mean), static_cast<float*>(rstd), groups, cg, hw,
-      eps);
+                 const void* beta, const void* cb, void* y, void* mean,
+                 void* rstd, int groups, int cg, int hw, float eps,
+                 cudaStream_t s) {
+  gn_relu_fwd_held<T, R, kFold>
+      <<<static_cast<unsigned>(count), kThreads, 0, s>>>(
+          static_cast<const T*>(x), static_cast<const float*>(gamma),
+          static_cast<const float*>(beta), static_cast<const T*>(cb),
+          static_cast<T*>(y), static_cast<float*>(mean),
+          static_cast<float*>(rstd), groups, cg, hw, eps);
 }
 
-template <typename T>
+template <typename T, bool kFold>
 void launch_fwd(bool vec, int sms, long long count, const void* x,
-                const void* gamma, const void* beta, void* y, void* mean,
-                void* rstd, int groups, int cg, int hw, float eps,
+                const void* gamma, const void* beta, const void* cb, void* y,
+                void* mean, void* rstd, int groups, int cg, int hw, float eps,
                 cudaStream_t s) {
   constexpr int E = Elems<T>::kVec;
   const long long m = static_cast<long long>(cg) * hw;
   if (vec) {
     const long long per_thread = (m / E + kThreads - 1) / kThreads;
     if (per_thread <= 1)
-      return launch_held<T, 1>(count, x, gamma, beta, y, mean, rstd, groups,
-                               cg, hw, eps, s);
+      return launch_held<T, 1, kFold>(count, x, gamma, beta, cb, y, mean,
+                                      rstd, groups, cg, hw, eps, s);
     if (per_thread <= 2)
-      return launch_held<T, 2>(count, x, gamma, beta, y, mean, rstd, groups,
-                               cg, hw, eps, s);
+      return launch_held<T, 2, kFold>(count, x, gamma, beta, cb, y, mean,
+                                      rstd, groups, cg, hw, eps, s);
     if (per_thread <= 4)
-      return launch_held<T, 4>(count, x, gamma, beta, y, mean, rstd, groups,
-                               cg, hw, eps, s);
+      return launch_held<T, 4, kFold>(count, x, gamma, beta, cb, y, mean,
+                                      rstd, groups, cg, hw, eps, s);
     if (per_thread <= 8)
-      return launch_held<T, 8>(count, x, gamma, beta, y, mean, rstd, groups,
-                               cg, hw, eps, s);
+      return launch_held<T, 8, kFold>(count, x, gamma, beta, cb, y, mean,
+                                      rstd, groups, cg, hw, eps, s);
     if (per_thread <= kMaxHeld)
-      return launch_held<T, kMaxHeld>(count, x, gamma, beta, y, mean, rstd,
-                                      groups, cg, hw, eps, s);
+      return launch_held<T, kMaxHeld, kFold>(count, x, gamma, beta, cb, y,
+                                             mean, rstd, groups, cg, hw, eps,
+                                             s);
   }
   const unsigned blocks =
       persistent_blocks(count, sms, m * static_cast<long long>(sizeof(T)));
   const auto* xi = static_cast<const T*>(x);
   const auto* g = static_cast<const float*>(gamma);
   const auto* b = static_cast<const float*>(beta);
+  const auto* cbi = static_cast<const T*>(cb);
   auto* yo = static_cast<T*>(y);
   auto* mo = static_cast<float*>(mean);
   auto* ro = static_cast<float*>(rstd);
   const int cnt = static_cast<int>(count);
   if (vec)
-    gn_relu_fwd<T, E><<<blocks, kThreads, 0, s>>>(xi, g, b, yo, mo, ro, cnt,
-                                                  groups, cg, hw, eps);
+    gn_relu_fwd<T, E, kFold><<<blocks, kThreads, 0, s>>>(
+        xi, g, b, cbi, yo, mo, ro, cnt, groups, cg, hw, eps);
   else
-    gn_relu_fwd<T, 1><<<blocks, kThreads, 0, s>>>(xi, g, b, yo, mo, ro, cnt,
-                                                  groups, cg, hw, eps);
+    gn_relu_fwd<T, 1, kFold><<<blocks, kThreads, 0, s>>>(
+        xi, g, b, cbi, yo, mo, ro, cnt, groups, cg, hw, eps);
 }
 
-template <typename T>
-void launch_bwd(bool vec, int sms, long long count, const void* dy,
-                const void* x, const void* mean, const void* rstd,
-                const void* gamma, const void* beta, void* dx, void* part,
-                int groups, int cg, int hw, cudaStream_t s) {
-  constexpr int E = Elems<T>::kVec;
+template <typename T, bool kFold>
+cudaError_t launch_bwd(bool vec, int sms, long long count, const void* dy,
+                       const void* x, const void* mean, const void* rstd,
+                       const void* gamma, const void* beta, const void* cb,
+                       void* dx, void* part, void* pcb, int groups, int cg,
+                       int hw, cudaStream_t s) {
   const int parts = cg < kWarps ? kWarps / cg : 1;
-  const size_t smem = sizeof(float2) * static_cast<size_t>(cg) * parts;
+  const size_t smem =
+      (kFold ? sizeof(float2) + sizeof(float) : sizeof(float2)) *
+      static_cast<size_t>(cg) * parts;
   const unsigned blocks = persistent_blocks(
       count, sms, 2 * static_cast<long long>(cg) * hw *
                       static_cast<long long>(sizeof(T)));
-  const auto* gi = static_cast<const T*>(dy);
-  const auto* xi = static_cast<const T*>(x);
-  const auto* mi = static_cast<const float*>(mean);
-  const auto* ri = static_cast<const float*>(rstd);
-  const auto* g = static_cast<const float*>(gamma);
-  const auto* b = static_cast<const float*>(beta);
-  auto* o = static_cast<T*>(dx);
-  auto* p = static_cast<float2*>(part);
-  const int cnt = static_cast<int>(count);
-  if (vec)
-    gn_relu_bwd<T, E><<<blocks, kThreads, smem, s>>>(
-        gi, xi, mi, ri, g, b, o, p, cnt, groups, cg, hw, parts);
-  else
-    gn_relu_bwd<T, 1><<<blocks, kThreads, smem, s>>>(
-        gi, xi, mi, ri, g, b, o, p, cnt, groups, cg, hw, parts);
+  const auto kernel = vec ? gn_relu_bwd<T, Elems<T>::kVec, kFold>
+                          : gn_relu_bwd<T, 1, kFold>;
+  // the default 48 KB holds the static scratch and, without the fold, any
+  // group's items; with it, a group of over 4,084 channels asks for more
+  constexpr size_t kStatic = sizeof(float2) * (kWarps + 1);
+  if (smem + kStatic > kDefaultSmem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<blocks, kThreads, smem, s>>>(
+      static_cast<const T*>(dy), static_cast<const T*>(x),
+      static_cast<const float*>(mean), static_cast<const float*>(rstd),
+      static_cast<const float*>(gamma), static_cast<const float*>(beta),
+      static_cast<const T*>(cb), static_cast<T*>(dx),
+      static_cast<float2*>(part), static_cast<float*>(pcb),
+      static_cast<int>(count), groups, cg, hw, parts);
+  return cudaSuccess;
+}
+
+// gn_relu_bwd_params over `rows` rows of part (and pcb with the fold).
+void launch_params(bool fold, const void* part, const void* pcb,
+                   void* dgamma, void* dbeta, void* dcb, int rows, int c,
+                   cudaStream_t s) {
+  const dim3 grid((c + kWarp - 1) / kWarp), block(kWarp, kParamRows);
+  (fold ? gn_relu_bwd_params<true> : gn_relu_bwd_params<false>)
+      <<<grid, block, 0, s>>>(
+          static_cast<const float2*>(part), static_cast<const float*>(pcb),
+          static_cast<float*>(dgamma), static_cast<float*>(dbeta),
+          static_cast<float*>(dcb), rows, c);
 }
 
 // An NHWC launch: the shape, the cluster (CTAs a sample), the blocks and
@@ -1082,7 +1368,7 @@ struct NhwcPlan {
 // kReuseBytes in flight but at least one CTA an SM; where x is staged and
 // dL/dy is not, what the card holds at once keeps dL/dy's runs in L2.
 NhwcPlan plan_nhwc(long long n, int c, int groups, int hw, int e,
-                   int tensors, int elem, bool vec, int sms) {
+                   int tensors, int elem, bool vec, int sms, bool fold) {
   int lg = 0;
   while ((1 << lg) < c / e) ++lg;
   const int rows = kNhwcThreads >> lg;
@@ -1107,13 +1393,20 @@ NhwcPlan plan_nhwc(long long n, int c, int groups, int hw, int e,
     if (clusters > n) clusters = n;
   }
   // the forward's pairs (red, chan, grp, stat) and pivots; the
-  // backward's (red, chan, gw, two slots of pushes, stat, terms)
+  // backward's sums (red, chan: triples with the fold) and pairs (gw, two
+  // slots of pushes, stat, terms)
+  const size_t sums =
+      tensors == 1 ? sizeof(float2) * (red_pairs(lg, e) + c)
+                   : (fold ? sizeof(float3) : sizeof(float2)) *
+                         sums_values(lg, e, c);
   const long long pairs =
-      red_pairs(lg, e) + c +
-      (tensors == 1 ? 2 * groups
-                    : (3 + 2 * static_cast<long long>(cluster)) * groups);
-  const size_t smem = staged * per * sweep_bytes + sizeof(float2) * pairs +
-                      (tensors == 1 ? sizeof(float) * groups : 0);
+      tensors == 1 ? 2 * groups
+                   : (3 + 2 * static_cast<long long>(cluster)) * groups;
+  const long long before_bias =
+      staged * per * sweep_bytes + sums + sizeof(float2) * pairs +
+      (tensors == 1 ? sizeof(float) * groups : 0);
+  const size_t smem = fold ? align16(before_bias) + align16(c * elem)
+                           : before_bias;
   return {{n, hw, c, groups, c / groups, lg, per, staged}, cluster,
           static_cast<unsigned>(clusters * cluster), smem};
 }
@@ -1152,34 +1445,39 @@ cudaError_t launch_cluster(void (*kernel)(Params...), const NhwcPlan& plan,
 template <typename T, int E>
 cudaError_t launch_fwd_nhwc(int sms, long long n, int c, int groups, int hw,
                             float eps, const void* x, const void* gamma,
-                            const void* beta, void* y, void* mean,
-                            void* rstd, cudaStream_t s) {
+                            const void* beta, const void* cb, void* y,
+                            void* mean, void* rstd, cudaStream_t s) {
   const NhwcPlan p = plan_nhwc(n, c, groups, hw, E, 1, sizeof(T), E > 1,
-                               sms);
-  return launch_cluster(gn_relu_fwd_nhwc<T, E>, p, s,
-                        static_cast<const T*>(x),
+                               sms, cb != nullptr);
+  return launch_cluster(cb ? gn_relu_fwd_nhwc<T, E, true>
+                           : gn_relu_fwd_nhwc<T, E, false>,
+                        p, s, static_cast<const T*>(x),
                         static_cast<const float*>(gamma),
-                        static_cast<const float*>(beta), static_cast<T*>(y),
+                        static_cast<const float*>(beta),
+                        static_cast<const T*>(cb), static_cast<T*>(y),
                         static_cast<float*>(mean), static_cast<float*>(rstd),
                         p.sh, eps);
 }
 
-// *cluster: the CTAs a sample, so part's rows, N * *cluster.
+// *cluster: the CTAs a sample, so part's (and pcb's) rows, N * *cluster.
 template <typename T, int E>
 cudaError_t launch_bwd_nhwc(int sms, long long n, int c, int groups, int hw,
                             const void* dy, const void* x, const void* mean,
                             const void* rstd, const void* gamma,
-                            const void* beta, void* dx, void* part,
-                            cudaStream_t s, int* cluster) {
+                            const void* beta, const void* cb, void* dx,
+                            void* part, void* pcb, cudaStream_t s,
+                            int* cluster) {
   const NhwcPlan p = plan_nhwc(n, c, groups, hw, E, 2, sizeof(T), E > 1,
-                               sms);
+                               sms, cb != nullptr);
   *cluster = p.cluster;
   return launch_cluster(
-      gn_relu_bwd_nhwc<T, E>, p, s, static_cast<const T*>(dy),
+      cb ? gn_relu_bwd_nhwc<T, E, true> : gn_relu_bwd_nhwc<T, E, false>, p,
+      s, static_cast<const T*>(dy),
       static_cast<const T*>(x), static_cast<const float*>(mean),
       static_cast<const float*>(rstd), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<T*>(dx),
-      static_cast<float2*>(part), p.sh);
+      static_cast<const float*>(beta), static_cast<const T*>(cb),
+      static_cast<T*>(dx), static_cast<float2*>(part),
+      static_cast<float*>(pcb), p.sh);
 }
 
 // The NHWC shapes: C up to a column a thread, vectors only where C holds
@@ -1193,74 +1491,85 @@ bool valid_nhwc(int dtype, int vec, int sms, long long n, int c, int groups,
                                  : Elems<__nv_bfloat16>::kVec) == 0;
 }
 
+// dL/dcb's partials: with a conv bias, the floats after part's `rows` rows
+// of C float2; none without.
+void* cb_partials(const void* cb, void* part, long long rows, int c) {
+  return cb ? static_cast<float*>(part) + 2 * rows * c : nullptr;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, y, dL/dy, dL/dx alike; gamma, beta,
-// mu, rstd and the parameter gradients are float32). vec: 1 takes 16-byte
-// vector loads and stores, which needs every x, y, dL/dy, dL/dx pointer
-// 16-byte aligned and H * W a multiple of 16 / sizeof(dtype); 0 takes
-// scalar ones. sms: the device's streaming multiprocessors. Launch on
-// `stream`, return cudaGetLastError(); no sync, no allocation.
+// dtype: 0 = float32, 1 = bfloat16 (x, y, dL/dy, dL/dx and cb alike; gamma,
+// beta, mu, rstd and the parameter gradients are float32). cb: the conv's
+// bias (C), or null for none. vec: 1 takes 16-byte vector loads and
+// stores, which needs every x, y, dL/dy, dL/dx pointer 16-byte aligned and
+// H * W a multiple of 16 / sizeof(dtype); 0 takes scalar ones (cb is read
+// a value at a time, at any alignment). sms: the device's streaming
+// multiprocessors. Launch on `stream`, return cudaGetLastError(); no sync,
+// no allocation.
 extern "C" int kp_gn_relu_fwd(int dtype, int vec, int sms, long long n,
                               int c, int groups, int hw, float eps,
                               const void* x, const void* gamma,
-                              const void* beta, void* y, void* mean,
-                              void* rstd, void* stream) {
+                              const void* beta, const void* cb, void* y,
+                              void* mean, void* rstd, void* stream) {
   if (!valid(dtype, sms, n, c, groups, hw))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long count = n * groups;
   if (count == 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
   const int cg = c / groups;
-  if (dtype == 0)
-    launch_fwd<float>(vec != 0, sms, count, x, gamma, beta, y, mean, rstd,
-                      groups, cg, hw, eps, s);
-  else
-    launch_fwd<__nv_bfloat16>(vec != 0, sms, count, x, gamma, beta, y, mean,
-                              rstd, groups, cg, hw, eps, s);
+  using bf16 = __nv_bfloat16;
+  const bool fold = cb != nullptr;
+  (dtype == 0 ? (fold ? launch_fwd<float, true> : launch_fwd<float, false>)
+              : (fold ? launch_fwd<bf16, true> : launch_fwd<bf16, false>))(
+      vec != 0, sms, count, x, gamma, beta, cb, y, mean, rstd, groups, cg, hw,
+      eps, s);
   return static_cast<int>(cudaGetLastError());
 }
 
-// part: scratch of N * C * 2 floats, written before it is read.
+// part: scratch of N * C * 2 floats, 3 with cb, written before it is read;
+// dcb: dL/dcb (C) float32, null without cb.
 extern "C" int kp_gn_relu_bwd(int dtype, int vec, int sms, long long n,
                               int c, int groups, int hw, const void* dy,
                               const void* x, const void* mean,
                               const void* rstd, const void* gamma,
-                              const void* beta, void* dx, void* part,
-                              void* dgamma, void* dbeta, void* stream) {
+                              const void* beta, const void* cb, void* dx,
+                              void* part, void* dgamma, void* dbeta,
+                              void* dcb, void* stream) {
   if (!valid(dtype, sms, n, c, groups, hw))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const long long count = n * groups;
   const int cg = c / groups;
+  using bf16 = __nv_bfloat16;
+  const bool fold = cb != nullptr;
+  void* pcb = cb_partials(cb, part, n, c);
   if (count > 0) {
-    if (dtype == 0)
-      launch_bwd<float>(vec != 0, sms, count, dy, x, mean, rstd, gamma, beta,
-                        dx, part, groups, cg, hw, s);
-    else
-      launch_bwd<__nv_bfloat16>(vec != 0, sms, count, dy, x, mean, rstd,
-                                gamma, beta, dx, part, groups, cg, hw, s);
-    const cudaError_t err = cudaGetLastError();
+    const cudaError_t err =
+        (dtype == 0
+             ? (fold ? launch_bwd<float, true> : launch_bwd<float, false>)
+             : (fold ? launch_bwd<bf16, true> : launch_bwd<bf16, false>))(
+            vec != 0, sms, count, dy, x, mean, rstd, gamma, beta, cb, dx,
+            part, pcb, groups, cg, hw, s);
     if (err != cudaSuccess) return static_cast<int>(err);
+    const cudaError_t launched = cudaGetLastError();
+    if (launched != cudaSuccess) return static_cast<int>(launched);
   }
-  gn_relu_bwd_params<<<(c + kWarp - 1) / kWarp, dim3(kWarp, kParamRows), 0,
-                       s>>>(static_cast<const float2*>(part),
-                            static_cast<float*>(dgamma),
-                            static_cast<float*>(dbeta),
-                            static_cast<int>(n), c);
+  launch_params(fold, part, pcb, dgamma, dbeta, dcb, static_cast<int>(n), c,
+                s);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The NHWC pair: x, y, dL/dy, dL/dx (N, H, W, C) in memory (channels_last
 // (N, C, H, W)); the rest, the arguments and the vector rule as above, save
 // that vec needs C (not H * W) a multiple of 16 / sizeof(dtype), and that
-// the backward's part holds N * 16 * C * 2 floats (a row a CTA of a
-// sample's cluster). C at most 256.
+// the backward's part holds N * 16 * C * 2 floats, 3 with cb (a row a CTA
+// of a sample's cluster). C at most 256.
 extern "C" int kp_gn_relu_fwd_nhwc(int dtype, int vec, int sms, long long n,
                                    int c, int groups, int hw, float eps,
                                    const void* x, const void* gamma,
-                                   const void* beta, void* y, void* mean,
-                                   void* rstd, void* stream) {
+                                   const void* beta, const void* cb, void* y,
+                                   void* mean, void* rstd, void* stream) {
   if (!valid_nhwc(dtype, vec, sms, n, c, groups, hw))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
@@ -1269,12 +1578,12 @@ extern "C" int kp_gn_relu_fwd_nhwc(int dtype, int vec, int sms, long long n,
   const cudaError_t err =
       dtype == 0 ? (vec ? launch_fwd_nhwc<float, 4>
                         : launch_fwd_nhwc<float, 1>)(
-                       sms, n, c, groups, hw, eps, x, gamma, beta, y, mean,
-                       rstd, s)
+                       sms, n, c, groups, hw, eps, x, gamma, beta, cb, y,
+                       mean, rstd, s)
                  : (vec ? launch_fwd_nhwc<bf16, 8>
                         : launch_fwd_nhwc<bf16, 1>)(
-                       sms, n, c, groups, hw, eps, x, gamma, beta, y, mean,
-                       rstd, s);
+                       sms, n, c, groups, hw, eps, x, gamma, beta, cb, y,
+                       mean, rstd, s);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
@@ -1282,29 +1591,28 @@ extern "C" int kp_gn_relu_bwd_nhwc(int dtype, int vec, int sms, long long n,
                                    int c, int groups, int hw, const void* dy,
                                    const void* x, const void* mean,
                                    const void* rstd, const void* gamma,
-                                   const void* beta, void* dx, void* part,
-                                   void* dgamma, void* dbeta, void* stream) {
+                                   const void* beta, const void* cb,
+                                   void* dx, void* part, void* dgamma,
+                                   void* dbeta, void* dcb, void* stream) {
   if (!valid_nhwc(dtype, vec, sms, n, c, groups, hw))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
+  void* pcb = cb_partials(cb, part, n * kMaxCluster, c);
   int cluster = 1;
   if (n > 0) {
     const cudaError_t err =
         dtype == 0 ? (vec ? launch_bwd_nhwc<float, 4>
                           : launch_bwd_nhwc<float, 1>)(
                          sms, n, c, groups, hw, dy, x, mean, rstd, gamma,
-                         beta, dx, part, s, &cluster)
+                         beta, cb, dx, part, pcb, s, &cluster)
                    : (vec ? launch_bwd_nhwc<bf16, 8>
                           : launch_bwd_nhwc<bf16, 1>)(
                          sms, n, c, groups, hw, dy, x, mean, rstd, gamma,
-                         beta, dx, part, s, &cluster);
+                         beta, cb, dx, part, pcb, s, &cluster);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  gn_relu_bwd_params<<<(c + kWarp - 1) / kWarp, dim3(kWarp, kParamRows), 0,
-                       s>>>(static_cast<const float2*>(part),
-                            static_cast<float*>(dgamma),
-                            static_cast<float*>(dbeta),
-                            static_cast<int>(n * cluster), c);
+  launch_params(cb != nullptr, part, pcb, dgamma, dbeta, dcb,
+                static_cast<int>(n * cluster), c, s);
   return static_cast<int>(cudaGetLastError());
 }

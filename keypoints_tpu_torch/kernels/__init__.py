@@ -123,24 +123,44 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     return _plain_pool(x)
 
 
-def group_norm_relu(x: torch.Tensor, norm: torch.nn.GroupNorm
-                    ) -> torch.Tensor:
-    """``relu(norm(x))`` for a conv block's ``(N, C, H, W)`` output, in
-    ``x``'s dtype, statistics and affine in float32 (``norm``'s groups, eps
-    and float32 weight and bias): on CUDA the GroupNorm + ReLU kernels
-    (forward and backward, ``group_norm_cuda.GroupNormReLU``), picked by
-    ``x``'s strides: channels_last (``group_norm_cuda.nhwc``) the NHWC
-    pair, NCHW-contiguous the NCHW pair, anything else made contiguous
-    first; on CPU ``ops.group_norm.group_norm_relu`` on NCHW, whose gradient
-    is autograd's. Differentiable in ``x`` and the affine parameters on
-    both."""
+def group_norm_relu(x: torch.Tensor, norm: torch.nn.GroupNorm,
+                    conv_bias: torch.Tensor | None = None) -> torch.Tensor:
+    """``relu(norm(x + conv_bias))`` for a conv block's ``(N, C, H, W)``
+    output, in ``x``'s dtype, statistics and affine in float32 (``norm``'s
+    groups, eps and float32 weight and bias); ``conv_bias``, where given,
+    the block's conv bias in ``x``'s dtype, for a conv run without it. On
+    CUDA the GroupNorm + ReLU kernels (forward and backward,
+    ``group_norm_cuda.GroupNormReLU``; they add the conv bias as they load
+    ``x`` and give its gradient), picked by ``x``'s strides: channels_last
+    (``group_norm_cuda.nhwc``) the NHWC pair, NCHW-contiguous the NCHW
+    pair, anything else made contiguous first; on CPU
+    ``ops.group_norm.group_norm_relu`` on NCHW, whose gradient is
+    autograd's. Differentiable in ``x``, the affine parameters and the conv
+    bias on both."""
     if _on_cuda(x, "GroupNorm + ReLU"):
         if not group_norm_cuda.nhwc(x):
             x = x.contiguous()
         return group_norm_cuda.group_norm_relu_autograd(
-            x, norm.weight, norm.bias, norm.num_groups, norm.eps)
+            x, norm.weight, norm.bias, norm.num_groups, norm.eps, conv_bias)
     return _plain_group_norm_relu(x.contiguous(), norm.num_groups,
-                                  norm.weight, norm.bias, norm.eps)
+                                  norm.weight, norm.bias, norm.eps,
+                                  conv_bias)
+
+
+def conv_group_norm_relu(conv: torch.nn.Module, norm: torch.nn.GroupNorm,
+                         x: torch.Tensor) -> torch.Tensor:
+    """``relu(norm(conv(x)))`` for a conv block: ``conv`` a
+    ``models.nets.Conv2d`` (``convolve(x, bias)``, ``compute_dtype``). On
+    CUDA the conv runs without its bias and :func:`group_norm_relu` adds it
+    in the GroupNorm + ReLU kernels, bit for bit the add PyTorch would run
+    after a cuDNN conv, and sums its gradient there. On the CPU the conv
+    keeps it: oneDNN adds a bf16 conv's bias inside its float32 sums,
+    before the one rounding, so an add after the conv would change the
+    CPU's results."""
+    bias = conv.bias.to(conv.compute_dtype)
+    if _on_cuda(x, "GroupNorm + ReLU"):
+        return group_norm_relu(conv.convolve(x, None), norm, bias)
+    return group_norm_relu(conv.convolve(x, bias), norm)
 
 
 def extract_and_render(heatmaps: torch.Tensor, out_height: int,

@@ -35,6 +35,12 @@ block's ``x`` in its own dtype for the backward, no float32 copy), on the
 CPU ``relu(norm(x))`` as composed here, under the same dtype rule.
 :class:`GroupNorm` keeps its parameters and its names, so state dicts load
 as before, and its own ``forward`` is the norm alone.
+
+A block's conv and its bias: ``kernels.conv_group_norm_relu``, which on
+CUDA runs the conv without its bias and has the GroupNorm + ReLU kernels
+add it as they load the conv's output, and sum its gradient, in place of
+the separate add and sum PyTorch runs around a cuDNN conv; on the CPU the
+conv keeps it. The heads keep their bias (no norm follows them).
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from keypoints_tpu_torch.kernels import group_norm_relu
+from keypoints_tpu_torch.kernels import conv_group_norm_relu
 
 
 def memory_format(x: torch.Tensor) -> torch.memory_format:
@@ -131,9 +137,15 @@ class Conv2d(nn.Conv2d):
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.convolve(x, self.bias.to(self.compute_dtype))
+
+    def convolve(self, x: torch.Tensor, bias: torch.Tensor | None
+                 ) -> torch.Tensor:
+        """The conv of ``x`` in the compute dtype, plus ``bias`` (the
+        compute dtype) where given: ``None`` leaves the bias to the
+        caller."""
         d = self.compute_dtype
-        return self._conv_forward(x.to(d), _weight(self.weight, d, x),
-                                  self.bias.to(d))
+        return self._conv_forward(x.to(d), _weight(self.weight, d, x), bias)
 
 
 def _up_taps(w: torch.Tensor, dim: int) -> torch.Tensor:
@@ -160,11 +172,12 @@ class UpsampleConv(Conv2d):
                  dtype: torch.dtype = torch.float32):
         super().__init__(in_channels, out_channels, 3, padding=1, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def convolve(self, x: torch.Tensor, bias: torch.Tensor | None
+                 ) -> torch.Tensor:
         d = self.compute_dtype
         k4 = _up_taps(_up_taps(self.weight, 2), 3).transpose(0, 1)
-        return F.conv_transpose2d(x.to(d), _weight(k4, d, x),
-                                  self.bias.to(d), stride=2, padding=1)
+        return F.conv_transpose2d(x.to(d), _weight(k4, d, x), bias,
+                                  stride=2, padding=1)
 
 
 class Encoder(nn.Module):
@@ -192,7 +205,7 @@ class Encoder(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.compute_dtype, memory_format=memory_format(x))
         for conv, norm in self.blocks:
-            x = group_norm_relu(conv(x), norm)
+            x = conv_group_norm_relu(conv, norm, x)
         return x
 
 
@@ -240,5 +253,5 @@ class Decoder(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.compute_dtype, memory_format=memory_format(x))
         for conv, norm in self.blocks:
-            x = group_norm_relu(conv(x), norm)
+            x = conv_group_norm_relu(conv, norm, x)
         return self.head(x)

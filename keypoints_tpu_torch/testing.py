@@ -264,10 +264,12 @@ def group_norm_relu_edge(x: torch.Tensor, weight: torch.Tensor,
     """The values of ``relu(GroupNorm(x))`` at the ReLU's edge
     (``GROUP_NORM_EDGE``) and the most a flip of their masks can move each
     gradient, from the plain f32 statistics: ``(edge, {"dx", "dgamma",
-    "dbeta"})``. A flip at value e changes dx at e by gamma * rstd * dy (so
-    dx is compared off the edge), every dx of e's group by rstd / m *
-    (|gamma dy| + |xhat| |gamma dy xhat|) at e, and dgamma, dbeta of e's
-    channel by |dy xhat| and |dy|."""
+    "dbeta", "dcb"})``. A flip at value e changes dx at e by gamma * rstd *
+    dy (so dx is compared off the edge), every dx of e's group by rstd / m *
+    (|gamma dy| + |xhat| |gamma dy xhat|) at e, dgamma, dbeta of e's
+    channel by |dy xhat| and |dy|, and the sum of a channel's dx (a conv
+    bias's gradient) by the first term where e is in it and the second
+    summed over the channel."""
     n, c = x.shape[:2]
     xhat = torch.nn.functional.group_norm(x.float(), groups, eps=eps)
     per_channel = (slice(None), None, None)
@@ -277,13 +279,17 @@ def group_norm_relu_edge(x: torch.Tensor, weight: torch.Tensor,
     gdy = (dy * weight[per_channel]).reshape(n, groups, -1)
     flat = xhat.reshape(n, groups, -1)
     groups_x = x.float().reshape(n, groups, -1)
-    scale = (groups_x.var(-1, unbiased=False) + eps).rsqrt() / flat.shape[-1]
+    rstd = (groups_x.var(-1, unbiased=False) + eps).rsqrt()
+    scale = rstd / flat.shape[-1]
     room_dx = scale[..., None] * (gdy.abs().sum(-1, keepdim=True)
                                   + flat.abs() * (gdy * flat).abs().sum(
                                       -1, keepdim=True))
-    return edge, {"dx": room_dx.reshape(x.shape),
+    at_edge = (gdy.abs() * rstd[..., None]).reshape(x.shape)
+    room_dx = room_dx.reshape(x.shape)
+    return edge, {"dx": room_dx,
                   "dgamma": (dy * xhat).abs().sum((0, 2, 3)),
-                  "dbeta": dy.abs().sum((0, 2, 3))}
+                  "dbeta": dy.abs().sum((0, 2, 3)),
+                  "dcb": (room_dx + at_edge).sum((0, 2, 3))}
 
 
 def encode_f32(a: np.ndarray) -> str:

@@ -7,8 +7,10 @@ step: they must draw exactly what the fresh generators of
 the warp draws and for the in-step sources. The refactored eager step is
 held to the committed JAX references (no JAX needed: the references are
 files). The ``cuda`` tests hold a small config's graphed step to its eager
-step bit for bit, for both pair modes, a streamed source and the VGG-19
-perceptual loss, and the
+step bit for bit, for both pair modes, a streamed source, the VGG-19
+perceptual loss and celeba128 at the benchmark's paper widths (whose eager
+step folds each of its 23 conv biases into the GroupNorm + ReLU kernels),
+and the
 data-parallel step's graphs to the eager DP step: one NCCL rank in this
 process and two gloo ranks on the card in subprocesses, each two graphs
 around an eager all-reduce; they skip here and
@@ -35,7 +37,8 @@ from keypoints_tpu_torch.data.augment import draw_pair, pair_from_draws
 from keypoints_tpu_torch.data.records import FrameStore, episode_pairs
 from keypoints_tpu_torch.kernels import group_norm_cuda, pool_cuda
 from keypoints_tpu_torch.parallel import dp
-from keypoints_tpu_torch.testing import (grad_norm_tolerance,
+from keypoints_tpu_torch.testing import (GROUP_NORM_BLOCKS,
+                                         grad_norm_tolerance,
                                          random_flax_params, random_images,
                                          reference_draws, share_cpu_threads)
 from keypoints_tpu_torch.training import (TrainStep, init_state,
@@ -58,6 +61,10 @@ TRAIN_KP_TOL = 1e-4
 # the celeba128_vgg19 configuration's taps (portbench/configs)
 VGG19_TAPS = ("vgg19/input", "vgg19/relu1_2", "vgg19/relu2_2",
               "vgg19/relu3_2", "vgg19/relu4_2", "vgg19/relu5_2")
+# celeba128's paper widths, as the benchmark's configuration runs them
+PAPER = {k: tuple(v) for k, v in json.loads(
+    (ROOT / "portbench" / "configs" / "celeba128.json").read_text()
+)["overrides"].items() if k.startswith("model.")}
 
 
 def _small(preset="pong64", **over):
@@ -304,20 +311,27 @@ def _states_equal(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["warp", "temporal", "stream", "perceptual"])
+@pytest.mark.parametrize("case", ["warp", "temporal", "stream", "perceptual",
+                                  "paper"])
 def test_graphed_step_equals_the_eager_step_bit_for_bit(case, cuda,
                                                         tmp_path,
                                                         monkeypatch):
     """1 eager + 4 replayed steps equal 5 eager steps: every parameter,
     Adam's state and each step's metrics. ``perceptual``: the VGG-19
     perceptual loss in bf16 (the frozen trunk, its K6 pools forward and
-    backward) inside the graph. The nets run channels_last: the NHWC
-    GroupNorm + ReLU pair and never the NCHW one, the parameters and their
-    gradients NCHW."""
+    backward) inside the graph; ``paper``: celeba128 at the benchmark's
+    paper widths in bf16 (at 32², batch 4). The nets run channels_last: the
+    NHWC GroupNorm + ReLU pair and never the NCHW one, each launch with its
+    block's conv bias, the parameters and their gradients NCHW."""
     pools = (pool_cuda.launches, pool_cuda.bwd_launches)
-    norms = (group_norm_cuda.launches, group_norm_cuda.nhwc_launches)
+    norms = (group_norm_cuda.launches, group_norm_cuda.nhwc_launches,
+             group_norm_cuda.bias_folds)
     if case == "warp":
         cfg = _small("celeba128", **{"data.dataset": "synthetic_dots"})
+    elif case == "paper":
+        cfg = _small("celeba128", **{**PAPER, "model.groups": 8,
+                                     "data.dataset": "synthetic_dots",
+                                     "train.compute_dtype": "bfloat16"})
     elif case == "perceptual":
         cfg = _small("celeba128", **{
             "data.dataset": "synthetic_dots", "train.loss": "perceptual",
@@ -346,6 +360,8 @@ def test_graphed_step_equals_the_eager_step_bit_for_bit(case, cuda,
             sources[0] if not in_step else (sources[0].sample_at(j)
                                             for j in itertools.count()), 5)):
         eager, want = step(eager, batch)
+        if i == 0:
+            first_folds = group_norm_cuda.bias_folds - norms[2]
         graphed, got = (graph_step(graphed) if in_step
                         else graph_step(graphed, next(stream)))
         assert torch.equal(want["loss"], got["loss"]), i
@@ -354,6 +370,10 @@ def test_graphed_step_equals_the_eager_step_bit_for_bit(case, cuda,
     _states_equal(eager, graphed)
     assert group_norm_cuda.launches == norms[0]
     assert group_norm_cuda.nhwc_launches > norms[1]
+    assert (group_norm_cuda.bias_folds - norms[2]
+            == group_norm_cuda.nhwc_launches - norms[1])
+    if case == "paper":
+        assert first_folds == sum(GROUP_NORM_BLOCKS.values()) == 23
     _layouts_kept(eager)
     _layouts_kept(graphed)
     # 6 eager steps and the capture went through K6 (a replay calls no
