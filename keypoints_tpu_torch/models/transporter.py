@@ -15,6 +15,10 @@ Images are NCHW in [0, 1]; the heatmaps reach the bottleneck as float32
 variants); the
 reconstruction comes back as float32. In bf16 eager torch rounds after each
 op of the transport where XLA may fuse, so the port is held to JAX in f32.
+
+Under a profiler the source branch is the span ``kp.transporter.source``
+and the transport ``kp.transporter.transport`` (``utils.profiling.span``):
+in eager steps, a graph's capture and the loop's eval, not in a replay.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from keypoints_tpu_torch.coords import DEFAULT_ALIGN_CORNERS
 from keypoints_tpu_torch.kernels import extract_and_render, spatial_softmax
 from keypoints_tpu_torch.models.nets import (Decoder, Encoder, KeyNet,
                                              f32_nchw)
+from keypoints_tpu_torch.utils.profiling import span
 
 
 class Transporter(nn.Module):
@@ -78,12 +83,13 @@ class Transporter(nn.Module):
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """(NCHW src, NCHW tgt) → (reconstruction of the target, NCHW f32;
         target keypoints (B, K, 2))."""
-        with torch.no_grad():
+        with span("kp.transporter.source"), torch.no_grad():
             phi_s = self.encoder(x_source)
             _, g_s = self._heat(x_source)
         phi_t = self.encoder(x_target)
         kp_t, g_t = self._heat(x_target)
-        g_s = g_s.to(phi_t.dtype)
-        g_t = g_t.to(phi_t.dtype)
-        transported = (1.0 - g_s) * (1.0 - g_t) * phi_s + g_t * phi_t
+        with span("kp.transporter.transport"):
+            g_s = g_s.to(phi_t.dtype)
+            g_t = g_t.to(phi_t.dtype)
+            transported = (1.0 - g_s) * (1.0 - g_t) * phi_s + g_t * phi_t
         return f32_nchw(self.decoder(transported)), kp_t

@@ -4,11 +4,13 @@ The plain fused bottleneck against the Pallas ``softargmax_raster_fused`` in
 interpret mode (forward and VJP, both variants); the ``amax`` heat mask's
 gradient on tied maps against ``jnp.max``'s; the Transporter's forward and
 parameter gradients (the stop-gradient recipe) and 3 temporal-mode train
-steps at narrow widths, both variants; the parameter tree; serving a
+steps at narrow widths, both variants, and the forward and gradients
+at transporter128's RGB six-block structure; the parameter tree; serving a
 Transporter; scripted Pong and moving dots on JAX's draws. Same
 numpy-seeded params (``keypoints_tpu_torch.testing``) and inputs into both
 packages; on the CPU the port runs its kernels' plain versions. Every JAX
-run is made once, in the module fixture ``jax_ref``.
+run but the six-block case's is made once, in the module fixture
+``jax_ref``.
 
 ``python tests/test_torch_transporter.py`` rewrites the committed JAX
 reference ``tests/data/torch_port_transporter_atari_train.json``: 3
@@ -265,6 +267,45 @@ def test_forward_and_param_grads_match_jax(jax_ref, variant):
     np.testing.assert_allclose(kp.detach().numpy(), kp_j, rtol=0, atol=1e-4)
     got = {k: p.grad.numpy() for k, p in model.named_parameters()}
     assert set(got) == set(grads_j)
+    for name, want in grads_j.items():
+        np.testing.assert_allclose(got[name], want, rtol=0, atol=2e-5,
+                                   err_msg=name)
+
+
+#: the structure of ``portbench/configs/transporter128.json`` cut small, as
+#: test_torch_transporter128.py holds it against the benchmark's plain
+#: reference: RGB, six blocks at strides 1-1-2-1-2-1 (8² maps), K 3
+RGB_SIX = {"data.channels": 3, "data.image_size": 32,
+           "model.num_keypoints": 3, "model.out_channels": 3,
+           "model.encoder_filters": (8, 8, 16, 16, 32, 32),
+           "model.encoder_strides": (1, 1, 2, 1, 2, 1),
+           "model.decoder_filters": (32, 16, 16, 8, 8),
+           "model.decoder_upsample": (False, True, False, True, False),
+           "model.softmax_variant": "marginal",
+           "train.compute_dtype": "float32", "train.batch_size": 3}
+
+
+def test_rgb_six_block_forward_and_param_grads_match_jax():
+    """The transporter128 structure: keypoints and every parameter
+    gradient of the L2 loss within the bars of
+    :func:`test_forward_and_param_grads_match_jax`; the reconstruction
+    within 1e-4 of its largest value, since eleven GroupNorm blocks of
+    random weights amplify float32's rounding (one ulp of noise on the
+    frames alone moves it by 3e-6 of that value; it reads 3.1e-5)."""
+    jcfg, cfg = _cfgs(RGB_SIX)
+    params = random_flax_params(cfg, 0)
+    src, tgt = random_images(3, cfg, 1), random_images(3, cfg, 2)
+    recon_j, kp_j, grads_j = _jax_forward_and_grads(jcfg, params, src, tgt)
+    model = _port_model(cfg, params)
+    x_t = torch.from_numpy(tgt)
+    recon, kp = model(torch.from_numpy(src), x_t)
+    ((recon - x_t) ** 2).mean().backward()
+    assert recon.shape == (3, 3, 32, 32) and kp.shape == (3, 3, 2)
+    np.testing.assert_allclose(recon.detach().numpy(), recon_j, rtol=0,
+                               atol=1e-4 * np.abs(recon_j).max())
+    np.testing.assert_allclose(kp.detach().numpy(), kp_j, rtol=0, atol=1e-4)
+    got = {k: p.grad.numpy() for k, p in model.named_parameters()}
+    assert set(got) == set(grads_j) and len(got) > 40
     for name, want in grads_j.items():
         np.testing.assert_allclose(got[name], want, rtol=0, atol=2e-5,
                                    err_msg=name)
